@@ -1,0 +1,23 @@
+"""Quantixar core in PyTorch: the default collection path (unquantized HNSW
+and flat engines, the bulk builder, the wide-beam search)."""
+
+from .distances import (available_metrics, get_metric, normalize,
+                        pairwise_cosine, pairwise_dot, pairwise_l2)
+from .engine import EngineConfig, QuantixarEngine
+from .executor import AnnParams
+from .flat import flat_search, merge_topk, topk_smallest
+from .hnsw_build import HNSWConfig, PackedHNSW, build, bulk_build, exact_knn
+from .hnsw_bulk import bulk_build_device
+from .hnsw_search import HNSWGraph, recall_at_k, search, to_device
+from .metadata import And, Filter, MetadataStore, Not, Or, Predicate
+from .segment import DeltaSegment, SealPolicy, merge_candidates
+
+__all__ = [
+    "available_metrics", "get_metric", "normalize", "pairwise_cosine",
+    "pairwise_dot", "pairwise_l2", "EngineConfig", "QuantixarEngine",
+    "AnnParams", "flat_search", "merge_topk", "topk_smallest", "HNSWConfig",
+    "PackedHNSW", "build", "bulk_build", "exact_knn", "bulk_build_device",
+    "HNSWGraph", "recall_at_k", "search", "to_device", "And", "Filter",
+    "MetadataStore", "Not", "Or", "Predicate", "DeltaSegment", "SealPolicy",
+    "merge_candidates",
+]

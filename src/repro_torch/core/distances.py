@@ -1,0 +1,70 @@
+"""Distance metrics (paper §I, §III-A) in PyTorch: cosine (the default), L2
+and inner product, as in the JAX package's ``repro.core.distances``.
+
+Queries ``(Q, D)`` against a corpus ``(N, D)`` give a ``(Q, N)`` distance
+matrix; smaller is closer for every metric (similarities are negated), so
+top-k code is metric-agnostic.  Hamming comes with the BQ slice.  The
+products are plain ``torch.matmul`` outside any kernel, in full fp32 (the
+engine module turns TF32 off).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+
+#: Registry of metric name -> pairwise fn (queries (Q,D), corpus (N,D)) -> (Q,N)
+_METRICS: Dict[str, Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = {}
+
+
+def register_metric(name: str):
+    def deco(fn):
+        _METRICS[name] = fn
+        return fn
+
+    return deco
+
+
+def get_metric(name: str) -> Callable[[torch.Tensor, torch.Tensor],
+                                      torch.Tensor]:
+    try:
+        return _METRICS[name]
+    except KeyError:
+        raise ValueError(f"unknown metric {name!r}; have {sorted(_METRICS)}")
+
+
+def available_metrics():
+    return sorted(_METRICS)
+
+
+def l2_norm_sq(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    x = x.float()
+    return (x * x).sum(dim)
+
+
+def normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Unit-normalize rows (cosine preprocessing)."""
+    x = x.float()
+    n = torch.sqrt(torch.clamp_min(l2_norm_sq(x), eps))
+    return x / n[..., None]
+
+
+@register_metric("l2")
+def pairwise_l2(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
+    """Squared L2 distances, GEMM formulation, clamped at 0."""
+    q, x = queries.float(), corpus.float()
+    d = l2_norm_sq(q)[:, None] + l2_norm_sq(x)[None, :] - 2.0 * (q @ x.T)
+    return torch.clamp_min(d, 0.0)
+
+
+@register_metric("dot")
+def pairwise_dot(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
+    """Negative inner product (so smaller == more similar)."""
+    return -(queries.float() @ corpus.float().T)
+
+
+@register_metric("cosine")
+def pairwise_cosine(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
+    """Cosine *distance* = 1 - cosine similarity. Default Quantixar metric."""
+    return 1.0 + pairwise_dot(normalize(queries), normalize(corpus))

@@ -1,0 +1,44 @@
+"""Dispatch for the port's kernels.
+
+A tensor on the CPU takes the kernel's plain version (``ref.py``); a tensor
+on a card launches the CUDA kernel, or raises: there is no environment
+switch and no fallback.  ``force_ref=True`` asks for the plain version
+explicitly, which only the tests and ``chip_smoke.py``'s comparison do.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import ref
+from .beam_gather import beam_gather
+from .bulk_prune import pair_gather
+
+
+def _plain(t: torch.Tensor, force_ref: bool) -> bool:
+    return force_ref or t.device.type == "cpu"
+
+
+def beam_gather_distances(q: torch.Tensor, ids: torch.Tensor,
+                          corpus: torch.Tensor, *, mode: str = "l2",
+                          force_ref: bool = False) -> torch.Tensor:
+    """q (Q, D) × ids (Q, L) × corpus (N, D) -> (Q, L) float32 (l2 | dot):
+    every layer-0 distance of the wide-beam search."""
+    if _plain(corpus, force_ref):
+        if mode == "l2":
+            return ref.beam_gather_l2_ref(q, ids, corpus)
+        return ref.beam_gather_dot_ref(q, ids, corpus)
+    return beam_gather(q.float().contiguous(),
+                       ids.to(torch.int32).contiguous(), corpus, mode=mode)
+
+
+def pair_gather_distances(ids: torch.Tensor, corpus: torch.Tensor, *,
+                          mode: str = "l2",
+                          force_ref: bool = False) -> torch.Tensor:
+    """ids (B, C) × corpus (N, D) -> (B, C, C) float32 pairwise distances
+    among each node's gathered rows (l2 | dot): the bulk-prune pair matrix."""
+    if _plain(corpus, force_ref):
+        if mode == "l2":
+            return ref.pair_gather_l2_ref(ids, corpus)
+        return ref.pair_gather_dot_ref(ids, corpus)
+    return pair_gather(ids.to(torch.int32).contiguous(), corpus, mode=mode)
