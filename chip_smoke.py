@@ -23,13 +23,11 @@ or the script exits non-zero.  Before the last line it prints the card's
 name and power limit and one JSON line with each kernel's launches, error,
 time, plain-version time and bound; the last line is the device JSON.  It
 needs a CUDA device and the repository's ``src/`` beside it, and fails
-without either.  ``--n-sift`` / ``--n-fmnist`` shrink the corpora for a
-quick run; the result line then says so.
+without either.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import statistics
@@ -53,12 +51,19 @@ FP32_FLOP_PER_S = 67e12
 RTOL = 2e-4
 ATOL_PER_NORM = 1e-5
 
+N_SIFT = 1_000_000       # SIFT-128's published size (phase A)
+N_FMNIST = 60_000        # Fashion-MNIST-784's published size (phase B)
 K = 10
 EF = 64
-EF_SWEEP = (64, 128, 256, 512)
-RECALL_FLOOR = 0.80
 WIDTH = 4
 QUERY_BATCH = 1024
+# recall@10 floors by phase and ef, each a margin under the recall this
+# script measured on an H100 (PERF.md): at ef=64 to catch a regression of
+# the search itself, and at the ef where the phase first passes 0.80.  The
+# JAX package's own bulk builder stays under 0.80 at ef=64 at these sizes
+# (PERF.md, scripts/recall_witness.py), so 0.80 is held at a larger ef.
+RECALL_FLOORS = {"A": {64: 0.60, 256: 0.82},
+                 "B": {64: 0.35, 512: 0.835}}
 
 
 class SmokeFailure(Exception):
@@ -169,10 +174,14 @@ def kernel_checks(torch, corpora, log):
                 check(bool((err <= tol).all()),
                       f"pair_gather {mode} D={d} C={c}: max err "
                       f"{float(err.max())} over tolerance")
+                # the C x C output is symmetric: the function needs only its
+                # C(C+1)/2 distinct dot products (the diagonal gives the l2
+                # norms), plus for l2 a 3-op epilogue on each; the output
+                # is written whole
                 uniq = int(torch.unique(ids).numel())
+                pairs = b * c * (c + 1) // 2
                 nbytes = uniq * d * 4 + b * c * 4 + b * c * c * 4
-                flops = b * c * c * d * 2 + (b * c * d * 2 if mode == "l2"
-                                             else 0)
+                flops = pairs * d * 2 + (pairs * 3 if mode == "l2" else 0)
                 b_ms, b_by = bound(nbytes, flops)
                 rows.append({
                     "name": "pair_gather", "mode": mode, "B": b, "C": c,
@@ -260,11 +269,9 @@ def run_collection(torch, name, corpus, queries, new_rows, metric, counters,
     log({"build": res})
 
     gt = exact_topk(torch, corpus, queries, metric, K)
-    # recall against ef: the floor of 0.80 is held at the smallest ef of the
-    # sweep that reaches it (at ef=64 the JAX package's own builder stays
-    # under it at these sizes, see PERF.md); ef=64 is reported as such
+    floors = RECALL_FLOORS[name]
     sweep = {}
-    for ef in EF_SWEEP:
+    for ef in (e for e in (64, 128, 256, 512) if e <= max(floors)):
         before = counters.read()
         t0 = time.perf_counter()
         ids, first = search_all(eng, queries, ef, counters)
@@ -277,15 +284,13 @@ def run_collection(torch, name, corpus, queries, new_rows, metric, counters,
                      "launches_first_batch": {
                          k: v - before[k] for k, v in first.items()}}
         log({"search": {"phase": name, "ef": ef, **sweep[ef]}})
-        if sweep[ef]["recall_at_10"] >= RECALL_FLOOR:
-            break
+        if ef in floors:
+            check(sweep[ef]["recall_at_10"] >= floors[ef],
+                  f"{name}: recall@10 {sweep[ef]['recall_at_10']} at ef={ef}"
+                  f" under its floor {floors[ef]}")
     res["ef_sweep"] = sweep
     res["qps"] = sweep[EF]["qps"]
     res["recall_at_10"] = sweep[EF]["recall_at_10"]
-    res["ef_at_floor"] = ef if sweep[ef]["recall_at_10"] >= RECALL_FLOOR \
-        else None
-    check(res["ef_at_floor"] is not None,
-          f"{name}: recall@10 under {RECALL_FLOOR} up to ef={ef}: {sweep}")
 
     # delta rows: visible at once, each its own nearest neighbour
     n0 = len(corpus)
@@ -339,11 +344,6 @@ class Counters:
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--n-sift", type=int, default=1_000_000)
-    ap.add_argument("--n-fmnist", type=int, default=60_000)
-    args = ap.parse_args()
-
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: nothing run", file=sys.stderr)
@@ -381,10 +381,10 @@ def main() -> int:
                     print(f"ptxas {k}: {line.strip()}")
 
         t0 = time.perf_counter()
-        sift = sift_like(args.n_sift, seed=0)
+        sift = sift_like(N_SIFT, seed=0)
         sift_q = sift_like(10_000, seed=1)
         sift_new = sift_like(5_000, seed=2)
-        fm = fashion_mnist_like(args.n_fmnist, seed=0)
+        fm = fashion_mnist_like(N_FMNIST, seed=0)
         fm_q = fashion_mnist_like(1_000, seed=1)
         fm_new = fashion_mnist_like(1_000, seed=2)
         log({"data_s": time.perf_counter() - t0})
@@ -437,11 +437,9 @@ def main() -> int:
             "at": {k: r[k] for k in ("mode", "Q", "L", "B", "C", "D", "N")
                    if k in r}})
     summary = {
-        "n_sift": args.n_sift, "n_fmnist": args.n_fmnist,
-        "full_size": args.n_sift == 1_000_000 and args.n_fmnist == 60_000,
         "seconds": time.perf_counter() - t_start,
         **{p["phase"]: {k: p[k] for k in (
-            "build_s", "qps", "recall_at_10", "ef_at_floor", "ef_sweep",
+            "build_s", "qps", "recall_at_10", "ef_sweep",
             "mask_0.5_recall_at_10")} for p in (phase_a, phase_b)}}
     print(json.dumps({"summary": summary}, default=float))
     print(card)

@@ -1,0 +1,149 @@
+#!/usr/bin/env python3
+"""Where the time of the port's default collection goes, under torch.profiler.
+
+Builds phase A of ``chip_smoke.py`` (the default collection: cosine, HNSW,
+no quantization, bulk builder, over ``sift_like(1_000_000, seed=0)``) and
+searches its 10,000 queries in batches of 1,024 (k=10, ef=64, width 4), all
+under ``torch.profiler``.  For each build phase (cut at the builder's
+``progress`` marks) and for the search it prints, as one JSON line each:
+
+  wall_ms    host wall time of the span, profiler on;
+  device_ms  summed duration of every device event (kernels, copies, sets)
+             that starts in the span, and busy = device_ms / wall_ms (one
+             stream, so the events do not overlap);
+  beam_gather_ms / pair_gather_ms  the port's two CUDA kernels' share;
+  top        the device events that take most of the span, by name.
+
+Run on a card from the repository root:
+
+    python3 scripts/profile_torch.py              # full size, ~3 minutes
+    python3 scripts/profile_torch.py --n 20000    # a quick look
+
+``--device cpu`` runs the same path with host events only (no device
+numbers), to check the script itself.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+K, EF, WIDTH, QUERY_BATCH = 10, 64, 4, 1024
+KERNELS = ("beam_gather", "pair_gather")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n", type=int, default=1_000_000)
+    ap.add_argument("--queries", type=int, default=10_000)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args()
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.core import EngineConfig, QuantixarEngine
+    from repro_torch.data.synthetic import sift_like
+    from repro_torch.kernels import _build
+
+    on_card = args.device != "cpu"
+    if on_card:
+        _build.build()
+    x = sift_like(args.n, seed=0)
+    q = sift_like(10_000, seed=1)[: args.queries]
+    eng = QuantixarEngine(EngineConfig(dim=x.shape[1], metric="cosine",
+                                       index="hnsw", quantization="none",
+                                       builder="bulk"), device=args.device)
+    eng.add(x)
+
+    # one record_function span per build phase, closed at the phase's last
+    # progress mark and named after it; the device events are assigned to
+    # spans by start time
+    spans, labels = [], {}
+
+    def open_span():
+        rf = record_function(f"span::build{len(labels)}")
+        rf.__enter__()
+        spans.append(rf)
+
+    def close_span(label):
+        labels[f"build{len(labels)}"] = label
+        spans.pop().__exit__(None, None, None)
+
+    def progress(phase, done, total):
+        if done == total:
+            close_span(phase)
+            open_span()
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card
+                                     else [])
+    t0 = time.perf_counter()
+    with profile(activities=acts) as prof:
+        open_span()
+        eng.build(progress=progress)
+        if on_card:
+            torch.cuda.synchronize()
+        close_span("repair+pack")
+        with record_function("span::search"):
+            for lo in range(0, len(q), QUERY_BATCH):
+                eng.search(q[lo: lo + QUERY_BATCH], K, ef=EF,
+                           expansion_width=WIDTH)
+            if on_card:
+                torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
+
+    # the raw events (ns): building the profiler's event tree over ~10^6
+    # device events takes minutes.  A span is its host-side annotation; the
+    # copy the profiler also puts on the device timeline is no device work.
+    ranges, dev = [], []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if name.startswith("span::"):
+            if e.device_type() == DeviceType.CPU:
+                ranges.append((e.start_ns(), e.end_ns(),
+                               labels.get(name[6:], name[6:])))
+        elif e.device_type() == DeviceType.CUDA:
+            dev.append((e.start_ns(), e.duration_ns(), name))
+    ranges.sort()
+    per_span = {name: collections.Counter() for _, _, name in ranges}
+    for start, dur, name in dev:
+        for lo, hi, span in ranges:
+            if lo <= start < hi:
+                per_span[span][name] += dur
+                break
+    total_dev = 0.0
+    for lo, hi, name in ranges:
+        c = per_span[name]
+        wall_ms = (hi - lo) / 1e6
+        dev_ms = sum(c.values()) / 1e6
+        total_dev += dev_ms
+        row = {"span": name, "wall_ms": wall_ms, "device_ms": dev_ms,
+               "busy": dev_ms / wall_ms if wall_ms else None}
+        for k in KERNELS:
+            row[f"{k}_ms"] = sum(v for n, v in c.items() if k in n) / 1e6
+        row["top"] = [[n[:80], v / 1e6] for n, v in c.most_common(6)]
+        print(json.dumps(row), flush=True)
+    print(json.dumps({"wall_s_profiled": wall, "device_events": len(dev),
+                      "device_ms": total_dev,
+                      "analysis_s": time.perf_counter() - t1,
+                      "build_stats": {k: v for k, v in eng.stats().items()
+                                      if k.startswith("build")}}),
+          flush=True)
+    if on_card and not dev:
+        print("profile_torch: the profiler recorded no device events",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -36,6 +36,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import ops
+from ..kernels.ref import gathered_dists
 from .flat import topk_smallest
 from .hnsw_build import (PAD, HNSWConfig, PackedHNSW, ProgressFn, bulk_build,
                          knn_ids_dists, preprocess_vectors)
@@ -271,11 +272,7 @@ def _rowwise_dists(vecs: torch.Tensor, row_ids: torch.Tensor,
         hi = min(lo + chunk, row_ids.shape[0])
         a = vecs[row_ids[lo:hi].long()]
         b = vecs[nbr_ids[lo:hi].reshape(-1).long()].reshape(hi - lo, r, -1)
-        if metric == "l2":
-            diff = b - a[:, None, :]
-            out[lo:hi] = (diff * diff).sum(-1)
-        else:
-            out[lo:hi] = -torch.bmm(b, a[:, :, None])[..., 0]
+        out[lo:hi] = gathered_dists(a, b, metric)
     return out
 
 

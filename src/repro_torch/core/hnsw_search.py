@@ -36,6 +36,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import ops
+from ..kernels.ref import gathered_dists
 from .flat import topk_smallest
 from .hnsw_build import PAD, PackedHNSW, make_dist_fn, preprocess_vectors
 
@@ -71,24 +72,17 @@ def to_device(packed: PackedHNSW, device="cuda"
     return g, int(packed.max_level), metric
 
 
-def _dist_rows(q: torch.Tensor, rows: torch.Tensor, metric: str) -> torch.Tensor:
-    """q (Q, D) vs rows (Q, M, D) -> (Q, M) raw scores (smaller == closer)."""
-    if metric == "l2":
-        d = rows - q[:, None, :]
-        return (d * d).sum(-1)
-    return -torch.bmm(rows, q[:, :, None])[..., 0]   # dot / normalized cosine
-
-
 def _descend(q: torch.Tensor, g: HNSWGraph, layer: int, cur: torch.Tensor,
              metric: str) -> torch.Tensor:
     """Greedy move-to-nearest at one upper layer; cur (Q,) upper slots."""
-    d_cur = _dist_rows(q, g.vectors[g.upper_ids[cur]][:, None, :], metric)[:, 0]
+    d_cur = gathered_dists(q, g.vectors[g.upper_ids[cur]][:, None, :],
+                           metric)[:, 0]
     moved = torch.ones_like(cur, dtype=torch.bool)
     while bool(moved.any()):
         nbrs = g.upper_adj[cur, layer]                  # (Q, M) upper slots
         valid = nbrs != PAD
         rows = g.vectors[g.upper_ids[nbrs.clamp_min(0)]]   # (Q, M, D)
-        d = torch.where(valid, _dist_rows(q, rows, metric), INF)
+        d = torch.where(valid, gathered_dists(q, rows, metric), INF)
         j = d.argmin(1, keepdim=True)
         dj = d.gather(1, j)[:, 0]
         moved = moved & (dj < d_cur)                    # frozen stay frozen
