@@ -1,22 +1,28 @@
 #!/usr/bin/env python3
-"""Where the time of the port's default collection goes, under torch.profiler.
+"""Where the time of the port's collections goes, under torch.profiler.
 
-Builds phase A of ``chip_smoke.py`` (the default collection: cosine, HNSW,
-no quantization, bulk builder, over ``sift_like(1_000_000, seed=0)``) and
-searches its 10,000 queries in batches of 1,024 (k=10, ef=64, width 4), all
-under ``torch.profiler``.  For each build phase (cut at the builder's
-``progress`` marks) and for the search it prints, as one JSON line each:
+Builds one of ``chip_smoke.py``'s SIFT-size phases over
+``sift_like(1_000_000, seed=0)`` (cosine, HNSW, bulk builder; ``--phase``
+A: no quantization, C: PQ m=16 k=256, D: BQ 256 bits) and searches its
+10,000 queries in batches of 1,024 (k=10, ef=64, width 4; C and D with the
+exact rescore), all under ``torch.profiler``.  For each build phase (cut at
+the engine's and builder's ``progress`` marks: "quantize" is the quantizer's
+training and the corpus's encoding), for the search, and for one batch
+under a ~5 % mask (the flat route) it prints, as one JSON line each:
 
   wall_ms    host wall time of the span, profiler on;
   device_ms  summed duration of every device event (kernels, copies, sets)
              that starts in the span, and busy = device_ms / wall_ms (one
              stream, so the events do not overlap);
-  beam_gather_ms / pair_gather_ms  the port's two CUDA kernels' share;
+  <kernel>_ms  each of the port's CUDA kernels' share (beam_gather,
+             pair_gather, beam_gather_adc, beam_gather_hamming, pq_adc,
+             hamming);
   top        the device events that take most of the span, by name.
 
 Run on a card from the repository root:
 
-    python3 scripts/profile_torch.py              # full size, ~3 minutes
+    python3 scripts/profile_torch.py              # phase A, ~3 minutes
+    python3 scripts/profile_torch.py --phase C    # PQ
     python3 scripts/profile_torch.py --n 20000    # a quick look
 
 ``--device cpu`` runs the same path with host events only (no device
@@ -32,11 +38,21 @@ import os
 import sys
 import time
 
+import numpy as np
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 K, EF, WIDTH, QUERY_BATCH = 10, 64, 4, 1024
-KERNELS = ("beam_gather", "pair_gather")
+QUANT = {"A": "none", "C": "pq", "D": "bq"}
+# each kernel's device function, as the profiler names it (demangled), by
+# a part no other kernel's name contains
+KERNELS = {"beam_gather": "beam_gather_f32_kernel",
+           "pair_gather": "pair_gather_f32_kernel",
+           "beam_gather_adc": "beam_gather_adc_kernel",
+           "beam_gather_hamming": "beam_gather_hamming_kernel",
+           "pq_adc": "pq_adc_kernel",
+           "hamming": "::hamming_kernel"}
 
 
 def main() -> int:
@@ -44,13 +60,15 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--queries", type=int, default=10_000)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--phase", choices=sorted(QUANT), default="A")
     args = ap.parse_args()
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from repro_torch.core import EngineConfig, QuantixarEngine
+    from repro_torch.core import (BQConfig, EngineConfig, PQConfig,
+                                  QuantixarEngine)
     from repro_torch.data.synthetic import sift_like
     from repro_torch.kernels import _build
 
@@ -59,9 +77,10 @@ def main() -> int:
         _build.build()
     x = sift_like(args.n, seed=0)
     q = sift_like(10_000, seed=1)[: args.queries]
-    eng = QuantixarEngine(EngineConfig(dim=x.shape[1], metric="cosine",
-                                       index="hnsw", quantization="none",
-                                       builder="bulk"), device=args.device)
+    eng = QuantixarEngine(EngineConfig(
+        dim=x.shape[1], metric="cosine", index="hnsw",
+        quantization=QUANT[args.phase], pq=PQConfig(m=16, k=256),
+        bq=BQConfig(bits=256), builder="bulk"), device=args.device)
     eng.add(x)
 
     # one record_function span per build phase, closed at the phase's last
@@ -83,6 +102,8 @@ def main() -> int:
             close_span(phase)
             open_span()
 
+    # one batch under a ~5 % mask: the flat route (pq_adc / hamming in C / D)
+    mask5 = np.random.RandomState(7).random_sample(len(x)) < 0.05
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card
                                      else [])
     t0 = time.perf_counter()
@@ -96,6 +117,10 @@ def main() -> int:
             for lo in range(0, len(q), QUERY_BATCH):
                 eng.search(q[lo: lo + QUERY_BATCH], K, ef=EF,
                            expansion_width=WIDTH)
+            if on_card:
+                torch.cuda.synchronize()
+        with record_function("span::flat_route"):
+            eng.search(q[:QUERY_BATCH], K, mask=mask5)
             if on_card:
                 torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -128,11 +153,11 @@ def main() -> int:
         total_dev += dev_ms
         row = {"span": name, "wall_ms": wall_ms, "device_ms": dev_ms,
                "busy": dev_ms / wall_ms if wall_ms else None}
-        for k in KERNELS:
-            row[f"{k}_ms"] = sum(v for n, v in c.items() if k in n) / 1e6
+        for k, part in KERNELS.items():
+            row[f"{k}_ms"] = sum(v for n, v in c.items() if part in n) / 1e6
         row["top"] = [[n[:80], v / 1e6] for n, v in c.most_common(6)]
         print(json.dumps(row), flush=True)
-    print(json.dumps({"wall_s_profiled": wall, "device_events": len(dev),
+    print(json.dumps({"phase": args.phase, "wall_s_profiled": wall, "device_events": len(dev),
                       "device_ms": total_dev,
                       "analysis_s": time.perf_counter() - t1,
                       "build_stats": {k: v for k, v in eng.stats().items()

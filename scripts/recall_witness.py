@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Recall of the default collection, JAX package or PyTorch port, on the CPU.
+"""Recall of a collection, JAX package or PyTorch port, on the CPU.
 
-Builds the default collection (HNSW, no quantization, bulk builder) with one
-package and prints recall@10 and wall seconds at each ef, against an exact
-top-k, over the corpus and queries of one of ``chip_smoke.py``'s phases at a
-smaller n:
+Builds an HNSW collection with the bulk builder (``--quantization`` none,
+pq: m=16 k=256, or bq: 256 bits, the settings of ``chip_smoke.py``'s phases
+C and D) with one package and prints recall@10 and wall seconds at each ef,
+against an exact top-k, over the corpus and queries of one of
+``chip_smoke.py``'s phases at a smaller n; quantized collections also
+report the first pass alone (no exact rescore) at the first ef:
 
   sift    phase A: cosine over ``sift_like(n, seed=0)``, the first
           ``--queries`` rows of ``sift_like(10_000, seed=1)``;
@@ -16,6 +18,8 @@ to each other on the same data:
 
     PYTHONPATH=src python3 scripts/recall_witness.py --package jax --n 200000
     PYTHONPATH=src python3 scripts/recall_witness.py --package torch --n 200000
+    PYTHONPATH=src python3 scripts/recall_witness.py --package jax \
+        --quantization pq --n 20000
 
 Each run prints one JSON line.
 """
@@ -39,15 +43,20 @@ def main() -> None:
     ap.add_argument("--n", type=int, default=200_000)
     ap.add_argument("--queries", type=int, default=1_000)
     ap.add_argument("--ef", type=int, nargs="+", default=[64, 128, 256])
+    ap.add_argument("--quantization", choices=("none", "pq", "bq"),
+                    default="none")
     args = ap.parse_args()
 
     if args.package == "jax":
         from repro.core import recall_at_k
+        from repro.core.bq import BQConfig
         from repro.core.engine import EngineConfig, QuantixarEngine
+        from repro.core.pq import PQConfig
         from repro.data import synthetic
         kw = {}
     else:
-        from repro_torch.core import EngineConfig, QuantixarEngine, recall_at_k
+        from repro_torch.core import (BQConfig, EngineConfig, PQConfig,
+                                      QuantixarEngine, recall_at_k)
         from repro_torch.data import synthetic
         kw = {"device": "cpu"}
 
@@ -65,14 +74,15 @@ def main() -> None:
         d = (q * q).sum(1)[:, None] + (x * x).sum(1)[None] - 2.0 * (q @ x.T)
     gt = np.argsort(d, axis=1, kind="stable")[:, :K]
 
-    eng = QuantixarEngine(EngineConfig(dim=x.shape[1], metric=metric,
-                                       index="hnsw", quantization="none",
-                                       builder="bulk"), **kw)
+    eng = QuantixarEngine(EngineConfig(
+        dim=x.shape[1], metric=metric, index="hnsw",
+        quantization=args.quantization, pq=PQConfig(m=16, k=256),
+        bq=BQConfig(bits=256), builder="bulk"), **kw)
     eng.add(x)
     t0 = time.perf_counter()
     eng.build()
     res = {"package": args.package, "corpus": args.corpus, "n": args.n,
-           "queries": args.queries,
+           "queries": args.queries, "quantization": args.quantization,
            "build_s": time.perf_counter() - t0,
            "build": {k: v for k, v in eng.stats().items()
                      if k.startswith("build") or k == "mean_deg0"}}
@@ -81,6 +91,10 @@ def main() -> None:
         _, ids = eng.search(q, K, ef=ef, expansion_width=WIDTH)
         res[f"ef{ef}"] = {"recall_at_10": recall_at_k(ids, gt),
                           "search_s": time.perf_counter() - t0}
+    if args.quantization != "none":
+        _, ids = eng.search(q, K, ef=args.ef[0], expansion_width=WIDTH,
+                            rescore=False)
+        res[f"ef{args.ef[0]}_first_pass"] = recall_at_k(ids, gt)
     print(json.dumps(res, default=float), flush=True)
 
 

@@ -1,6 +1,8 @@
-"""Quantixar core in PyTorch: the default collection path (unquantized HNSW
-and flat engines, the bulk builder, the wide-beam search)."""
+"""Quantixar core in PyTorch: the HNSW and flat engines, unquantized or with
+PQ / BQ codes (code-domain HNSW search, exact rescore, the quantized flat
+route), the bulk builder and the wide-beam search."""
 
+from .bq import BinaryQuantizer, BQConfig
 from .distances import (available_metrics, get_metric, normalize,
                         pairwise_cosine, pairwise_dot, pairwise_l2)
 from .engine import EngineConfig, QuantixarEngine
@@ -10,6 +12,7 @@ from .hnsw_build import HNSWConfig, PackedHNSW, build, bulk_build, exact_knn
 from .hnsw_bulk import bulk_build_device
 from .hnsw_search import HNSWGraph, recall_at_k, search, to_device
 from .metadata import And, Filter, MetadataStore, Not, Or, Predicate
+from .pq import PQConfig, ProductQuantizer
 from .segment import DeltaSegment, SealPolicy, merge_candidates
 
 __all__ = [
@@ -19,5 +22,6 @@ __all__ = [
     "PackedHNSW", "build", "bulk_build", "exact_knn", "bulk_build_device",
     "HNSWGraph", "recall_at_k", "search", "to_device", "And", "Filter",
     "MetadataStore", "Not", "Or", "Predicate", "DeltaSegment", "SealPolicy",
-    "merge_candidates",
+    "merge_candidates", "PQConfig", "ProductQuantizer", "BQConfig",
+    "BinaryQuantizer",
 ]

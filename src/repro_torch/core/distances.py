@@ -3,9 +3,11 @@ and inner product, as in the JAX package's ``repro.core.distances``.
 
 Queries ``(Q, D)`` against a corpus ``(N, D)`` give a ``(Q, N)`` distance
 matrix; smaller is closer for every metric (similarities are negated), so
-top-k code is metric-agnostic.  Hamming comes with the BQ slice.  The
-products are plain ``torch.matmul`` outside any kernel, in full fp32 (the
-engine module turns TF32 off).
+top-k code is metric-agnostic (Hamming lives with the BQ quantizer,
+``core/bq.py``).  `rowwise` applies the same formulas to each query's own
+gathered rows, batched (the exact rescore).  The products are plain
+``torch.matmul`` outside any kernel, in full fp32 (the engine module turns
+TF32 off).
 """
 
 from __future__ import annotations
@@ -68,3 +70,22 @@ def pairwise_dot(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
 def pairwise_cosine(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
     """Cosine *distance* = 1 - cosine similarity. Default Quantixar metric."""
     return 1.0 + pairwise_dot(normalize(queries), normalize(corpus))
+
+
+def rowwise(metric: str, queries: torch.Tensor,
+            rows: torch.Tensor) -> torch.Tensor:
+    """Each query (Q, D) against its own rows (Q, M, D) -> (Q, M), by the
+    registry metric's formula: what ``get_metric(metric)(q[i:i+1],
+    rows[i])`` gives query by query, in one batched product."""
+    if metric == "cosine":
+        queries, rows = normalize(queries), normalize(rows)
+    q, x = queries.float(), rows.float()
+    dot = torch.bmm(x, q[:, :, None])[..., 0]
+    if metric == "l2":
+        d = l2_norm_sq(q)[:, None] + l2_norm_sq(x) - 2.0 * dot
+        return torch.clamp_min(d, 0.0)
+    if metric == "cosine":
+        return 1.0 + -dot
+    if metric == "dot":
+        return -dot
+    raise ValueError(f"unknown metric {metric!r}; have {sorted(_METRICS)}")

@@ -7,14 +7,16 @@ leaves the order of ties unspecified.  It selects on a unique 64-bit key
 (order-preserving float bits above the column index) with ``torch.topk``,
 so it never sorts a whole row.
 
-`flat_search` is the exact scan (mask, chunked streaming top-k,
-``base_index``) as plain torch: the JAX package leaves this product to XLA,
-and the port leaves it to ``torch.matmul``.
+`scan_topk` is the chunked streaming top-k every scan of the port runs
+(mask, ``base_index``): the exact flat scan, and the PQ and BQ flat routes
+whose blocks come from the ``pq_adc`` and ``hamming`` kernels.
+`flat_search` is the exact scan as plain torch: the JAX package leaves this
+product to XLA, and the port leaves it to ``torch.matmul``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -45,6 +47,33 @@ def merge_topk(d_a: torch.Tensor, i_a: torch.Tensor, d_b: torch.Tensor,
     return top, i.gather(-1, sel)
 
 
+def scan_topk(dist_fn: Callable[[int, int], torch.Tensor], n: int, k: int,
+              chunk: Optional[int] = None,
+              mask: Optional[torch.Tensor] = None,
+              base_index: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k smallest of a (Q, n) distance matrix that ``dist_fn(lo, hi)``
+    gives one column block [lo, hi) at a time, ``chunk`` columns a block
+    (None: one block).  Columns where ``mask`` is False score +inf.  The
+    result equals one `topk_smallest` over the whole matrix, ties included:
+    each block's top-k is merged behind the lower columns already kept.
+
+    Returns (distances (Q, k) ascending, indices + base_index (Q, k) int32).
+    """
+    k = min(k, n)
+    step = n if chunk is None else max(1, chunk)
+    best = None
+    for lo in range(0, n, step):
+        hi = min(lo + step, n)
+        d = dist_fn(lo, hi)
+        if mask is not None:
+            d = d.masked_fill(~mask[None, lo:hi], float("inf"))
+        cd, sel = topk_smallest(d, min(k, hi - lo))
+        cand = (cd, sel + lo)
+        best = cand if best is None else merge_topk(*best, *cand, k)
+    d, idx = best
+    return d, (idx + base_index).to(torch.int32)
+
+
 def flat_search(queries: torch.Tensor, corpus: torch.Tensor, k: int,
                 metric: str = "cosine", chunk: Optional[int] = None,
                 mask: Optional[torch.Tensor] = None,
@@ -57,8 +86,8 @@ def flat_search(queries: torch.Tensor, corpus: torch.Tensor, k: int,
       k: neighbours to return.
       metric: registry name.
       chunk: if set, scan the corpus in chunks of this many rows (bounds the
-        transient (Q, chunk) distance matrix).  Finite results equal the
-        unchunked scan's, ties included.
+        transient (Q, chunk) distance matrix).  Results equal the unchunked
+        scan's, ties included.
       mask: optional (N,) bool — MEVS metadata filter; False rows are
         excluded (distance = +inf).
       base_index: offset added to returned indices (shard-local -> global).
@@ -67,26 +96,6 @@ def flat_search(queries: torch.Tensor, corpus: torch.Tensor, k: int,
       (distances (Q,k) ascending, indices (Q,k) int32).
     """
     pair = get_metric(metric)
-    n = corpus.shape[0]
-    k = min(k, n)
-
-    if chunk is None or chunk >= n:
-        d = pair(queries, corpus)
-        if mask is not None:
-            d = d.masked_fill(~mask[None, :], float("inf"))
-        d, idx = topk_smallest(d, k)
-        return d, (idx + base_index).to(torch.int32)
-
-    q_count = queries.shape[0]
-    best_d = torch.full((q_count, k), float("inf"), device=queries.device)
-    best_i = torch.full((q_count, k), -1, dtype=torch.int32,
-                        device=queries.device)
-    for lo in range(0, n, chunk):
-        hi = min(lo + chunk, n)
-        d = pair(queries, corpus[lo:hi])
-        if mask is not None:
-            d = d.masked_fill(~mask[None, lo:hi], float("inf"))
-        cd, sel = topk_smallest(d, min(k, hi - lo))
-        ci = (sel + lo + base_index).to(torch.int32)
-        best_d, best_i = merge_topk(best_d, best_i, cd, ci, k)
-    return best_d, best_i
+    return scan_topk(lambda lo, hi: pair(queries, corpus[lo:hi]),
+                     corpus.shape[0], k, chunk=chunk, mask=mask,
+                     base_index=base_index)

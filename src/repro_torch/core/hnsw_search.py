@@ -21,10 +21,14 @@ iteration counts are the JAX package's.
                                   and were clear)
   layer-0 distances            -> one fused (Q, B·M0) gather-distance call
                                   per iteration (kernels/ops.py: the
-                                  ``beam_gather`` CUDA kernel on a card)
+                                  ``beam_gather`` CUDA kernel on a card,
+                                  or in code domain ``beam_gather_adc`` /
+                                  ``beam_gather_hamming`` over the PQ codes
+                                  / packed BQ words in ``HNSWGraph.codes``)
 
-Only the float modes "l2" and "dot" exist in this slice; the code-domain
-modes ("adc", "hamming") come with the PQ and BQ slices.
+The code-domain modes descend the upper layers on the float proxy vectors
+(PQ reconstructions under l2, BQ ±1 signs under dot) and evaluate every
+layer-0 distance on the codes, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -54,11 +58,19 @@ class HNSWGraph(NamedTuple):
     upper_adj: torch.Tensor   # (U, L_top, M) int64 upper-slot ids, PAD = -1
     entry_global: int
     entry_upper: int
+    # (N, m) uint8 | int32 PQ codes or (N, W) int32 packed BQ words
+    codes: Optional[torch.Tensor] = None
 
 
-def to_device(packed: PackedHNSW, device="cuda"
+def to_device(packed: PackedHNSW, device="cuda",
+              codes: Optional[np.ndarray] = None
               ) -> Tuple[HNSWGraph, int, str]:
-    """Returns (graph tensors on ``device``, max_level, search metric)."""
+    """Returns (graph tensors on ``device``, max_level, search metric).
+
+    ``codes`` optionally ships the quantized corpus (PQ codes or packed BQ
+    words, the port's dtypes) beside the float proxy vectors, for the
+    code-domain modes ("adc" / "hamming") of :func:`search`.
+    """
     dev = resolve_device(device)
     g = HNSWGraph(
         vectors=torch.as_tensor(np.asarray(packed.vectors, np.float32)).to(dev),
@@ -67,6 +79,7 @@ def to_device(packed: PackedHNSW, device="cuda"
         upper_adj=torch.as_tensor(np.asarray(packed.upper_adj, np.int64)).to(dev),
         entry_global=int(packed.entry_global),
         entry_upper=int(packed.entry_upper),
+        codes=None if codes is None else torch.as_tensor(codes).to(dev),
     )
     metric = "l2" if packed.config.metric == "l2" else "dot"
     return g, int(packed.max_level), metric
@@ -161,20 +174,27 @@ def _beam_search_base(g: HNSWGraph, ep: torch.Tensor, ef: int, width: int,
 def search(g: HNSWGraph, queries: torch.Tensor, *, k: int, ef: int,
            max_level: int, metric: str = "dot",
            expansion_width: int = DEFAULT_EXPANSION_WIDTH,
-           max_iters: Optional[int] = None, with_iters: bool = False):
+           max_iters: Optional[int] = None,
+           q_codes: Optional[torch.Tensor] = None,
+           with_iters: bool = False):
     """Batched HNSW search.
 
     Args:
       g: graph from :func:`to_device`; the search runs on its device.
       queries: (Q, D) — pre-normalize for cosine (the graph stores the corpus
-        normalized; use metric="dot").
+        normalized; use metric="dot").  For the code-domain modes this is
+        the float proxy the upper-layer descent uses (PQ: the normalized
+        query; BQ: its ±1 sign vector).
       k: neighbours to return (k <= ef).
       ef: beam width (result-buffer size).
       max_level: top layer of the graph.
-      metric: "dot" | "l2".
+      metric: "dot" | "l2", or the code-domain modes "adc" / "hamming"
+        (need ``g.codes`` and ``q_codes``).
       expansion_width: candidates popped (and adjacency rows fused) per
         layer-0 iteration; 1 == classic single-pop traversal.
       max_iters: expansion-iteration budget; default 4*ef.
+      q_codes: per-query code-domain payload: (Q, m, k) ADC LUTs for
+        "adc", (Q, W) int32 packed query words for "hamming".
       with_iters: additionally return the (Q,) int32 layer-0 loop-trip
         counters.
 
@@ -186,10 +206,11 @@ def search(g: HNSWGraph, queries: torch.Tensor, *, k: int, ef: int,
         max_iters = 4 * ef
     if k > ef:
         raise ValueError(f"k={k} > ef={ef}")
-    if metric not in ("l2", "dot"):
-        raise NotImplementedError(
-            f"metric {metric!r}: code-domain traversal comes with the PQ/BQ "
-            f"slice (ROADMAP A3)")
+    if metric not in ("l2", "dot", "adc", "hamming"):
+        raise ValueError(f"metric {metric!r}")
+    if metric in ("adc", "hamming") and (g.codes is None or q_codes is None):
+        raise ValueError(f"metric {metric!r} needs g.codes and q_codes")
+    descent_metric = {"adc": "l2", "hamming": "dot"}.get(metric, metric)
     # a beam can't pop more candidates than the buffer holds (tiny corpora)
     width = max(1, min(int(expansion_width), ef))
     dev = g.vectors.device
@@ -199,14 +220,22 @@ def search(g: HNSWGraph, queries: torch.Tensor, *, k: int, ef: int,
 
     slot = torch.full((nq,), g.entry_upper, dtype=torch.int64, device=dev)
     for layer in range(max_level, 0, -1):
-        slot = _descend(queries, g, layer - 1, slot, metric)
+        slot = _descend(queries, g, layer - 1, slot, descent_metric)
     if max_level > 0:
         ep = g.upper_ids[slot]
     else:
         ep = torch.full((nq,), g.entry_global, dtype=torch.int64, device=dev)
 
-    def block_dist(ids):
-        return ops.beam_gather_distances(queries, ids, g.vectors, mode=metric)
+    if metric == "adc":
+        def block_dist(ids):
+            return ops.beam_gather_adc(q_codes, ids, g.codes)
+    elif metric == "hamming":
+        def block_dist(ids):
+            return ops.beam_gather_hamming(q_codes, ids, g.codes).float()
+    else:
+        def block_dist(ids):
+            return ops.beam_gather_distances(queries, ids, g.vectors,
+                                             mode=metric)
 
     d, ids, iters = _beam_search_base(g, ep, ef, width, max_iters, n_words,
                                       block_dist)

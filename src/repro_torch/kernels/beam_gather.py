@@ -8,12 +8,11 @@ the launch and nowhere else, so a run can show it went through the kernel.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
 
-from . import _build
+from . import _build, _launch
 
 MODES = {"l2": 0, "dot": 1}
 
@@ -22,11 +21,8 @@ launches = 0
 
 @functools.cache
 def _fn():
-    fn = _build.load("beam_gather").beam_gather_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _launch.c_fn(_build.load("beam_gather"), "beam_gather_f32",
+                        n_ptrs=4, n_ints=5)
 
 
 def beam_gather(q: torch.Tensor, ids: torch.Tensor, corpus: torch.Tensor, *,
@@ -37,15 +33,10 @@ def beam_gather(q: torch.Tensor, ids: torch.Tensor, corpus: torch.Tensor, *,
     global launches
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}")
-    for name, t in (("q", q), ("ids", ids), ("corpus", corpus)):
-        if t.device.type != "cuda":
-            raise ValueError(f"beam_gather: {name} must be a CUDA tensor, "
-                             f"got {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"beam_gather: {name} must be contiguous")
-    if q.dtype != torch.float32 or corpus.dtype != torch.float32 \
-            or ids.dtype != torch.int32:
-        raise ValueError("beam_gather: q/corpus float32, ids int32")
+    _launch.check_tensors("beam_gather", q=q, ids=ids, corpus=corpus)
+    _launch.check_dtypes("beam_gather", q=(q, torch.float32),
+                         ids=(ids, torch.int32),
+                         corpus=(corpus, torch.float32))
     if q.dim() != 2 or ids.dim() != 2 or corpus.dim() != 2 \
             or ids.shape[0] != q.shape[0] or q.shape[1] != corpus.shape[1]:
         raise ValueError(f"beam_gather: shapes q {tuple(q.shape)}, ids "
@@ -54,11 +45,8 @@ def beam_gather(q: torch.Tensor, ids: torch.Tensor, corpus: torch.Tensor, *,
     out = torch.empty((nq, l), dtype=torch.float32, device=corpus.device)
     if nq == 0 or l == 0:
         return out
-    with torch.cuda.device(corpus.device):
-        stream = torch.cuda.current_stream(corpus.device).cuda_stream
-        err = _fn()(q.data_ptr(), ids.data_ptr(), corpus.data_ptr(),
-                    out.data_ptr(), nq, l, d, n, MODES[mode], stream)
-    if err:
-        raise RuntimeError(f"beam_gather launch failed: CUDA error {err}")
+    _launch.launch("beam_gather", _fn(), corpus.device, q.data_ptr(),
+                   ids.data_ptr(), corpus.data_ptr(), out.data_ptr(), nq, l,
+                   d, n, MODES[mode])
     launches += 1
     return out

@@ -1,0 +1,50 @@
+"""Code-domain fused gather + Hamming distance for the BQ engine's
+wide-beam traversal: the CUDA kernel's wrapper
+(``csrc/beam_gather_hamming.cu``, replacing the JAX package's Pallas
+``beam_gather_hamming_kernel``).
+
+Packed words are int32 tensors holding the uint32 bits (torch has no
+uint32 arithmetic on the CPU); the kernel reads them as uint32.
+``launches`` counts the kernel's launches in this process; it is bumped at
+the launch and nowhere else.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from . import _build, _launch
+
+launches = 0
+
+
+@functools.cache
+def _fn():
+    return _launch.c_fn(_build.load("beam_gather_hamming"),
+                        "beam_gather_hamming_u32", n_ptrs=4, n_ints=4)
+
+
+def beam_gather_hamming(q: torch.Tensor, ids: torch.Tensor,
+                        codes: torch.Tensor) -> torch.Tensor:
+    """q (Q, W) × ids (Q, L) i32 × codes (N, W) -> (Q, L) int32 on the card,
+    words int32 with uint32 bits: Σ_w popcount(codes[ids[q, l], w] ^ q[q, w]).
+    ids must lie in [0, N)."""
+    global launches
+    name = "beam_gather_hamming"
+    _launch.check_tensors(name, q=q, ids=ids, codes=codes)
+    _launch.check_dtypes(name, q=(q, torch.int32), ids=(ids, torch.int32),
+                         codes=(codes, torch.int32))
+    if q.dim() != 2 or ids.dim() != 2 or codes.dim() != 2 \
+            or ids.shape[0] != q.shape[0] or codes.shape[1] != q.shape[1]:
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, ids "
+                         f"{tuple(ids.shape)}, codes {tuple(codes.shape)}")
+    (nq, w), length, n = q.shape, ids.shape[1], codes.shape[0]
+    out = torch.empty((nq, length), dtype=torch.int32, device=q.device)
+    if nq == 0 or length == 0:
+        return out
+    _launch.launch(name, _fn(), q.device, q.data_ptr(), ids.data_ptr(),
+                   codes.data_ptr(), out.data_ptr(), nq, length, w, n)
+    launches += 1
+    return out

@@ -8,12 +8,11 @@ the launch and nowhere else.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
 
-from . import _build
+from . import _build, _launch
 
 MODES = {"l2": 0, "dot": 1}
 MAX_C = 256          # candidates per node the kernel takes
@@ -23,11 +22,8 @@ launches = 0
 
 @functools.cache
 def _fn():
-    fn = _build.load("pair_gather").pair_gather_f32
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _launch.c_fn(_build.load("pair_gather"), "pair_gather_f32",
+                        n_ptrs=3, n_ints=5)
 
 
 def pair_gather(ids: torch.Tensor, corpus: torch.Tensor, *,
@@ -38,14 +34,9 @@ def pair_gather(ids: torch.Tensor, corpus: torch.Tensor, *,
     global launches
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}")
-    for name, t in (("ids", ids), ("corpus", corpus)):
-        if t.device.type != "cuda":
-            raise ValueError(f"pair_gather: {name} must be a CUDA tensor, "
-                             f"got {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"pair_gather: {name} must be contiguous")
-    if corpus.dtype != torch.float32 or ids.dtype != torch.int32:
-        raise ValueError("pair_gather: corpus float32, ids int32")
+    _launch.check_tensors("pair_gather", ids=ids, corpus=corpus)
+    _launch.check_dtypes("pair_gather", ids=(ids, torch.int32),
+                         corpus=(corpus, torch.float32))
     if ids.dim() != 2 or corpus.dim() != 2:
         raise ValueError(f"pair_gather: shapes ids {tuple(ids.shape)}, "
                          f"corpus {tuple(corpus.shape)}")
@@ -55,11 +46,7 @@ def pair_gather(ids: torch.Tensor, corpus: torch.Tensor, *,
     out = torch.empty((b, c, c), dtype=torch.float32, device=corpus.device)
     if b == 0 or c == 0:
         return out
-    with torch.cuda.device(corpus.device):
-        stream = torch.cuda.current_stream(corpus.device).cuda_stream
-        err = _fn()(ids.data_ptr(), corpus.data_ptr(), out.data_ptr(),
-                    b, c, d, n, MODES[mode], stream)
-    if err:
-        raise RuntimeError(f"pair_gather launch failed: CUDA error {err}")
+    _launch.launch("pair_gather", _fn(), corpus.device, ids.data_ptr(),
+                   corpus.data_ptr(), out.data_ptr(), b, c, d, n, MODES[mode])
     launches += 1
     return out

@@ -12,7 +12,11 @@ import torch
 
 from . import ref
 from .beam_gather import beam_gather
+from .beam_gather_adc import beam_gather_adc as _beam_gather_adc
+from .beam_gather_hamming import beam_gather_hamming as _beam_gather_hamming
 from .bulk_prune import pair_gather
+from .hamming import hamming
+from .pq_adc import pq_adc
 
 
 def _plain(t: torch.Tensor, force_ref: bool) -> bool:
@@ -42,3 +46,41 @@ def pair_gather_distances(ids: torch.Tensor, corpus: torch.Tensor, *,
             return ref.pair_gather_l2_ref(ids, corpus)
         return ref.pair_gather_dot_ref(ids, corpus)
     return pair_gather(ids.to(torch.int32).contiguous(), corpus, mode=mode)
+
+
+def beam_gather_adc(lut: torch.Tensor, ids: torch.Tensor,
+                    codes: torch.Tensor, *,
+                    force_ref: bool = False) -> torch.Tensor:
+    """lut (Q, m, k) × ids (Q, L) × codes (N, m) uint8 | int32 -> (Q, L)
+    float32 ADC distances: every layer-0 distance of the PQ search."""
+    if _plain(codes, force_ref):
+        return ref.beam_gather_adc_ref(lut, ids, codes)
+    return _beam_gather_adc(lut.float().contiguous(),
+                            ids.to(torch.int32).contiguous(), codes)
+
+
+def beam_gather_hamming(q: torch.Tensor, ids: torch.Tensor,
+                        codes: torch.Tensor, *,
+                        force_ref: bool = False) -> torch.Tensor:
+    """q (Q, W) × ids (Q, L) × codes (N, W), int32 words holding uint32
+    bits -> (Q, L) int32 Hamming: every layer-0 distance of the BQ search."""
+    if _plain(codes, force_ref):
+        return ref.beam_gather_hamming_ref(q, ids, codes)
+    return _beam_gather_hamming(q.contiguous(),
+                                ids.to(torch.int32).contiguous(), codes)
+
+
+def pq_adc_distances(lut: torch.Tensor, codes: torch.Tensor, *,
+                     force_ref: bool = False) -> torch.Tensor:
+    """lut (Q, m, k) × codes (N, m) -> (Q, N) float32: the PQ flat scan."""
+    if _plain(codes, force_ref):
+        return ref.pq_adc_ref(lut, codes)
+    return pq_adc(lut.float().contiguous(), codes)
+
+
+def hamming_distances(q: torch.Tensor, x: torch.Tensor, *,
+                      force_ref: bool = False) -> torch.Tensor:
+    """q (Q, W) × x (N, W) int32 words -> (Q, N) int32: the BQ flat scan."""
+    if _plain(x, force_ref):
+        return ref.hamming_ref(q, x)
+    return hamming(q.contiguous(), x)

@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the port's CUDA kernels (the correctness contract).
 
-Each function is the batched form of its counterpart in the JAX package's
-``repro.kernels.ref``: the JAX package calls its kernels under ``vmap`` (one
-query, one prune node at a time), the port passes the batch axis to the
-kernel.  The CPU tests run these; ``chip_smoke.py`` holds each CUDA kernel to
+Each function is its counterpart in the JAX package's ``repro.kernels.ref``,
+the gather kernels in batched form: the JAX package calls those under
+``vmap`` (one query, one prune node at a time), the port passes the batch
+axis to the kernel.  Packed BQ words are int32 holding the uint32 bits.
+The CPU tests run these; ``chip_smoke.py`` holds each CUDA kernel to
 its plain version on the card.  Nothing on the main path calls the kernels'
 plain versions when the tensors lie on a card; only ``gathered_dists``, the
 row-wise arithmetic they share, is also plain code of the main path.
@@ -58,3 +59,58 @@ def pair_gather_dot_ref(ids: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor
     """ids (B, C) × corpus (N, D) -> (B, C, C) negated pairwise inner products."""
     rows = corpus[ids.long()]
     return -torch.bmm(rows, rows.transpose(1, 2))
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of the low 32 bits of each integer -> int64 (SWAR on int64:
+    torch has no popcount and no logical shift of int32, so the word is
+    widened and masked before any shift)."""
+    x = x.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def beam_gather_adc_ref(lut: torch.Tensor, ids: torch.Tensor,
+                        codes: torch.Tensor) -> torch.Tensor:
+    """lut (Q, m, k) × ids (Q, L) × codes (N, m) -> (Q, L) float32:
+    Σᵢ lut[q, i, codes[ids[q, l], i]], added for i = 0, 1, ..., m-1 in turn
+    (the CUDA kernel's order)."""
+    rows = codes[ids.long()].long()                  # (Q, L, m)
+    lut = lut.float()
+    acc = lut[:, 0, :].gather(1, rows[:, :, 0])
+    for i in range(1, lut.shape[1]):
+        acc = acc + lut[:, i, :].gather(1, rows[:, :, i])
+    return acc
+
+
+def beam_gather_hamming_ref(q: torch.Tensor, ids: torch.Tensor,
+                            codes: torch.Tensor) -> torch.Tensor:
+    """q (Q, W) × ids (Q, L) × codes (N, W) -> (Q, L) int32 Hamming
+    distances; words are int32 holding uint32 bits."""
+    rows = codes[ids.long()]                         # (Q, L, W)
+    return popcount32(rows ^ q[:, None, :]).sum(-1).to(torch.int32)
+
+
+def pq_adc_ref(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """lut (Q, m, k) × codes (N, m) -> (Q, N) float32 ADC, accumulated one
+    sub-space after the other: the (Q, N) sum is the largest intermediate
+    (the JAX oracle's (m, Q, N) stack would be 64 GB at Q = 1024, N = 1M)."""
+    lut = lut.float()
+    c = codes.long()
+    acc = lut[:, 0, c[:, 0]]
+    for i in range(1, lut.shape[1]):
+        acc = acc + lut[:, i, c[:, i]]
+    return acc
+
+
+def hamming_ref(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """q (Q, W) × x (N, W) -> (Q, N) int32 packed Hamming distances, words
+    int32 holding uint32 bits, accumulated one word after the other (no
+    (Q, N, W) intermediate)."""
+    acc = torch.zeros((q.shape[0], x.shape[0]), dtype=torch.int32,
+                      device=x.device)
+    for w in range(q.shape[1]):
+        acc += popcount32(q[:, w, None] ^ x[None, :, w]).to(torch.int32)
+    return acc

@@ -14,8 +14,12 @@ import torch
 from repro_torch.core import EngineConfig, HNSWConfig, QuantixarEngine
 from repro_torch.data.synthetic import gaussian_mixture
 from repro_torch.kernels import beam_gather as bg_mod
+from repro_torch.kernels import beam_gather_adc as bga_mod
+from repro_torch.kernels import beam_gather_hamming as bgh_mod
 from repro_torch.kernels import bulk_prune as pg_mod
+from repro_torch.kernels import hamming as hm_mod
 from repro_torch.kernels import ops
+from repro_torch.kernels import pq_adc as adc_mod
 
 pytestmark = pytest.mark.cuda
 
@@ -63,6 +67,99 @@ def test_pair_gather(cuda, d, c, mode):
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4 * d)
 
 
+def _codes(rng, n, m, k, dtype):
+    codes = rng.randint(0, k, (n, m))
+    codes[::7] = k - 1                       # the top code (255 at k = 256)
+    return torch.as_tensor(codes.astype(
+        np.uint8 if dtype == "uint8" else np.int32))
+
+
+def _words(rng, n, w):
+    words = rng.randint(-2 ** 31, 2 ** 31, (n, w), dtype=np.int64)
+    words[::5] = -1                          # all-ones words
+    words[1::5] = 0
+    return torch.as_tensor(words.astype(np.int32))
+
+
+def _same_counts(mod, fn):
+    before = mod.launches
+    out = fn()
+    assert mod.launches == before + 1
+    return out
+
+
+# ADC sums add the same floats in the same order (i = 0..m-1) as the plain
+# versions, so the kernels agree to rounding; rtol 1e-6 leaves room for
+# nothing but that.  Hamming is integer arithmetic: exact.
+ADC_TOL = dict(rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("m,k,length,dtype", [
+    (16, 256, 128, "uint8"),    # the PQ search block (width 4 x M0 32)
+    (16, 256, 1, "uint8"),      # the entry-point call (LUT from global)
+    (16, 256, 256, "uint8"),
+    (8, 64, 37, "uint8"),       # m != 16: the generic loop, ragged L
+    (6, 16, 45, "uint8"),
+    (4, 512, 40, "int32"),      # k > 256: int32 codes
+])
+def test_beam_gather_adc(cuda, m, k, length, dtype):
+    rng = np.random.RandomState(m * k + length)
+    n, nq = 500, 33
+    lut = torch.as_tensor(rng.rand(nq, m, k).astype(np.float32), device=cuda)
+    codes = _codes(rng, n, m, k, dtype).to(cuda)
+    ids = torch.as_tensor(_inputs(1, nq, n, 4, length)[2], device=cuda)
+    got = _same_counts(bga_mod, lambda: ops.beam_gather_adc(lut, ids, codes))
+    want = ops.beam_gather_adc(lut, ids, codes, force_ref=True)
+    torch.testing.assert_close(got, want, **ADC_TOL)
+
+
+@pytest.mark.parametrize("w,length", [(8, 128), (8, 1), (4, 37), (3, 20),
+                                      (16, 256)])
+def test_beam_gather_hamming(cuda, w, length):
+    rng = np.random.RandomState(w * length)
+    n, nq = 400, 17
+    q = _words(rng, nq, w).to(cuda)
+    codes = _words(rng, n, w).to(cuda)
+    ids = torch.as_tensor(_inputs(2, nq, n, 4, length)[2], device=cuda)
+    got = _same_counts(bgh_mod,
+                       lambda: ops.beam_gather_hamming(q, ids, codes))
+    want = ops.beam_gather_hamming(q, ids, codes, force_ref=True)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("nq,n,m,k,dtype,offset", [
+    (1024, 5000, 16, 256, "uint8", 0),   # the flat route's query batch
+    (5, 9000, 16, 256, "uint8", 1),      # 1-byte offset: unaligned rows
+    (9, 333, 8, 64, "uint8", 0),
+    (2, 100, 6, 16, "uint8", 0),
+    (3, 700, 4, 512, "int32", 0),
+])
+def test_pq_adc(cuda, nq, n, m, k, dtype, offset):
+    rng = np.random.RandomState(nq + n)
+    lut = torch.as_tensor(rng.rand(nq, m, k).astype(np.float32), device=cuda)
+    codes = _codes(rng, n, m, k, dtype).to(cuda)
+    if offset:
+        buf = torch.empty(codes.numel() + offset, dtype=codes.dtype,
+                          device=cuda)
+        codes = buf[offset:].view(n, m)
+        codes.copy_(_codes(rng, n, m, k, dtype))
+    got = _same_counts(adc_mod, lambda: ops.pq_adc_distances(lut, codes))
+    want = ops.pq_adc_distances(lut, codes, force_ref=True)
+    torch.testing.assert_close(got, want, **ADC_TOL)
+
+
+# W = 8 (256 bits) takes the register path, every other W the generic loop
+@pytest.mark.parametrize("nq,n,w", [(1024, 5000, 8), (33, 129, 4),
+                                    (2, 50, 16), (1, 1, 1), (40, 3000, 3)])
+def test_hamming(cuda, nq, n, w):
+    rng = np.random.RandomState(nq * n + w)
+    q = _words(rng, nq, w).to(cuda)
+    x = _words(rng, n, w).to(cuda)
+    got = _same_counts(hm_mod, lambda: ops.hamming_distances(q, x))
+    want = ops.hamming_distances(q, x, force_ref=True)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("metric", ["cosine", "l2"])
 def test_engine_on_card_matches_cpu(cuda, metric):
     """The default collection built and searched on the card (through both
@@ -80,3 +177,41 @@ def test_engine_on_card_matches_cpu(cuda, metric):
         hits.append(eng.search(q, 10)[1])
     assert bg_mod.launches > before[0] and pg_mod.launches > before[1]
     assert (hits[0] == hits[1]).all(1).mean() >= 0.9
+
+
+@pytest.mark.parametrize("quant", ["pq", "bq"])
+def test_quantized_engine_on_card_matches_cpu(cuda, quant):
+    """A PQ / BQ collection built on the CPU and loaded on the card from its
+    state_dict (the same codebooks, codes and graph) returns the CPU hits
+    through all four code-domain kernels: plain, delta and the ~5 % flat
+    route, with the exact rescore.  The ADC kernels add in the plain
+    versions' order; Hamming is exact."""
+    from repro_torch.core import BQConfig, PQConfig
+    x = gaussian_mixture(3000, 32, n_clusters=15, scale=0.3, seed=1)
+    q = gaussian_mixture(64, 32, n_clusters=15, scale=0.3, seed=2)
+    cfg = EngineConfig(dim=32, metric="cosine", builder="bulk",
+                       quantization=quant, pq=PQConfig(m=8, k=64),
+                       bq=BQConfig(bits=64), hnsw=HNSWConfig(seed=0))
+    cpu = QuantixarEngine(cfg, device="cpu")
+    cpu.add(x[:2900])
+    cpu.build()
+    cpu.add(x[2900:])
+    card = QuantixarEngine.from_state_dict(cfg, cpu.state_dict(),
+                                           device="cuda")
+    mods = (bga_mod, adc_mod) if quant == "pq" else (bgh_mod, hm_mod)
+    before = [m.launches for m in mods]
+    mask = np.random.RandomState(0).rand(3000) < 0.05
+    for queries, kw in ((q, {}), (x[2900:2950], {}), (q, {"mask": mask})):
+        (gd, gi), (wd, wi) = (card.search(queries, 10, **kw),
+                              cpu.search(queries, 10, **kw))
+        # the exact rescore sums a 32-wide dot in another order on the
+        # card: a hit may differ only where its cosine to the query ties,
+        # within fp32 rounding, that of the CPU's hit in the same slot
+        np.testing.assert_allclose(gd, wd, rtol=0, atol=1e-5)
+        r, j = np.nonzero(gi != wi)
+        unit = x / np.linalg.norm(x, axis=1, keepdims=True)
+        qu = queries[r] / np.linalg.norm(queries[r], axis=1, keepdims=True)
+        np.testing.assert_allclose((qu * unit[gi[r, j]]).sum(1),
+                                   (qu * unit[wi[r, j]]).sum(1),
+                                   rtol=0, atol=1e-5)
+    assert all(m.launches > b for m, b in zip(mods, before))

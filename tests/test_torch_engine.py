@@ -22,7 +22,7 @@ from repro.core import Predicate as JPredicate
 from repro.core.engine import EngineConfig as JEngineConfig
 from repro.core.engine import QuantixarEngine as JEngine
 from repro.data.synthetic import gaussian_mixture
-from repro_torch.core import EngineConfig, HNSWConfig, Predicate
+from repro_torch.core import EngineConfig, HNSWConfig, PQConfig, Predicate
 from repro_torch.core import QuantixarEngine
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -169,18 +169,34 @@ class TestConfig:
             to_device(None, "cuda")
 
     @pytest.mark.parametrize("kw,item", [
-        (dict(quantization="pq"), "A3"), (dict(quantization="bq"), "A3"),
+        (dict(quantization="pq", index="ivf"), "A8"),
+        (dict(quantization="bq", index="ivf"), "A8"),
         (dict(index="ivf"), "A8")])
     def test_unported_options_raise(self, kw, item):
+        """IVF is the one option not ported yet, with or without codes;
+        PQ and BQ are (tests/test_torch_quant_engine.py)."""
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             EngineConfig(dim=8, **kw)
+        for quant in ("pq", "bq"):
+            assert EngineConfig(dim=8, quantization=quant).quantization == quant
 
     def test_quantized_state_raises(self):
+        """A state with IVF lists raises; one with PQ codebooks and codes
+        (the JAX layout) loads."""
         state = {"vectors": np.zeros((2, 8), np.float32),
-                 "n": np.array([2]), "pq.codebooks": np.zeros((1, 2, 8))}
-        with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+                 "n": np.array([2]), "ivf.centroids": np.zeros((1, 8))}
+        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
             QuantixarEngine.from_state_dict(EngineConfig(dim=8), state,
                                             device="cpu")
+        state = {"vectors": np.zeros((2, 8), np.float32), "n": np.array([2]),
+                 "dirty": np.array([True]), "meta.__n__": np.array([2]),
+                 "codes": np.zeros((2, 2), np.uint8),
+                 "pq.codebooks": np.zeros((2, 4, 4), np.float32)}
+        eng = QuantixarEngine.from_state_dict(
+            EngineConfig(dim=8, quantization="pq", pq=PQConfig(m=2, k=4)),
+            state, device="cpu")
+        assert eng._pq.codebooks.shape == (2, 4, 4)
+        assert eng._codes.dtype == np.uint8
 
     def test_tf32_off(self):
         import repro_torch.core.engine  # noqa: F401

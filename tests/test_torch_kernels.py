@@ -217,6 +217,10 @@ def test_port_imports_without_jax():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
+        "for m in ('core.pq', 'core.bq', 'kernels.beam_gather_adc',\n"
+        "          'kernels.beam_gather_hamming', 'kernels.pq_adc',\n"
+        "          'kernels.hamming', 'kernels._launch'):\n"
+        "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
