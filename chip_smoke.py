@@ -8,7 +8,7 @@ Run from the repository root with no arguments:
 It builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 against its plain PyTorch version on the card at the main paths' shapes, and
 then drives four collections end to end through
-``repro_torch.core.QuantixarEngine``:
+``repro_torch.core.QuantixarEngine`` and two through the public API:
 
   phase A  cosine, HNSW, no quantization, bulk builder, over a SIFT-like
            corpus at SIFT's published size (1M x 128): build, 10,000 queries
@@ -22,23 +22,35 @@ then drives four collections end to end through
            the build over the reconstructions, code-domain search with the
            exact rescore at ef 64 and 256 and without it at ef 64, delta
            rows, and the masked searches (the ~5 % one scans the codes);
-  phase D  the same with BQ codes (256 bits).
+  phase D  the same with BQ codes (256 bits);
+  phase E  phase A's corpus, queries and ground truth through
+           ``repro_torch.api.Database`` on the card: an exact (flat)
+           cosine collection with keyword, numeric, bool and text fields
+           (string-id upserts timed as rows/s, batched, single-vector
+           through the batcher from 32 threads, filtered, delete and
+           replace, hybrid text + vector), the default HNSW collection
+           (build on first query, recall at ef 64 / 256, delta rows), and
+           save / load of both.
 
 Every phase must pass and every kernel of its path must have launched, or
-the script exits non-zero.  Before the last line it prints the card's name
-and power limit and one JSON line with each kernel's launches, error, time,
-plain-version time and bound; the last line is the device JSON.  It needs a
-CUDA device and the repository's ``src/`` beside it, and fails without
-either.
+the script exits non-zero.  The exact scans of every phase (delta segment,
+flat route, flat index) run the ``l2_distance`` kernel.  Before the last
+line it prints the card's name and power limit and one JSON line with each
+kernel's launches, error, time, plain-version time, bound and library-call
+time; the last line is the device JSON.  It needs a CUDA device and the
+repository's ``src/`` beside it, and fails without either.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -89,11 +101,22 @@ RECALL_FLOORS = {"A": {64: 0.60, 256: 0.82},
 FIRST_PASS_FLOORS = {"C": 0.18, "D": 0.12}
 QUANT = {"A": "none", "B": "none", "C": "pq", "D": "bq"}
 # the kernels each phase's path runs; each must launch in its phase
+# (l2_distance: the delta scan and, in A and B, the exact flat route)
 PHASE_KERNELS = {
-    "A": ("beam_gather", "pair_gather"),
-    "B": ("beam_gather", "pair_gather"),
-    "C": ("beam_gather", "pair_gather", "beam_gather_adc", "pq_adc"),
-    "D": ("beam_gather", "pair_gather", "beam_gather_hamming", "hamming")}
+    "A": ("beam_gather", "pair_gather", "l2_distance"),
+    "B": ("beam_gather", "pair_gather", "l2_distance"),
+    "C": ("beam_gather", "pair_gather", "beam_gather_adc", "pq_adc",
+          "l2_distance"),
+    "D": ("beam_gather", "pair_gather", "beam_gather_hamming", "hamming",
+          "l2_distance"),
+    "E": ("beam_gather", "pair_gather", "l2_distance")}
+# phase E: the exact collection's fields and its checks' sizes
+N_CATEGORIES = 8         # KeywordField("category"): cat-0 .. cat-7
+TITLE_VOCAB = 5_000      # TextField("title"): 4 words from this vocabulary
+UPSERT_BATCH = 50_000
+SINGLE_QUERIES = 2_048   # single-vector queries through the batcher
+SINGLE_THREADS = 32
+EXACT_RECALL_FLOOR = 0.999
 
 
 class SmokeFailure(Exception):
@@ -350,21 +373,98 @@ def quant_kernel_checks(torch, codes, lut, words, q_words, log):
     return rows
 
 
+def l2_kernel_checks(torch, sift_cos, sift_raw, fm, signs, log):
+    """B5 against its plain version at the exact scans' shapes: the flat
+    route's Q = 1,024 against one 65,536-row chunk (cosine rows in dot
+    mode, raw rows in l2), Fashion-MNIST's 60,000 x 784 in both modes, the
+    BQ delta scan's signs against a power-of-two delta pad, and the
+    batcher's buckets (Q = 1, 7, 32) against the 16,960-row last chunk of
+    1M.
+
+    library_ms: one PyTorch call on the same inputs, TF32 off (cuBLAS
+    SGEMM): ``addmm(out, q, x.T, beta=0, alpha=-1)`` for dot and
+    ``cdist(q, x, compute_mode="use_mm_for_euclid_dist")`` for l2, whose
+    square root is ignored; the port never calls either."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.l2 import l2_distance
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    rows = []
+    shapes = [("dot", sift_cos, QUERY_BATCH, FLAT_CHUNK),
+              ("l2", sift_raw, QUERY_BATCH, FLAT_CHUNK),
+              ("l2", fm, QUERY_BATCH, fm.shape[0]),
+              ("dot", fm, QUERY_BATCH, fm.shape[0]),
+              ("dot", signs, QUERY_BATCH, 8192)]
+    last = sift_cos.shape[0] % FLAT_CHUNK          # 16,960 at 1M
+    shapes += [("dot", sift_cos[-last:], nq, last) for nq in (1, 7, 32)]
+    for mode, corpus, nq, n in shapes:
+        x = corpus[:n].contiguous()
+        n, d = x.shape
+        q = x[torch.randint(0, n, (nq,), generator=gen, device="cuda")]
+        q = q + 0.01 * q.abs().mean() * torch.randn(
+            q.shape, generator=gen, device="cuda")
+        plain = ref.l2_distance_ref if mode == "l2" else ref.dot_distance_ref
+        got = l2_distance(q, x, mode=mode)
+        want = plain(q, x)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        tol = RTOL * want.abs() \
+            + ATOL_PER_NORM * q.norm(dim=1)[:, None] * x.norm(dim=1)
+        max_err = float(err.max())
+        check(bool((err <= tol).all()),
+              f"l2_distance {mode} Q={nq} N={n} D={d}: max err "
+              f"{max_err} over tolerance")
+        del got, want, err, tol
+        out = torch.empty((nq, n), device="cuda")
+        library = (lambda: torch.addmm(out, q, x.T, beta=0, alpha=-1)) \
+            if mode == "dot" else (lambda: torch.cdist(
+                q, x, compute_mode="use_mm_for_euclid_dist"))
+        # each input read once, the output written once; 2 flops per
+        # product term, plus for l2 the norms and a 3-op epilogue
+        nbytes = (nq + n) * d * 4 + nq * n * 4
+        flops = 2 * nq * n * d + (2 * (nq + n) * d + 3 * nq * n
+                                  if mode == "l2" else nq * n)
+        b_ms, b_by = bound(nbytes, flops)
+        ms = time_ms(torch, lambda: l2_distance(q, x, mode=mode))
+        rows.append({"name": "l2_distance", "mode": mode, "Q": nq, "N": n,
+                     "D": d, "max_abs_err": max_err, "ms": ms, "plain_ms": time_ms(torch, lambda: plain(q, x)),
+                     "bound_ms": b_ms, "bound_us": b_ms * 1e3,
+                     "bound_by": b_by, "share": b_ms / ms,
+                     "library_ms": time_ms(torch, library)})
+        log(rows[-1])
+        del out, x, q
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases A-D: four collections through the engine
 # ---------------------------------------------------------------------------
 
 def exact_topk(torch, corpus, queries, metric, k, mask=None):
-    """Exact top-k by plain torch.matmul on the card (the recall yardstick),
-    optionally over the rows a mask keeps."""
-    from repro_torch.core.distances import get_metric
+    """Exact top-k by plain torch.matmul on the card (the recall yardstick:
+    the kernels' plain versions, never a kernel under test), optionally
+    over the rows a mask keeps."""
+    from repro_torch.core.distances import normalize
+    from repro_torch.kernels import ref
+
+    def plain(a, b):
+        if metric == "l2":
+            return ref.l2_distance_ref(a, b)
+        d = ref.dot_distance_ref(a, b)
+        return 1.0 + d if metric == "cosine" else d
+
+    def prep(t):
+        return normalize(t) if metric == "cosine" else t
 
     out = []
-    pair = get_metric(metric)
-    corpus_dev = torch.as_tensor(corpus, device="cuda")
+    corpus_dev = prep(torch.as_tensor(corpus, device="cuda"))
     for lo in range(0, len(queries), QUERY_BATCH):
-        q = torch.as_tensor(queries[lo: lo + QUERY_BATCH], device="cuda")
-        d = pair(q, corpus_dev)
+        q = prep(torch.as_tensor(queries[lo: lo + QUERY_BATCH],
+                                 device="cuda"))
+        d = plain(q, corpus_dev)
         if mask is not None:
             d = d.masked_fill(~torch.as_tensor(mask, device="cuda")[None],
                               float("inf"))
@@ -503,17 +603,263 @@ def run_collection(torch, name, corpus, queries, gt, new_rows, metric,
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase E: the public API on the card
+# ---------------------------------------------------------------------------
+
+def exact_payloads(n, seed):
+    """Payloads of the exact collection, made from the seed: a category of
+    8, a price, a flag and a 4-word title from a 5,000-word vocabulary."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    cat = rng.randint(0, N_CATEGORIES, n)
+    price = rng.randint(0, 10_000, n) / 100.0
+    stock = rng.random_sample(n) < 0.7
+    words = rng.randint(0, TITLE_VOCAB, (n, 4))
+    payloads = [{"category": f"cat-{c}", "price": float(p),
+                 "in_stock": bool(b), "title": " ".join(f"t{w}" for w in ws)}
+                for c, p, b, ws in zip(cat, price, stock, words)]
+    return payloads, cat
+
+
+def hit_rows(hits):
+    """Rows of the corpus (ids "<row>") of a batch of hit lists, -1 where a
+    list is short."""
+    import numpy as np
+    out = np.full((len(hits), K), -1, dtype=np.int64)
+    for i, hs in enumerate(hits):
+        for j, h in enumerate(hs[:K]):
+            out[i, j] = int(h.id)
+    return out
+
+
+def query_batches(col, queries, **knobs):
+    """All queries in 2-D batches of QUERY_BATCH through the fluent API;
+    returns (rows, seconds)."""
+    import numpy as np
+    out = []
+    t0 = time.perf_counter()
+    for lo in range(0, len(queries), QUERY_BATCH):
+        q = col.query(queries[lo: lo + QUERY_BATCH]).top_k(K)
+        if "ef" in knobs:
+            q = q.ef(knobs["ef"])
+        out.append(hit_rows(q.run()))
+    return np.concatenate(out), time.perf_counter() - t0
+
+
+def single_queries(col, queries):
+    """Each query alone from SINGLE_THREADS threads (the batcher path);
+    returns (rows, per-query seconds, errors)."""
+    import numpy as np
+    rows = np.full((len(queries), K), -1, dtype=np.int64)
+    lat = [0.0] * len(queries)
+    errors = []
+
+    def worker(tid):
+        for i in range(tid, len(queries), SINGLE_THREADS):
+            t0 = time.perf_counter()
+            try:
+                hits = col.query(queries[i]).top_k(K).run()
+            except Exception as e:          # a failed batch fails the run
+                errors.append(repr(e))
+                continue
+            lat[i] = time.perf_counter() - t0
+            rows[i] = hit_rows([hits])[0]
+
+    threads = [threading.Thread(target=worker, args=(t,))
+               for t in range(SINGLE_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return rows, lat, errors
+
+
+def run_api(torch, corpus, queries, gt, new_rows, phase_a, counters, log):
+    """Phase E: the exact and the default collection through
+    ``repro_torch.api.Database`` on the card, then save and load."""
+    import numpy as np
+
+    from repro_torch.api import (BoolField, Database, KeywordField,
+                                 NumericField, TextField, VectorField)
+    from repro_torch.core import recall_at_k
+
+    n = len(corpus)
+    ids = [str(i) for i in range(n)]
+    res = {"phase": "E", "n": n, "dim": int(corpus.shape[1])}
+    t0 = time.perf_counter()
+    payloads, cat = exact_payloads(n, seed=3)
+    res["payloads_s"] = time.perf_counter() - t0
+    counters.reset()
+    db = Database()                                   # the card
+    exact = db.create_collection(
+        name="exact", vector=VectorField(dim=128, metric="cosine",
+                                         index="flat"),
+        fields=(KeywordField("category"), NumericField("price"),
+                BoolField("in_stock"), TextField("title")))
+    t0 = time.perf_counter()
+    for lo in range(0, n, UPSERT_BATCH):
+        exact.upsert(ids[lo: lo + UPSERT_BATCH], corpus[lo: lo + UPSERT_BATCH],
+                     payloads[lo: lo + UPSERT_BATCH])
+    res["exact_upsert_rows_per_s"] = n / (time.perf_counter() - t0)
+    del payloads
+    log({"api": "exact upsert", **res})
+
+    # batched: every 2-D batch scans the 1M rows in 65,536-row chunks
+    rows, secs = query_batches(exact, queries)
+    torch.cuda.synchronize()
+    res["exact_qps"] = len(queries) / secs
+    res["exact_recall_at_10"] = recall_at_k(rows, gt)
+    check(res["exact_recall_at_10"] >= EXACT_RECALL_FLOOR,
+          f"E: exact batched recall {res['exact_recall_at_10']}")
+
+    # single vectors from 32 threads, coalesced by the batcher
+    single = queries[:SINGLE_QUERIES]
+    before = exact.stats()
+    t0 = time.perf_counter()
+    rows, lat, errors = single_queries(exact, single)
+    secs = time.perf_counter() - t0
+    check(not errors, f"E: single-vector queries failed: {errors[:3]}")
+    after = exact.stats()
+    batches = after["serving_batches_served"] - before["serving_batches_served"]
+    served = after["serving_requests_served"] - before["serving_requests_served"]
+    res["single_qps"] = len(single) / secs
+    res["single_p50_ms"] = float(np.percentile(lat, 50) * 1e3)
+    res["single_p99_ms"] = float(np.percentile(lat, 99) * 1e3)
+    res["single_mean_batch"] = served / max(batches, 1)
+    res["single_recall_at_10"] = recall_at_k(rows, gt[:SINGLE_QUERIES])
+    check(served == len(single), f"E: batcher served {served} requests")
+    check(res["single_mean_batch"] > 1, "E: the batcher never coalesced")
+    check(res["single_recall_at_10"] >= EXACT_RECALL_FLOOR,
+          f"E: single-vector recall {res['single_recall_at_10']}")
+
+    # a metadata filter (1 in 8): every hit matches, exact against a
+    # masked top-k
+    q = queries[:QUERY_BATCH]
+    hits = exact.query(q).filter(category="cat-3").top_k(K).run()
+    check(all(h.payload["category"] == "cat-3" for hs in hits for h in hs),
+          "E: a filtered hit does not match the filter")
+    mask_gt = exact_topk(torch, corpus, q, "cosine", K, mask=(cat == 3))
+    res["filter_recall_at_10"] = recall_at_k(hit_rows(hits), mask_gt)
+    check(res["filter_recall_at_10"] >= EXACT_RECALL_FLOOR,
+          f"E: filtered recall {res['filter_recall_at_10']}")
+    log({"api": "exact queries", **res})
+
+    # deletes and replacing upserts
+    rng = np.random.RandomState(11)
+    picked = rng.choice(n, 2_000, replace=False)
+    gone, replaced = picked[:1_000], picked[1_000:]
+    check(exact.delete([ids[i] for i in gone]) == 1_000, "E: delete count")
+    exact.upsert([ids[i] for i in replaced], new_rows[:1_000],
+                 [{"category": "cat-0", "title": "replaced row"}] * 1_000)
+    check(exact.count() == n - 1_000 and len(exact) == n - 1_000,
+          f"E: count {exact.count()} after 1,000 deletes")
+    gone_set = {ids[i] for i in gone}
+    hits = exact.query(corpus[gone]).top_k(K).run()
+    check(not any(h.id in gone_set for hs in hits for h in hs),
+          "E: a deleted id came back")
+    hits = exact.query(new_rows[:1_000]).top_k(1).run()
+    res["replaced_rank1"] = float(np.mean(
+        [hs[0].id == ids[i] for hs, i in zip(hits, replaced)]))
+    check(res["replaced_rank1"] == 1.0,
+          f"E: replaced ids at rank 1: {res['replaced_rank1']}")
+
+    # hybrid: a BM25 leg over the titles fused with the vector leg by RRF
+    plan = exact.query(corpus[replaced[0]]).text("t17 t4242").top_k(K)
+    hits = plan.run()
+    check(len(hits) > 0 and all(h.id not in gone_set for h in hits),
+          "E: hybrid query returned no hits or a deleted id")
+    res["hybrid_hits"] = len(hits)
+    log({"api": "exact writes", **res})
+
+    # the default collection: cosine, HNSW, bulk builder
+    default = db.create_collection(name="default",
+                                   vector=VectorField(dim=128))
+    t0 = time.perf_counter()
+    for lo in range(0, n, UPSERT_BATCH):
+        default.upsert(ids[lo: lo + UPSERT_BATCH],
+                       corpus[lo: lo + UPSERT_BATCH])
+    res["default_upsert_rows_per_s"] = n / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    default.query(queries[:1]).top_k(K).run()         # builds
+    torch.cuda.synchronize()
+    res["default_build_s"] = time.perf_counter() - t0
+    for ef in (64, 256):
+        rows, secs = query_batches(default, queries, ef=ef)
+        rec = recall_at_k(rows, gt)
+        res[f"default_ef{ef}_recall_at_10"] = rec
+        res[f"default_ef{ef}_qps"] = len(queries) / secs
+        res[f"default_ef{ef}_equals_phase_a"] = \
+            rec == phase_a["ef_sweep"][ef]["recall_at_10"]
+        check(rec >= RECALL_FLOORS["A"][ef],
+              f"E: default recall@10 {rec} at ef={ef} under "
+              f"{RECALL_FLOORS['A'][ef]}")
+    new_ids = [f"new-{i}" for i in range(len(new_rows))]
+    default.upsert(new_ids, new_rows)
+    st = default.stats()
+    check(st["delta_rows"] == len(new_rows) and st["seals"] == 0,
+          "E: new ids did not stay in the delta segment")
+    top = []
+    for lo in range(0, len(new_rows), QUERY_BATCH):
+        top += [hs[0].id for hs in default.query(
+            new_rows[lo: lo + QUERY_BATCH]).top_k(K).run()]
+    res["default_delta_rank1"] = float(np.mean(
+        [a == b for a, b in zip(top, new_ids)]))
+    check(res["default_delta_rank1"] == 1.0,
+          f"E: delta rank-1 rate {res['default_delta_rank1']}")
+    log({"api": "default", **res})
+
+    # persistence: both collections answer the same after save and load
+    probe = queries[:QUERY_BATCH]
+
+    def answers(database):
+        return {name: [[(h.id, h.score) for h in hs] for hs in
+                       database[name].query(probe).top_k(K).run()]
+                for name in ("exact", "default")}
+
+    want = answers(db)
+    tmp = tempfile.mkdtemp(prefix="quantixar-smoke-")
+    try:
+        t0 = time.perf_counter()
+        db.save(tmp)
+        res["save_s"] = time.perf_counter() - t0
+        db.close()
+        del db, exact, default
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        loaded = Database.load(tmp)                   # the card
+        res["load_s"] = time.perf_counter() - t0
+        got = answers(loaded)
+        res["checkpoint_gb"] = sum(
+            os.path.getsize(os.path.join(r, f))
+            for r, _, fs in os.walk(tmp) for f in fs) / 2**30
+        loaded.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name in want:
+        check(got[name] == want[name],
+              f"E: {name} answers differ after save and load")
+    res["launches"] = counters.read()
+    for kname in PHASE_KERNELS["E"]:
+        check(res["launches"][kname] > 0,
+              f"E: kernel {kname} never launched")
+    log({"phase_result": res})
+    torch.cuda.empty_cache()
+    return res
+
+
 class Counters:
     """The kernels' launch counters, read as deltas since the last reset."""
 
     def __init__(self):
         from repro_torch.kernels import (beam_gather, beam_gather_adc,
                                          beam_gather_hamming, bulk_prune,
-                                         hamming, pq_adc)
+                                         hamming, l2, pq_adc)
         self.mods = {"beam_gather": beam_gather, "pair_gather": bulk_prune,
                      "beam_gather_adc": beam_gather_adc,
                      "beam_gather_hamming": beam_gather_hamming,
-                     "pq_adc": pq_adc, "hamming": hamming}
+                     "pq_adc": pq_adc, "hamming": hamming,
+                     "l2_distance": l2}
 
     def reset(self):
         for m in self.mods.values():
@@ -594,6 +940,8 @@ def main() -> int:
                                      (784, fm_dev, ("l2", "dot")),
                                      (BQ_BITS, signs, ("dot",))], log)
         rows += quant_kernel_checks(torch, codes, lut, words, q_words, log)
+        rows += l2_kernel_checks(torch, sift_cos, sift_raw, fm_dev, signs,
+                                 log)
         del sift_raw, sift_cos, fm_dev, pq, bq, codes, lut, words, q_words
         del signs, q_dev
         torch.cuda.empty_cache()
@@ -612,6 +960,8 @@ def main() -> int:
                 ("D", sift, sift_q, gt_sift, sift_new, "cosine")):
             phase[name] = run_collection(torch, name, corpus, q, gt, new,
                                          metric, counters, log)
+        phase["E"] = run_api(torch, sift, sift_q, gt_sift, sift_new,
+                             phase["A"], counters, log)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -629,9 +979,11 @@ def main() -> int:
     # launches: the count in the phase whose path the kernel serves first
     # (A for the unquantized kernels, C for PQ, D for BQ), and per phase.
     # library_ms: embedding_bag for pq_adc and cdist(p=0) for hamming
-    # (quant_kernel_checks); null for the four gathers, since no single
+    # (quant_kernel_checks), addmm for l2_distance in dot mode
+    # (l2_kernel_checks); null for the four gathers, since no single
     # PyTorch call fuses a row gather with its distance, pair matrix, LUT
-    # sum or bit count.
+    # sum or bit count.  l2_distance's launches: phase E, the exact
+    # collection's path.
     main_rows = {
         "beam_gather": (pick("beam_gather", mode="dot", D=128, L=128), "A",
                         "beam_gather.py:98"),
@@ -642,7 +994,9 @@ def main() -> int:
         "beam_gather_hamming": (pick("beam_gather_hamming", L=128), "D",
                                 "beam_gather.py:185"),
         "pq_adc": (pick("pq_adc", N=FLAT_CHUNK), "C", "pq_adc.py:59"),
-        "hamming": (pick("hamming", N=FLAT_CHUNK), "D", "hamming.py:33")}
+        "hamming": (pick("hamming", N=FLAT_CHUNK), "D", "hamming.py:33"),
+        "l2_distance": (pick("l2_distance", mode="dot", D=128,
+                             Q=QUERY_BATCH), "E", "l2.py:62")}
     kernels = []
     for name, (r, home, tpu) in main_rows.items():
         kernels.append({
@@ -663,7 +1017,8 @@ def main() -> int:
             "build_s", "qps", "recall_at_10", "ef_sweep",
             "mask_0.5_recall_at_10", "mask_0.05_recall_at_10",
             "quantize_peak_gb", "build_peak_gb")}
-           for p in phase.values()}}
+           for p in phase.values() if p["phase"] != "E"},
+        "E": {k: v for k, v in phase["E"].items() if k != "launches"}}
     print(json.dumps({"summary": summary}, default=float))
     print(card)
     print(json.dumps({"kernels": kernels}, default=float))

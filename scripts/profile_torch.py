@@ -16,13 +16,22 @@ under a ~5 % mask (the flat route) it prints, as one JSON line each:
              stream, so the events do not overlap);
   <kernel>_ms  each of the port's CUDA kernels' share (beam_gather,
              pair_gather, beam_gather_adc, beam_gather_hamming, pq_adc,
-             hamming);
+             hamming, l2_distance);
+  topk_ms    the share of PyTorch's top-k kernels (names holding "topk");
+  host_ms    wall_ms - device_ms;
   top        the device events that take most of the span, by name.
+
+``--phase E`` profiles the public API instead: an exact (flat) cosine
+collection of the same corpus through ``repro_torch.api.Database``, one
+warm-up batch, then one 1,024-query batch (k=10), which scans the corpus in
+65,536-row chunks through the ``l2_distance`` kernel; its span gives that
+kernel's ms against the top-k's and against the host's.
 
 Run on a card from the repository root:
 
     python3 scripts/profile_torch.py              # phase A, ~3 minutes
     python3 scripts/profile_torch.py --phase C    # PQ
+    python3 scripts/profile_torch.py --phase E    # one exact API batch
     python3 scripts/profile_torch.py --n 20000    # a quick look
 
 ``--device cpu`` runs the same path with host events only (no device
@@ -44,7 +53,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 K, EF, WIDTH, QUERY_BATCH = 10, 64, 4, 1024
-QUANT = {"A": "none", "C": "pq", "D": "bq"}
+QUANT = {"A": "none", "C": "pq", "D": "bq", "E": "none"}
 # each kernel's device function, as the profiler names it (demangled), by
 # a part no other kernel's name contains
 KERNELS = {"beam_gather": "beam_gather_f32_kernel",
@@ -52,7 +61,88 @@ KERNELS = {"beam_gather": "beam_gather_f32_kernel",
            "beam_gather_adc": "beam_gather_adc_kernel",
            "beam_gather_hamming": "beam_gather_hamming_kernel",
            "pq_adc": "pq_adc_kernel",
-           "hamming": "::hamming_kernel"}
+           "hamming": "::hamming_kernel",
+           "l2_distance": "l2_distance_kernel"}
+
+
+def span_rows(prof, labels):
+    """Assign the device events to the host spans by start time and print
+    one JSON row per span; returns (device events, summed device ms)."""
+    from torch.autograd import DeviceType
+
+    # the raw events (ns): building the profiler's event tree over ~10^6
+    # device events takes minutes.  A span is its host-side annotation; the
+    # copy the profiler also puts on the device timeline is no device work.
+    ranges, dev = [], []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if name.startswith("span::"):
+            if e.device_type() == DeviceType.CPU:
+                ranges.append((e.start_ns(), e.end_ns(),
+                               labels.get(name[6:], name[6:])))
+        elif e.device_type() == DeviceType.CUDA:
+            dev.append((e.start_ns(), e.duration_ns(), name))
+    ranges.sort()
+    per_span = {name: collections.Counter() for _, _, name in ranges}
+    for start, dur, name in dev:
+        for lo, hi, span in ranges:
+            if lo <= start < hi:
+                per_span[span][name] += dur
+                break
+    total_dev = 0.0
+    for lo, hi, name in ranges:
+        c = per_span[name]
+        wall_ms = (hi - lo) / 1e6
+        dev_ms = sum(c.values()) / 1e6
+        total_dev += dev_ms
+        row = {"span": name, "wall_ms": wall_ms, "device_ms": dev_ms,
+               "busy": dev_ms / wall_ms if wall_ms else None,
+               "host_ms": wall_ms - dev_ms}
+        for k, part in KERNELS.items():
+            row[f"{k}_ms"] = sum(v for n, v in c.items() if part in n) / 1e6
+        row["topk_ms"] = sum(v for n, v in c.items()
+                             if "topk" in n.lower()) / 1e6
+        row["top"] = [[n[:80], v / 1e6] for n, v in c.most_common(6)]
+        print(json.dumps(row), flush=True)
+    return dev, total_dev
+
+
+def profile_exact(args, x, q) -> int:
+    """Phase E: one 1,024-query batch of an exact collection through the
+    public API, under the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.api import Database, VectorField
+
+    on_card = args.device != "cpu"
+    db = Database(device=args.device)
+    col = db.create_collection(name="exact", vector=VectorField(
+        dim=x.shape[1], metric="cosine", index="flat"))
+    for lo in range(0, len(x), 50_000):
+        col.upsert([str(i) for i in range(lo, min(lo + 50_000, len(x)))],
+                   x[lo: lo + 50_000])
+    batch = q[:QUERY_BATCH]
+    col.query(batch).top_k(K).run()           # warm-up: corpus to device
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card
+                                     else [])
+    t0 = time.perf_counter()
+    with profile(activities=acts) as prof:
+        with record_function("span::exact_batch"):
+            col.query(batch).top_k(K).run()
+            if on_card:
+                torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dev, total_dev = span_rows(prof, {})
+    print(json.dumps({"phase": "E", "wall_s_profiled": wall,
+                      "device_events": len(dev), "device_ms": total_dev}),
+          flush=True)
+    db.close()
+    if on_card and not dev:
+        print("profile_torch: the profiler recorded no device events",
+              file=sys.stderr)
+        return 1
+    return 0
 
 
 def main() -> int:
@@ -64,7 +154,6 @@ def main() -> int:
     args = ap.parse_args()
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.core import (BQConfig, EngineConfig, PQConfig,
@@ -77,6 +166,8 @@ def main() -> int:
         _build.build()
     x = sift_like(args.n, seed=0)
     q = sift_like(10_000, seed=1)[: args.queries]
+    if args.phase == "E":
+        return profile_exact(args, x, q)
     eng = QuantixarEngine(EngineConfig(
         dim=x.shape[1], metric="cosine", index="hnsw",
         quantization=QUANT[args.phase], pq=PQConfig(m=16, k=256),
@@ -126,37 +217,7 @@ def main() -> int:
     wall = time.perf_counter() - t0
     t1 = time.perf_counter()
 
-    # the raw events (ns): building the profiler's event tree over ~10^6
-    # device events takes minutes.  A span is its host-side annotation; the
-    # copy the profiler also puts on the device timeline is no device work.
-    ranges, dev = [], []
-    for e in prof.profiler.kineto_results.events():
-        name = e.name()
-        if name.startswith("span::"):
-            if e.device_type() == DeviceType.CPU:
-                ranges.append((e.start_ns(), e.end_ns(),
-                               labels.get(name[6:], name[6:])))
-        elif e.device_type() == DeviceType.CUDA:
-            dev.append((e.start_ns(), e.duration_ns(), name))
-    ranges.sort()
-    per_span = {name: collections.Counter() for _, _, name in ranges}
-    for start, dur, name in dev:
-        for lo, hi, span in ranges:
-            if lo <= start < hi:
-                per_span[span][name] += dur
-                break
-    total_dev = 0.0
-    for lo, hi, name in ranges:
-        c = per_span[name]
-        wall_ms = (hi - lo) / 1e6
-        dev_ms = sum(c.values()) / 1e6
-        total_dev += dev_ms
-        row = {"span": name, "wall_ms": wall_ms, "device_ms": dev_ms,
-               "busy": dev_ms / wall_ms if wall_ms else None}
-        for k, part in KERNELS.items():
-            row[f"{k}_ms"] = sum(v for n, v in c.items() if part in n) / 1e6
-        row["top"] = [[n[:80], v / 1e6] for n, v in c.most_common(6)]
-        print(json.dumps(row), flush=True)
+    dev, total_dev = span_rows(prof, labels)
     print(json.dumps({"phase": args.phase, "wall_s_profiled": wall, "device_events": len(dev),
                       "device_ms": total_dev,
                       "analysis_s": time.perf_counter() - t1,

@@ -1,13 +1,17 @@
-"""Distance metrics (paper §I, §III-A) in PyTorch: cosine (the default), L2
-and inner product, as in the JAX package's ``repro.core.distances``.
+"""Distance metrics (paper §I, §III-A) in PyTorch: cosine (the default), L2,
+inner product and Hamming over packed codes, as in the JAX package's
+``repro.core.distances``.
 
 Queries ``(Q, D)`` against a corpus ``(N, D)`` give a ``(Q, N)`` distance
 matrix; smaller is closer for every metric (similarities are negated), so
-top-k code is metric-agnostic (Hamming lives with the BQ quantizer,
-``core/bq.py``).  `rowwise` applies the same formulas to each query's own
-gathered rows, batched (the exact rescore).  The products are plain
-``torch.matmul`` outside any kernel, in full fp32 (the engine module turns
-TF32 off).
+top-k code is metric-agnostic.  The pairwise l2 and dot scans run the
+``l2_distance`` kernel (B5) on the card through ``kernels.ops``, cosine runs
+it in dot mode on normalized rows, and Hamming runs the ``hamming`` kernel;
+CPU tensors take the kernels' plain versions.  Every exact scan of the
+engine (the flat index, the low-selectivity flat route, the delta segment)
+goes through this registry.  `rowwise` applies the same formulas to each
+query's own gathered rows, batched (the exact rescore): a plain
+``torch.bmm`` in full fp32, as the JAX package leaves it outside Pallas.
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 import torch
+
+from ..kernels import ops
 
 #: Registry of metric name -> pairwise fn (queries (Q,D), corpus (N,D)) -> (Q,N)
 _METRICS: Dict[str, Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = {}
@@ -54,22 +60,29 @@ def normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
 @register_metric("l2")
 def pairwise_l2(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
-    """Squared L2 distances, GEMM formulation, clamped at 0."""
-    q, x = queries.float(), corpus.float()
-    d = l2_norm_sq(q)[:, None] + l2_norm_sq(x)[None, :] - 2.0 * (q @ x.T)
-    return torch.clamp_min(d, 0.0)
+    """Squared L2 distances, ‖q‖² + ‖x‖² − 2·q·x clamped at 0."""
+    return ops.l2_distances(queries, corpus)
 
 
 @register_metric("dot")
 def pairwise_dot(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
     """Negative inner product (so smaller == more similar)."""
-    return -(queries.float() @ corpus.float().T)
+    return ops.dot_distances(queries, corpus)
 
 
 @register_metric("cosine")
 def pairwise_cosine(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
     """Cosine *distance* = 1 - cosine similarity. Default Quantixar metric."""
     return 1.0 + pairwise_dot(normalize(queries), normalize(corpus))
+
+
+@register_metric("hamming")
+def pairwise_hamming(q_codes: torch.Tensor,
+                     x_codes: torch.Tensor) -> torch.Tensor:
+    """Hamming distance between packed binary codes: ``(Q, W)`` × ``(N, W)``
+    int32 words holding the uint32 bits (``core/bq.py``'s layout) ->
+    ``(Q, N)`` int32 bit-difference counts."""
+    return ops.hamming_distances(q_codes.contiguous(), x_codes.contiguous())
 
 
 def rowwise(metric: str, queries: torch.Tensor,

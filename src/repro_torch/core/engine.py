@@ -13,7 +13,9 @@ reconstructions under l2, whose squared distance is the ADC distance; BQ ±1
 signs under dot, whose negated product is 2·hamming − bits) and searched in
 code domain: layer 0 gathers PQ codes / packed BQ words through the
 ``beam_gather_adc`` / ``beam_gather_hamming`` kernels, and the flat route
-scans all codes through ``pq_adc`` / ``hamming``.
+scans all codes through ``pq_adc`` / ``hamming``.  The exact scans (the
+flat index, the unquantized flat route and every delta segment) run the
+``l2_distance`` kernel through the metric registry.
 
 The engine runs on one torch device, the card unless the caller asks for
 the CPU.  Raw vectors, codes, metadata and the packed graph stay on the
@@ -43,6 +45,7 @@ from .hnsw_build import (HNSWConfig, PackedHNSW, ProgressFn, build,
 from .hnsw_bulk import bulk_build_device
 from .hnsw_search import search as hnsw_search
 from .hnsw_search import to_device
+from .ivf import IVFConfig
 from .metadata import Filter, MetadataStore
 from .segment import (ChunkedArray, DeltaSegment, SealPolicy,
                       merge_candidates)
@@ -73,6 +76,8 @@ class EngineConfig:
     pq: pq_mod.PQConfig = dataclasses.field(default_factory=pq_mod.PQConfig)
     bq: bq_mod.BQConfig = dataclasses.field(default_factory=bq_mod.BQConfig)
     hnsw: HNSWConfig = dataclasses.field(default_factory=HNSWConfig)
+    # carried for the schema; index="ivf" raises until A8 is ported
+    ivf: IVFConfig = dataclasses.field(default_factory=IVFConfig)
     # "incremental" (faithful one-at-a-time inserts) | "bulk" (device-
     # parallel batched build, core/hnsw_bulk.py) | "bulk_ref" (the slow
     # numpy exactness reference)
@@ -92,6 +97,8 @@ class EngineConfig:
             raise _not_ported("index='ivf'", "A8")
         if self.index not in ("hnsw", "flat"):
             raise ValueError(f"index {self.index!r}")
+        self.ivf = dataclasses.replace(self.ivf, metric=(
+            "cosine" if self.metric == "cosine" else "l2"))
         if self.quantization not in ("none", "pq", "bq"):
             raise ValueError(f"quantization {self.quantization!r}")
         if self.builder not in ("incremental", "bulk", "bulk_ref"):

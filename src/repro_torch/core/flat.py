@@ -10,8 +10,8 @@ so it never sorts a whole row.
 `scan_topk` is the chunked streaming top-k every scan of the port runs
 (mask, ``base_index``): the exact flat scan, and the PQ and BQ flat routes
 whose blocks come from the ``pq_adc`` and ``hamming`` kernels.
-`flat_search` is the exact scan as plain torch: the JAX package leaves this
-product to XLA, and the port leaves it to ``torch.matmul``.
+`flat_search` is the exact scan: each block comes from the metric registry,
+so on the card from the ``l2_distance`` kernel (B5) in l2 or dot mode.
 """
 
 from __future__ import annotations

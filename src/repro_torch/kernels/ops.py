@@ -16,6 +16,7 @@ from .beam_gather_adc import beam_gather_adc as _beam_gather_adc
 from .beam_gather_hamming import beam_gather_hamming as _beam_gather_hamming
 from .bulk_prune import pair_gather
 from .hamming import hamming
+from .l2 import l2_distance
 from .pq_adc import pq_adc
 
 
@@ -84,3 +85,23 @@ def hamming_distances(q: torch.Tensor, x: torch.Tensor, *,
     if _plain(x, force_ref):
         return ref.hamming_ref(q, x)
     return hamming(q.contiguous(), x)
+
+
+def l2_distances(q: torch.Tensor, x: torch.Tensor, *,
+                 force_ref: bool = False) -> torch.Tensor:
+    """q (Q, D) × x (N, D) -> (Q, N) float32 squared L2, clamped at 0: the
+    exact scan (flat index, flat route, delta segment)."""
+    if _plain(x, force_ref):
+        return ref.l2_distance_ref(q, x)
+    return l2_distance(q.float().contiguous(), x.float().contiguous(),
+                       mode="l2")
+
+
+def dot_distances(q: torch.Tensor, x: torch.Tensor, *,
+                  force_ref: bool = False) -> torch.Tensor:
+    """q (Q, D) × x (N, D) -> (Q, N) float32 −q·x: the exact scan under
+    dot and cosine (on normalized rows)."""
+    if _plain(x, force_ref):
+        return ref.dot_distance_ref(q, x)
+    return l2_distance(q.float().contiguous(), x.float().contiguous(),
+                       mode="dot")

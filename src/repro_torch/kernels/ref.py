@@ -15,6 +15,20 @@ from __future__ import annotations
 import torch
 
 
+def l2_distance_ref(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
+    """(Q, D) × (N, D) -> (Q, N) squared L2, float32 accumulation:
+    ‖q‖² + ‖x‖² − 2·q·x clamped at 0."""
+    q, x = queries.float(), corpus.float()
+    qq = (q * q).sum(1)
+    xx = (x * x).sum(1)
+    return torch.clamp_min(qq[:, None] + xx[None, :] - 2.0 * (q @ x.T), 0.0)
+
+
+def dot_distance_ref(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
+    """(Q, D) × (N, D) -> (Q, N) negative inner product, float32 accumulation."""
+    return -(queries.float() @ corpus.float().T)
+
+
 def gathered_dists(q: torch.Tensor, rows: torch.Tensor,
                    metric: str) -> torch.Tensor:
     """q (Q, D) vs its own gathered rows (Q, M, D) -> (Q, M) raw scores

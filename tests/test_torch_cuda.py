@@ -18,6 +18,7 @@ from repro_torch.kernels import beam_gather_adc as bga_mod
 from repro_torch.kernels import beam_gather_hamming as bgh_mod
 from repro_torch.kernels import bulk_prune as pg_mod
 from repro_torch.kernels import hamming as hm_mod
+from repro_torch.kernels import l2 as l2_mod
 from repro_torch.kernels import ops
 from repro_torch.kernels import pq_adc as adc_mod
 
@@ -215,3 +216,97 @@ def test_quantized_engine_on_card_matches_cpu(cuda, quant):
                                    (qu * unit[wi[r, j]]).sum(1),
                                    rtol=0, atol=1e-5)
     assert all(m.launches > b for m, b in zip(mods, before))
+
+
+def _l2_tol(want, q, x):
+    """rtol as the JAX package's l2 kernel test, plus an atol scaled by
+    |q|·|x|: the kernel sums D products in another order than the plain
+    version, and the norm expansion cancels where q and x nearly agree."""
+    return 2e-4 * want.abs() + 1e-5 * q.norm(dim=1)[:, None] * x.norm(dim=1)
+
+
+# every axis's tail: Q from 1 to 10,000 (the batcher's buckets take the
+# 32-row tile), the flat route's 65,536-row chunk and the 16,960-row last
+# chunk of 1M, N = 60,000, a power-of-two delta pad, D in {128, 256, 784},
+# a D that is not a multiple of 4 or 16, and N not a multiple of 4
+@pytest.mark.parametrize("nq,n,d", [
+    (1, 16960, 128), (7, 16960, 128), (32, 16960, 128), (33, 16960, 128),
+    (1024, 65536, 128), (904, 8192, 256), (100, 60000, 784),
+    (10000, 3000, 128), (5, 301, 130), (40, 77, 7), (3, 5, 1)])
+@pytest.mark.parametrize("mode", ["l2", "dot"])
+def test_l2_distance(cuda, nq, n, d, mode):
+    rng = np.random.RandomState(nq + n + d)
+    x = torch.as_tensor(rng.randn(n, d).astype(np.float32), device=cuda)
+    q = torch.as_tensor(rng.randn(nq, d).astype(np.float32), device=cuda)
+    dup = min(nq // 2, n)
+    q[:dup] = x[:dup] + 1e-3                 # near-duplicates: l2 cancels
+    fn = ops.l2_distances if mode == "l2" else ops.dot_distances
+    got = _same_counts(l2_mod, lambda: fn(q, x))
+    want = fn(q, x, force_ref=True)
+    assert ((got - want).abs() <= _l2_tol(want, q, x)).all()
+    if mode == "l2":
+        assert (got >= 0).all()
+
+
+def test_l2_distance_unaligned_rows(cuda):
+    """Inputs one float off 16-byte alignment take the 4-byte load path."""
+    rng = np.random.RandomState(3)
+    buf = torch.as_tensor(rng.randn(500 * 128 + 1).astype(np.float32),
+                          device=cuda)
+    x = buf[1:].view(500, 128)
+    q = torch.as_tensor(rng.randn(70, 128).astype(np.float32), device=cuda)
+    for fn in (ops.l2_distances, ops.dot_distances):
+        got = _same_counts(l2_mod, lambda: fn(q, x))
+        want = fn(q, x, force_ref=True)
+        assert ((got - want).abs() <= _l2_tol(want, q, x)).all()
+
+
+def test_l2_distance_64bit_offsets(cuda):
+    """Q * N past 2**31 output elements: the last rows land where a 32-bit
+    offset would wrap."""
+    nq, n, d = 32800, 65536, 16
+    rng = np.random.RandomState(4)
+    x = torch.as_tensor(rng.randn(n, d).astype(np.float32), device=cuda)
+    q = torch.as_tensor(rng.randn(nq, d).astype(np.float32), device=cuda)
+    assert nq * n > 2 ** 31
+    got = _same_counts(l2_mod, lambda: ops.dot_distances(q, x))
+    for rows in (slice(0, 3), slice(nq - 3, nq)):
+        want = ops.dot_distances(q[rows], x, force_ref=True)
+        assert ((got[rows] - want).abs()
+                <= _l2_tol(want, q[rows], x)).all()
+
+
+@pytest.mark.parametrize("metric", ["cosine", "l2"])
+def test_exact_collection_on_card_matches_cpu(cuda, metric):
+    """An exact (flat) collection through the public API on the card, whose
+    every scan runs the l2_distance kernel, returns the CPU collection's
+    hits (plain versions): plain, filtered and batched queries."""
+    from repro_torch.api import Database, KeywordField, VectorField
+    x = gaussian_mixture(3000, 32, n_clusters=15, scale=0.3, seed=1)
+    q = gaussian_mixture(64, 32, n_clusters=15, scale=0.3, seed=2)
+    ids = [f"id-{i}" for i in range(len(x))]
+    payloads = [{"cat": f"c{i % 4}"} for i in range(len(x))]
+    out = []
+    before = l2_mod.launches
+    for dev in ("cuda", "cpu"):
+        db = Database(device=dev)
+        col = db.create_collection(
+            name="exact", vector=VectorField(dim=32, metric=metric,
+                                             index="flat"),
+            fields=(KeywordField("cat"),))
+        col.upsert(ids, x, payloads)
+        batched = col.query(q).top_k(10).run()
+        single = col.query(q[0]).top_k(10).run()
+        filtered = col.query(q).filter(cat="c1").top_k(10).run()
+        out.append((batched + [single] + filtered))
+        db.close()
+    assert l2_mod.launches > before
+    # the kernel sums in another order than the CPU: two hits may trade
+    # places only where their scores tie within fp32 rounding
+    for got, want in zip(*out):
+        assert len(got) == len(want) == 10
+        gs = np.array([h.score for h in got])
+        ws = np.array([h.score for h in want])
+        np.testing.assert_allclose(gs, ws, rtol=0, atol=1e-4)
+        for g, w in zip(got, want):
+            assert g.id == w.id or abs(g.score - w.score) <= 1e-4

@@ -22,10 +22,12 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.beam_gather import beam_gather_kernel
 from repro.kernels.bulk_prune import pair_gather_kernel
+from repro.kernels.l2 import l2_distance_kernel
 from repro_torch.core.flat import flat_search, merge_topk, topk_smallest
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import beam_gather as bg_mod
 from repro_torch.kernels import bulk_prune as pg_mod
+from repro_torch.kernels import l2 as l2_mod
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -95,6 +97,69 @@ class TestPairGatherPlain:
                                         interpret=True)
             np.testing.assert_allclose(got[i], np.asarray(pallas), rtol=2e-4,
                                        atol=2e-4 * d)
+
+
+class TestL2DistancePlain:
+    """B5's plain version against the JAX oracle and the interpret-mode
+    Pallas kernel, at the shapes of the JAX package's own kernel test."""
+
+    @pytest.mark.parametrize("q,n,d,mode", [
+        (8, 128, 64, "l2"),       # tile-aligned
+        (7, 300, 130, "l2"),      # padding on every axis
+        (64, 1024, 784, "l2"),    # fashion-mnist dims
+        (1, 33, 128, "l2"),       # single query, sift dims
+        (3, 50, 16, "l2"),        # tiny
+        (9, 200, 96, "dot"),
+        (16, 128, 128, "dot"),
+    ])
+    def test_matches_jax_ref_and_pallas(self, q, n, d, mode):
+        rng = np.random.RandomState(q * n + d)
+        qs = rng.randn(q, d).astype(np.float32)
+        xs = rng.randn(n, d).astype(np.float32)
+        plain = ops.l2_distances if mode == "l2" else ops.dot_distances
+        jref_fn = (jref.l2_distance_ref if mode == "l2"
+                   else jref.dot_distance_ref)
+        before = l2_mod.launches
+        got = plain(torch.as_tensor(qs), torch.as_tensor(xs)).numpy()
+        assert l2_mod.launches == before       # the plain version: no launch
+        assert got.shape == (q, n) and got.dtype == np.float32
+        np.testing.assert_allclose(got, np.asarray(jref_fn(qs, xs)), **TOL)
+        pallas = l2_distance_kernel(jnp.asarray(qs), jnp.asarray(xs),
+                                    mode=mode, tq=16, tn=128, tk=64,
+                                    interpret=True)
+        np.testing.assert_allclose(got, np.asarray(pallas), **TOL)
+        if mode == "l2":
+            assert (got >= 0).all()
+
+    def test_metric_registry_runs_it(self):
+        """pairwise l2 / dot / cosine are B5 (cosine in dot mode on unit
+        rows) and hamming is B7, equal to the JAX package's metrics."""
+        from repro.core import distances as jd
+        from repro_torch.core import distances as td
+        rng = np.random.RandomState(7)
+        qs = rng.randn(5, 24).astype(np.float32)
+        xs = rng.randn(40, 24).astype(np.float32)
+        assert td.available_metrics() == jd.available_metrics()
+        for metric in ("l2", "dot", "cosine"):
+            got = td.get_metric(metric)(torch.as_tensor(qs),
+                                        torch.as_tensor(xs))
+            np.testing.assert_allclose(
+                got.numpy(), np.asarray(jd.get_metric(metric)(qs, xs)),
+                **TOL)
+        words = rng.randint(0, 2 ** 32, (40, 3), dtype=np.uint64)
+        got = td.get_metric("hamming")(
+            torch.as_tensor(words[:5].astype(np.uint32).view(np.int32)),
+            torch.as_tensor(words.astype(np.uint32).view(np.int32)))
+        want = jd.pairwise_hamming(jnp.asarray(words[:5].astype(np.uint32)),
+                                   jnp.asarray(words.astype(np.uint32)))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+    def test_wrapper_refuses_cpu_tensors_and_bad_modes(self):
+        x = torch.zeros(4, 8)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            l2_mod.l2_distance(x, x)
+        with pytest.raises(ValueError, match="mode"):
+            l2_mod.l2_distance(x, x, mode="cosine")
 
 
 class TestDispatch:
@@ -219,7 +284,9 @@ def test_port_imports_without_jax():
         "assert not bad, bad\n"
         "for m in ('core.pq', 'core.bq', 'kernels.beam_gather_adc',\n"
         "          'kernels.beam_gather_hamming', 'kernels.pq_adc',\n"
-        "          'kernels.hamming', 'kernels._launch'):\n"
+        "          'kernels.hamming', 'kernels._launch', 'kernels.l2',\n"
+        "          'core.sparse', 'core.ivf', 'api.database',\n"
+        "          'serving.batcher', 'checkpoint.store'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
