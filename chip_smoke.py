@@ -8,7 +8,8 @@ Run from the repository root with no arguments:
 It builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 against its plain PyTorch version on the card at the main paths' shapes, and
 then drives four collections end to end through
-``repro_torch.core.QuantixarEngine`` and two through the public API:
+``repro_torch.core.QuantixarEngine``, two through the public API and the
+xLSTM language model through ``repro_torch.models``:
 
   phase A  cosine, HNSW, no quantization, bulk builder, over a SIFT-like
            corpus at SIFT's published size (1M x 128): build, 10,000 queries
@@ -30,11 +31,22 @@ then drives four collections end to end through
            through the batcher from 32 threads, filtered, delete and
            replace, hybrid text + vector), the default HNSW collection
            (build on first query, recall at ef 64 / 256, delta rows), and
-           save / load of both.
+           save / load of both;
+  phase F  xlstm-1.3b (``src/repro_torch/configs/xlstm_1_3b.py``: 48 layers,
+           d_model 2048, 4 heads, 7 mLSTM : 1 sLSTM) at full width through
+           ``repro_torch.models`` on the card, random weights from a seeded
+           ``torch.Generator``: 8 prompts of 2,048 tokens through
+           ``forward`` (prefill / scoring, tokens/s, peak memory), 8 prompts
+           of 128 tokens teacher-forced through the greedy
+           ``make_serve_step`` and then 32 generated tokens each (ms per
+           step), and in fp32 ``forward`` on the ``slstm`` kernel against
+           ``forward(force_ref=True)`` and teacher-forced ``decode_step``
+           against ``forward``.
 
 Every phase must pass and every kernel of its path must have launched, or
-the script exits non-zero.  The exact scans of every phase (delta segment,
-flat route, flat index) run the ``l2_distance`` kernel.  Before the last
+the script exits non-zero.  The exact scans of phases A-E (delta segment,
+flat route, flat index) run the ``l2_distance`` kernel; every sLSTM layer
+of phase F's prefill runs the ``slstm`` kernel.  Before the last
 line it prints the card's name and power limit and one JSON line with each
 kernel's launches, error, time, plain-version time, bound and library-call
 time; the last line is the device JSON.  It needs a CUDA device and the
@@ -109,7 +121,8 @@ PHASE_KERNELS = {
           "l2_distance"),
     "D": ("beam_gather", "pair_gather", "beam_gather_hamming", "hamming",
           "l2_distance"),
-    "E": ("beam_gather", "pair_gather", "l2_distance")}
+    "E": ("beam_gather", "pair_gather", "l2_distance"),
+    "F": ("slstm",)}
 # phase E: the exact collection's fields and its checks' sizes
 N_CATEGORIES = 8         # KeywordField("category"): cat-0 .. cat-7
 TITLE_VOCAB = 5_000      # TextField("title"): 4 words from this vocabulary
@@ -117,6 +130,16 @@ UPSERT_BATCH = 50_000
 SINGLE_QUERIES = 2_048   # single-vector queries through the batcher
 SINGLE_THREADS = 32
 EXACT_RECALL_FLOOR = 0.999
+# phase F: xlstm-1.3b serving at full width (48 layers: 6 of them sLSTM)
+XLSTM = "xlstm-1.3b"
+PREFILL_B, PREFILL_S = 8, 2048
+PROMPT_S, GEN_TOKENS = 128, 32
+# B8 against its plain version: |h| <= 1 (c / n is a weighted mean of tanh
+# values); fp32 differs by summation order, bf16 by at most one ulp at 1
+SLSTM_ATOL = {"float32": 1e-4, "bfloat16": 7.9e-3}
+# the fp32 end-to-end checks: kernel vs plain forward, decode vs forward
+LOGIT_REL_TOL = 1e-3
+ARGMAX_AGREEMENT = 0.99
 
 
 class SmokeFailure(Exception):
@@ -848,18 +871,211 @@ def run_api(torch, corpus, queries, gt, new_rows, phase_a, counters, log):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase F: xlstm-1.3b serving through repro_torch.models
+# ---------------------------------------------------------------------------
+
+def slstm_kernel_checks(torch, layer, n_heads, log):
+    """B8 against its plain version: at the JAX package's kernel-test shapes
+    (tests/test_kernels.py, R = 0.3·N(0, 1)), at the smoke width (d = 64,
+    2 heads) and at full width (B = 8, S = 2,048, d = 2,048, 4 heads) with
+    the model's first sLSTM layer's R and b, each in bf16 and fp32; gates
+    N(0, 1), the scale of the normed x @ w_in.
+
+    bound: the recurrent product's 2·B·S·4d·blk flops at the fp32 rate
+    against the gates, the output, R and b moved once; the S sequential
+    steps add a latency floor this bound does not count.  library_ms is
+    null: no PyTorch call computes this stabilised exp-gate cell with a
+    block-diagonal recurrence (``nn.LSTM`` is another function)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.slstm import slstm_sequence
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    d_full = layer.w_in.shape[0]
+    # (B, S, d, H, R's scale); the last row takes the layer's R and b
+    shapes = [(2, 64, 32, 4, 0.3), (1, 32, 16, 2, 0.3), (3, 96, 64, 8, 0.3),
+              (2, 128, 64, 2, 32 ** -0.5),
+              (PREFILL_B, PREFILL_S, d_full, n_heads, None)]
+    rows = []
+    for b, s, d, h, scale in shapes:
+        blk = d // h
+        if scale is None:
+            r, bias = layer.r.detach(), layer.b.detach()
+        else:
+            r = scale * torch.randn((4, h, blk, blk), generator=gen,
+                                    device="cuda")
+            bias = torch.randn((4 * d,), generator=gen, device="cuda")
+        g32 = torch.randn((b, s, 4 * d), generator=gen, device="cuda")
+        for dtype in ("bfloat16", "float32"):
+            g = g32.to(getattr(torch, dtype))
+            got = slstm_sequence(g, r, bias, n_heads=h)
+            want = ref.slstm_sequence_ref(g, r, bias, h)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            check(err <= SLSTM_ATOL[dtype],
+                  f"slstm {dtype} B={b} S={s} d={d} H={h}: max err {err}")
+            esize = g.element_size()
+            nbytes = b * s * 4 * d * esize + b * s * d * esize \
+                + r.numel() * 4 + bias.numel() * 4
+            b_ms, b_by = bound(nbytes, 2 * b * s * 4 * d * blk)
+            plain_reps = 25 if s <= 128 else 5
+            rows.append({
+                "name": "slstm", "dtype": dtype, "B": b, "S": s, "d": d,
+                "H": h, "max_abs_err": err,
+                "ms": time_ms(torch, lambda: slstm_sequence(
+                    g, r, bias, n_heads=h)),
+                "plain_ms": time_ms(torch, lambda: ref.slstm_sequence_ref(
+                    g, r, bias, h), reps=plain_reps, warmup=1),
+                "plain_reps": plain_reps,
+                "bound_ms": b_ms, "bound_us": b_ms * 1e3, "bound_by": b_by,
+                "library_ms": None})
+            rows[-1]["share"] = b_ms / rows[-1]["ms"]
+            log(rows[-1])
+            del got, want
+    return rows
+
+
+def run_xlstm(torch, counters, log):
+    """Phase F: xlstm-1.3b at full width on the card: B8's checks, the
+    prefill, greedy generation, and the fp32 consistency checks."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import zipf_tokens
+    from repro_torch.models import (decode_step, forward, init_decode_state,
+                                    init_params, make_serve_step)
+
+    cfg = get_config(XLSTM)
+    n_slstm = sum(bt == "slstm" for bt in cfg.block_pattern) * cfg.n_units
+    res = {"phase": "F", "model": XLSTM, "param_count": cfg.param_count()}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    model = init_params(cfg, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    res["init_s"] = time.perf_counter() - t0
+    res["param_numel"] = sum(p.numel() for p in model.parameters())
+    first_slstm = next(b.slstm for b in model.layers
+                       if b.block_type == "slstm")
+    rows = slstm_kernel_checks(torch, first_slstm, cfg.n_heads, log)
+    torch.cuda.empty_cache()
+
+    # 1. embedding / scoring requests: 8 prompts of 2,048 tokens (a warm-up
+    # forward of 8 x 256 first: cuBLAS handles, the kernel's library)
+    V = cfg.vocab_size
+    toks = torch.as_tensor(zipf_tokens(np.random.RandomState(0),
+                                       (PREFILL_B, PREFILL_S), V),
+                           device="cuda")
+    forward(model, {"tokens": toks[:, :256]}, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    t0 = time.perf_counter()
+    logits, _ = forward(model, {"tokens": toks}, cfg)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    res["launches"] = counters.read()
+    res["prefill_s"] = prefill_s
+    res["prefill_tokens_per_s"] = PREFILL_B * PREFILL_S / prefill_s
+    res["prefill_peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    check(tuple(logits.shape) == (PREFILL_B, PREFILL_S, V)
+          and logits.dtype == torch.float32, f"F: logits {logits.shape}")
+    check(bool(torch.isfinite(logits).all()), "F: non-finite logits")
+    check(res["launches"]["slstm"] == n_slstm,
+          f"F: slstm called {res['launches']['slstm']} times in one "
+          f"prefill, want {n_slstm}")
+    full = next(r for r in rows if r["dtype"] == "bfloat16"
+                and r["S"] == PREFILL_S)
+    res["slstm_ms_per_prefill"] = full["ms"] * n_slstm
+    res["slstm_share_of_prefill"] = full["ms"] * n_slstm / (prefill_s * 1e3)
+    del logits
+    torch.cuda.empty_cache()
+    log({"xlstm": "prefill", **res})
+
+    # 2. generation requests: 8 prompts of 128 tokens teacher-forced through
+    # the greedy serve step, then 32 tokens generated each
+    serve = make_serve_step(cfg)
+    prompts = torch.as_tensor(zipf_tokens(np.random.RandomState(1),
+                                          (PREFILL_B, PROMPT_S), V),
+                              device="cuda")
+    state = init_decode_state(cfg, PREFILL_B, PROMPT_S + GEN_TOKENS,
+                              device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(PROMPT_S):
+        nxt, state = serve(model, state, prompts[:, t:t + 1])
+    torch.cuda.synchronize()
+    res["prompt_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / PROMPT_S
+    out, step_ms = [nxt], []
+    for _ in range(GEN_TOKENS - 1):
+        t1 = time.perf_counter()
+        nxt, state = serve(model, state, nxt)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        out.append(nxt)
+    gen_ids = torch.cat(out, dim=1)
+    res["decode_ms_per_step"] = statistics.median(step_ms)
+    res["decode_tokens_per_s"] = PREFILL_B * 1e3 / res["decode_ms_per_step"]
+    steps = PROMPT_S + GEN_TOKENS - 1
+    check(tuple(gen_ids.shape) == (PREFILL_B, GEN_TOKENS)
+          and int(gen_ids.min()) >= 0 and int(gen_ids.max()) < V,
+          f"F: generated ids out of range or shape {tuple(gen_ids.shape)}")
+    check(bool((state.pos == steps).all()),
+          f"F: decode pos {state.pos.tolist()} after {steps} steps")
+    res["generated_first_row"] = gen_ids[0].tolist()
+    del state
+    log({"xlstm": "generate", **{k: res[k] for k in (
+        "prompt_ms_per_step", "decode_ms_per_step", "decode_tokens_per_s",
+        "generated_first_row")}})
+
+    # 3. end-to-end consistency in fp32, the same weights: the kernel's
+    # forward against the plain one, teacher-forced decode against forward
+    cfg32 = cfg.with_overrides(dtype="float32")
+    toks = torch.as_tensor(zipf_tokens(np.random.RandomState(2),
+                                       (PREFILL_B, PROMPT_S), V),
+                           device="cuda")
+    got, _ = forward(model, {"tokens": toks}, cfg32)
+    want, _ = forward(model, {"tokens": toks}, cfg32, force_ref=True)
+    scale = want.abs().max().item()
+    res["fp32_kernel_vs_plain_max_abs"] = (got - want).abs().max().item()
+    res["fp32_logit_max_abs"] = scale
+    check(res["fp32_kernel_vs_plain_max_abs"] <= LOGIT_REL_TOL * scale,
+          f"F: fp32 forward, kernel vs plain: {res['fp32_kernel_vs_plain_max_abs']}"
+          f" over {LOGIT_REL_TOL} x {scale}")
+    del want
+    state = init_decode_state(cfg32, PREFILL_B, PROMPT_S, device="cuda")
+    dec = torch.empty_like(got)
+    for t in range(PROMPT_S):
+        step, state = decode_step(model, state, toks[:, t:t + 1], cfg32)
+        dec[:, t] = step[:, 0]
+    res["fp32_decode_vs_forward_max_abs"] = (dec - got).abs().max().item()
+    res["fp32_argmax_agreement"] = (dec.argmax(-1) == got.argmax(-1)) \
+        .float().mean().item()
+    check(res["fp32_decode_vs_forward_max_abs"] <= LOGIT_REL_TOL * scale,
+          f"F: fp32 decode vs forward: {res['fp32_decode_vs_forward_max_abs']}")
+    check(res["fp32_argmax_agreement"] >= ARGMAX_AGREEMENT,
+          f"F: fp32 argmax agreement {res['fp32_argmax_agreement']}")
+    del got, dec, state, model
+    torch.cuda.empty_cache()
+    for kname in PHASE_KERNELS["F"]:
+        check(res["launches"][kname] > 0, f"F: kernel {kname} never launched")
+    log({"phase_result": res})
+    return res, rows
+
+
 class Counters:
     """The kernels' launch counters, read as deltas since the last reset."""
 
     def __init__(self):
         from repro_torch.kernels import (beam_gather, beam_gather_adc,
                                          beam_gather_hamming, bulk_prune,
-                                         hamming, l2, pq_adc)
+                                         hamming, l2, pq_adc, slstm)
         self.mods = {"beam_gather": beam_gather, "pair_gather": bulk_prune,
                      "beam_gather_adc": beam_gather_adc,
                      "beam_gather_hamming": beam_gather_hamming,
                      "pq_adc": pq_adc, "hamming": hamming,
-                     "l2_distance": l2}
+                     "l2_distance": l2, "slstm": slstm}
 
     def reset(self):
         for m in self.mods.values():
@@ -962,6 +1178,10 @@ def main() -> int:
                                          metric, counters, log)
         phase["E"] = run_api(torch, sift, sift_q, gt_sift, sift_new,
                              phase["A"], counters, log)
+        del sift, sift_q, sift_new, fm, fm_q, fm_new, gt_sift, gt_fm
+        torch.cuda.empty_cache()
+        phase["F"], slstm_rows = run_xlstm(torch, counters, log)
+        rows += slstm_rows
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -983,7 +1203,9 @@ def main() -> int:
     # (l2_kernel_checks); null for the four gathers, since no single
     # PyTorch call fuses a row gather with its distance, pair matrix, LUT
     # sum or bit count.  l2_distance's launches: phase E, the exact
-    # collection's path.
+    # collection's path.  slstm: the full-width bf16 call (B=8, S=2,048) of
+    # phase F's prefill, launches counted over one prefill; library_ms null,
+    # since no PyTorch call computes its cell (slstm_kernel_checks).
     main_rows = {
         "beam_gather": (pick("beam_gather", mode="dot", D=128, L=128), "A",
                         "beam_gather.py:98"),
@@ -996,7 +1218,9 @@ def main() -> int:
         "pq_adc": (pick("pq_adc", N=FLAT_CHUNK), "C", "pq_adc.py:59"),
         "hamming": (pick("hamming", N=FLAT_CHUNK), "D", "hamming.py:33"),
         "l2_distance": (pick("l2_distance", mode="dot", D=128,
-                             Q=QUERY_BATCH), "E", "l2.py:62")}
+                             Q=QUERY_BATCH), "E", "l2.py:62"),
+        "slstm": (pick("slstm", dtype="bfloat16", S=PREFILL_S), "F",
+                  "slstm.py:90")}
     kernels = []
     for name, (r, home, tpu) in main_rows.items():
         kernels.append({
@@ -1009,16 +1233,18 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
-            "at": {k: r[k] for k in ("mode", "Q", "L", "B", "C", "D", "N",
-                                     "m", "k", "W") if k in r}})
+            "at": {k: r[k] for k in ("mode", "dtype", "Q", "L", "B", "C",
+                                     "D", "N", "m", "k", "W", "S", "d", "H")
+                   if k in r}})
     summary = {
         "seconds": time.perf_counter() - t_start,
         **{p["phase"]: {k: p.get(k) for k in (
             "build_s", "qps", "recall_at_10", "ef_sweep",
             "mask_0.5_recall_at_10", "mask_0.05_recall_at_10",
             "quantize_peak_gb", "build_peak_gb")}
-           for p in phase.values() if p["phase"] != "E"},
-        "E": {k: v for k, v in phase["E"].items() if k != "launches"}}
+           for p in phase.values() if p["phase"] not in ("E", "F")},
+        **{p: {k: v for k, v in phase[p].items() if k != "launches"}
+           for p in ("E", "F")}}
     print(json.dumps({"summary": summary}, default=float))
     print(card)
     print(json.dumps({"kernels": kernels}, default=float))

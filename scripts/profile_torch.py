@@ -27,11 +27,24 @@ warm-up batch, then one 1,024-query batch (k=10), which scans the corpus in
 65,536-row chunks through the ``l2_distance`` kernel; its span gives that
 kernel's ms against the top-k's and against the host's.
 
+``--phase F`` profiles the xLSTM serving path instead: xlstm-1.3b at full
+width (random weights, ``torch.Generator`` seeded 0), one warm-up prefill of
+8 x 256 tokens, then one prefill of 8 x 2,048 Zipf tokens through
+``repro_torch.models.forward``.  Each mLSTM chunk of the chunkwise loop runs
+in a span closed by a synchronize (one per chunk: 8 per mLSTM layer, 336 in
+all, so the device events fall inside it and the wall time stretches a
+little).  It prints the prefill's wall_ms, device_ms and busy, the
+``slstm`` kernel's ms and launches, the mLSTM chunk loop's ms (every device
+event inside the chunk spans) and the matrix products' ms (device kernels
+named as cuBLAS / CUTLASS GEMMs: "gemm", "nvjet", "xmma", "cutlass"), in
+all and inside the chunk loop, and the largest device items by name.
+
 Run on a card from the repository root:
 
     python3 scripts/profile_torch.py              # phase A, ~3 minutes
     python3 scripts/profile_torch.py --phase C    # PQ
     python3 scripts/profile_torch.py --phase E    # one exact API batch
+    python3 scripts/profile_torch.py --phase F    # one xLSTM prefill
     python3 scripts/profile_torch.py --n 20000    # a quick look
 
 ``--device cpu`` runs the same path with host events only (no device
@@ -41,6 +54,7 @@ numbers), to check the script itself.
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
 import json
 import os
@@ -62,7 +76,10 @@ KERNELS = {"beam_gather": "beam_gather_f32_kernel",
            "beam_gather_hamming": "beam_gather_hamming_kernel",
            "pq_adc": "pq_adc_kernel",
            "hamming": "::hamming_kernel",
-           "l2_distance": "l2_distance_kernel"}
+           "l2_distance": "l2_distance_kernel",
+           "slstm": "slstm_sequence_kernel"}
+# the device kernels of the matrix products (cuBLAS / cuBLASLt / CUTLASS)
+GEMM_PARTS = ("gemm", "nvjet", "xmma", "cutlass")
 
 
 def span_rows(prof, labels):
@@ -145,12 +162,108 @@ def profile_exact(args, x, q) -> int:
     return 0
 
 
+def profile_xlstm(args) -> int:
+    """Phase F: one full-width xlstm-1.3b prefill of 8 x 2,048 tokens."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import zipf_tokens
+    from repro_torch.kernels import slstm
+    from repro_torch.models import forward, init_params
+    from repro_torch.models import recurrent
+
+    on_card = args.device != "cpu"
+    cfg = get_config("xlstm-1.3b")
+    gen = torch.Generator(device=args.device)
+    gen.manual_seed(0)
+    model = init_params(cfg, generator=gen, device=args.device)
+    toks = torch.as_tensor(zipf_tokens(np.random.RandomState(0), (8, 2048),
+                                       cfg.vocab_size), device=args.device)
+    forward(model, {"tokens": toks[:, :256]}, cfg)     # warm-up
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    chunk = recurrent._mlstm_chunk
+
+    def chunk_in_span(*a):
+        with record_function("span::mlstm_chunk"):
+            out = chunk(*a)
+            sync()
+        return out
+
+    recurrent._mlstm_chunk = chunk_in_span
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card
+                                     else [])
+    sync()
+    before = slstm.launches
+    try:
+        with profile(activities=acts) as prof:
+            with record_function("span::prefill"):
+                forward(model, {"tokens": toks}, cfg)
+                sync()
+    finally:
+        recurrent._mlstm_chunk = chunk
+    launches = slstm.launches - before
+
+    prefill, chunks, dev = None, [], []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            if not e.name().startswith("span::"):
+                dev.append((e.start_ns(), e.duration_ns(), e.name()))
+        elif e.name() == "span::prefill":
+            prefill = (e.start_ns(), e.end_ns())
+        elif e.name() == "span::mlstm_chunk":
+            chunks.append((e.start_ns(), e.end_ns()))
+    chunks.sort()
+    starts = [lo for lo, _ in chunks]
+
+    def in_chunk(t):
+        i = bisect.bisect_right(starts, t) - 1
+        return i >= 0 and t < chunks[i][1]
+
+    names, in_loop = collections.Counter(), collections.Counter()
+    for start, dur, name in dev:
+        if prefill[0] <= start < prefill[1]:
+            names[name] += dur
+            if in_chunk(start):
+                in_loop[name] += dur
+
+    def ms(counter, pred=lambda n: True):
+        return sum(v for n, v in counter.items() if pred(n)) / 1e6
+
+    def is_gemm(n):
+        return any(p in n.lower() for p in GEMM_PARTS)
+
+    wall = (prefill[1] - prefill[0]) / 1e6
+    device = ms(names)
+    print(json.dumps({
+        "phase": "F", "tokens": 8 * 2048, "wall_ms": wall,
+        "device_ms": device, "busy": device / wall if wall else None,
+        "host_ms": wall - device,
+        "slstm_ms": ms(names, lambda n: KERNELS["slstm"] in n),
+        "slstm_launches": launches,
+        "mlstm_chunk_loop_ms": ms(in_loop), "mlstm_chunks": len(chunks),
+        "matmul_ms": ms(names, is_gemm),
+        "matmul_in_chunk_loop_ms": ms(in_loop, is_gemm),
+        "top": [[n[:80], v / 1e6] for n, v in names.most_common(10)]}),
+        flush=True)
+    if on_card and not dev:
+        print("profile_torch: the profiler recorded no device events",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--queries", type=int, default=10_000)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--phase", choices=sorted(QUANT), default="A")
+    ap.add_argument("--phase", choices=[*sorted(QUANT), "F"], default="A")
     args = ap.parse_args()
 
     import torch
@@ -164,6 +277,8 @@ def main() -> int:
     on_card = args.device != "cpu"
     if on_card:
         _build.build()
+    if args.phase == "F":
+        return profile_xlstm(args)
     x = sift_like(args.n, seed=0)
     q = sift_like(10_000, seed=1)[: args.queries]
     if args.phase == "E":

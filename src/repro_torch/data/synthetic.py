@@ -20,6 +20,7 @@ All generators are deterministic in (seed, shape).
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator, Tuple
 
 import numpy as np
 
@@ -75,3 +76,42 @@ def sift_like(n: int, seed: int = 0) -> np.ndarray:
     x = np.minimum(x / np.maximum(norm, 1e-9), 0.2)
     norm2 = np.linalg.norm(x, axis=1, keepdims=True)
     return (512.0 * x / np.maximum(norm2, 1e-9)).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# LM token streams (architecture training cells)
+# ---------------------------------------------------------------------------
+
+def zipf_tokens(rng: np.random.RandomState, shape: Tuple[int, ...],
+                vocab: int, alpha: float = 1.1) -> np.ndarray:
+    """Zipf-distributed token ids in [0, vocab) — realistic rank-frequency."""
+    # inverse-CDF sampling on a truncated zipf
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    probs = ranks ** (-alpha)
+    probs /= probs.sum()
+    cdf = np.cumsum(probs)
+    u = rng.random_sample(shape)
+    return np.searchsorted(cdf, u).astype(np.int32)
+
+
+@dataclasses.dataclass
+class TokenBatch:
+    tokens: np.ndarray      # (B, S) int32
+    targets: np.ndarray     # (B, S) int32 (next-token shifted)
+    segment_ids: np.ndarray  # (B, S) int32 (1 = real, 0 = pad)
+
+
+def lm_batches(vocab: int, batch: int, seq_len: int, seed: int = 0,
+               max_vocab_sample: int = 50_000) -> Iterator[TokenBatch]:
+    """Infinite deterministic stream of LM batches.
+
+    Sampling cost is kept O(min(vocab, max_vocab_sample)) — huge embedding
+    tables don't need every id exercised to train/benchmark.
+    """
+    rng = np.random.RandomState(seed)
+    v = min(vocab, max_vocab_sample)
+    while True:
+        toks = zipf_tokens(rng, (batch, seq_len + 1), v)
+        yield TokenBatch(tokens=toks[:, :-1],
+                         targets=toks[:, 1:],
+                         segment_ids=np.ones((batch, seq_len), np.int32))

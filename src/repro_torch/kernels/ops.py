@@ -18,6 +18,7 @@ from .bulk_prune import pair_gather
 from .hamming import hamming
 from .l2 import l2_distance
 from .pq_adc import pq_adc
+from .slstm import slstm_sequence as _slstm_sequence
 
 
 def _plain(t: torch.Tensor, force_ref: bool) -> bool:
@@ -105,3 +106,13 @@ def dot_distances(q: torch.Tensor, x: torch.Tensor, *,
         return ref.dot_distance_ref(q, x)
     return l2_distance(q.float().contiguous(), x.float().contiguous(),
                        mode="dot")
+
+
+def slstm_sequence(gates_x: torch.Tensor, r: torch.Tensor, b: torch.Tensor,
+                   *, n_heads: int, force_ref: bool = False) -> torch.Tensor:
+    """gates_x (B, S, 4d) × r (4, H, blk, blk) × b (4d,) -> h (B, S, d) in
+    the gates' dtype: the sLSTM recurrence of every prefill (``apply_slstm``)."""
+    if _plain(gates_x, force_ref):
+        return ref.slstm_sequence_ref(gates_x, r, b, n_heads)
+    return _slstm_sequence(gates_x.contiguous(), r.float().contiguous(),
+                           b.float().contiguous(), n_heads=n_heads)

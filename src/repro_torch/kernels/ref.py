@@ -7,7 +7,9 @@ axis to the kernel.  Packed BQ words are int32 holding the uint32 bits.
 The CPU tests run these; ``chip_smoke.py`` holds each CUDA kernel to
 its plain version on the card.  Nothing on the main path calls the kernels'
 plain versions when the tensors lie on a card; only ``gathered_dists``, the
-row-wise arithmetic they share, is also plain code of the main path.
+row-wise arithmetic they share, and ``slstm_cell``, the sLSTM decode step
+(one cell step a token, which has no kernel in the JAX package either), are
+also plain code of the main path.
 """
 
 from __future__ import annotations
@@ -128,3 +130,48 @@ def hamming_ref(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     for w in range(q.shape[1]):
         acc += popcount32(q[:, w, None] ^ x[None, :, w]).to(torch.int32)
     return acc
+
+
+def slstm_cell(gates_x: torch.Tensor, r: torch.Tensor, b: torch.Tensor,
+               h: torch.Tensor, c: torch.Tensor, n: torch.Tensor,
+               m: torch.Tensor, n_heads: int):
+    """One step of the stabilised exp-gate sLSTM cell, all in float32.
+
+    gates_x (B, 4d) input-side gates, r (4, H, blk, blk) block-diagonal
+    recurrent weights, b (4d,) biases; state h, c, n, m (B, d).  Gate g of
+    unit n·blk + l reads pre[g·d + n·blk + l] and the column R[g, n, :, l].
+    Returns the new (h, c, n, m).
+    """
+    bsz, d4 = gates_x.shape
+    d = d4 // 4
+    blk = d // n_heads
+    rec = torch.einsum("bnk,gnkl->bgnl", h.reshape(bsz, n_heads, blk),
+                       r.float()).reshape(bsz, d4)
+    pre = gates_x.float() + rec + b.float()
+    gi, gf, gz, go = pre.split(d, dim=-1)
+    log_f = torch.nn.functional.logsigmoid(gf)
+    m_new = torch.maximum(log_f + m, gi)
+    i_p = torch.exp(gi - m_new)
+    f_p = torch.exp(log_f + m - m_new)
+    c_new = f_p * c + i_p * torch.tanh(gz)
+    n_new = f_p * n + i_p
+    h_new = torch.sigmoid(go) * c_new / torch.clamp_min(n_new, 1e-6)
+    return h_new, c_new, n_new, m_new
+
+
+def slstm_sequence_ref(gates_x: torch.Tensor, r: torch.Tensor,
+                       b: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """gates_x (B, S, 4d) × r (4, H, blk, blk) × b (4d,) -> h (B, S, d) in
+    the gates' dtype: the cell over the sequence from h = c = n = 0 and
+    m = -1e30, state in float32 (``repro.kernels.ref.slstm_sequence_ref``)."""
+    bsz, s, d4 = gates_x.shape
+    d = d4 // 4
+    state = [torch.zeros((bsz, d), dtype=torch.float32,
+                         device=gates_x.device) for _ in range(3)]
+    state.append(torch.full((bsz, d), -1e30, dtype=torch.float32,
+                            device=gates_x.device))
+    out = torch.empty((bsz, s, d), dtype=gates_x.dtype, device=gates_x.device)
+    for t in range(s):
+        state = slstm_cell(gates_x[:, t], r, b, *state, n_heads)
+        out[:, t] = state[0]
+    return out

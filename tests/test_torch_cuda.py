@@ -21,6 +21,7 @@ from repro_torch.kernels import hamming as hm_mod
 from repro_torch.kernels import l2 as l2_mod
 from repro_torch.kernels import ops
 from repro_torch.kernels import pq_adc as adc_mod
+from repro_torch.kernels import slstm as slstm_mod
 
 pytestmark = pytest.mark.cuda
 
@@ -310,3 +311,100 @@ def test_exact_collection_on_card_matches_cpu(cuda, metric):
         np.testing.assert_allclose(gs, ws, rtol=0, atol=1e-4)
         for g, w in zip(got, want):
             assert g.id == w.id or abs(g.score - w.score) <= 1e-4
+
+
+# B8 against its plain version: |h| <= 1 (c / n is a weighted mean of tanh
+# values), so fp32 may differ by summation order (1e-4) and bf16 by one ulp
+# at 1 (2^-7) where the fp32 values round to neighbouring bf16 numbers
+SLSTM_ATOL = {torch.float32: 1e-4, torch.bfloat16: 7.9e-3}
+
+
+def _slstm_inputs(seed, b, s, d, h, dtype, device):
+    rng = np.random.RandomState(seed)
+    blk = d // h
+    gates = rng.randn(b, s, 4 * d).astype(np.float32)
+    # the model's scales, and a recurrent matrix that is not symmetric
+    r = (rng.randn(4, h, blk, blk) / np.sqrt(blk)).astype(np.float32)
+    bias = (0.5 * rng.randn(4 * d)).astype(np.float32)
+    bias[d:2 * d] += 3.0
+    return (torch.as_tensor(gates, device=device).to(dtype),
+            torch.as_tensor(r, device=device),
+            torch.as_tensor(bias, device=device))
+
+
+# widths (d, heads): the JAX kernel tests' blk = 8 (tests/test_kernels.py),
+# blk = 4 and 5 (tails inside a 16-unit tile), the smoke width (blk = 32)
+# and xlstm-1.3b's full width (blk = 512)
+@pytest.mark.parametrize("d,h", [(32, 4), (16, 2), (64, 8), (16, 4),
+                                 (20, 4), (64, 2), (2048, 4)])
+@pytest.mark.parametrize("b,s", [(1, 1), (3, 37), (8, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slstm_sequence(cuda, d, h, b, s, dtype):
+    g, r, bias = _slstm_inputs(d + s, b, s, d, h, dtype, cuda)
+    before = slstm_mod.launches
+    got = ops.slstm_sequence(g, r, bias, n_heads=h)
+    assert slstm_mod.launches == before + 1
+    want = ops.slstm_sequence(g, r, bias, n_heads=h, force_ref=True)
+    assert slstm_mod.launches == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b, s, d)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= SLSTM_ATOL[dtype], err
+    # the transposed layout would be another function
+    swapped = ops.slstm_sequence(g, r.transpose(2, 3).contiguous(), bias,
+                                 n_heads=h, force_ref=True)
+    if s > 1 and d // h > 1:
+        assert (swapped.float() - got.float()).abs().max().item() > 1e-3
+
+
+# R's columns that do not fit in shared memory (blk = 2,048), and more tiles
+# than blocks on the card at once (blk = 3,072: each block walks several)
+@pytest.mark.parametrize("d,h", [(4096, 2), (6144, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slstm_sequence_r_from_l2(cuda, d, h, dtype):
+    g, r, bias = _slstm_inputs(d, 3, 37, d, h, dtype, cuda)
+    got = ops.slstm_sequence(g, r, bias, n_heads=h)
+    want = ops.slstm_sequence(g, r, bias, n_heads=h, force_ref=True)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= SLSTM_ATOL[dtype], err
+
+
+def test_slstm_sequence_refuses_bad_inputs(cuda):
+    g, r, bias = _slstm_inputs(0, 2, 4, 32, 4, torch.float32, cuda)
+    with pytest.raises(ValueError, match="multiple of n_heads"):
+        slstm_mod.slstm_sequence(g, r, bias, n_heads=3)
+    with pytest.raises(ValueError, match="float32 or"):
+        slstm_mod.slstm_sequence(g.half(), r, bias, n_heads=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        slstm_mod.slstm_sequence(g.transpose(0, 1), r, bias, n_heads=4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_xlstm_forward_on_card_matches_plain(cuda, dtype):
+    """xlstm-1.3b at smoke width on the card: forward through the kernel
+    against forward(force_ref=True), one kernel call per sLSTM layer; in
+    fp32 also teacher-forced decode against forward."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import (decode_step, forward, init_decode_state,
+                                    init_params)
+    cfg = get_smoke_config("xlstm-1.3b").with_overrides(dtype=dtype)
+    model = init_params(cfg, generator=torch.Generator(cuda).manual_seed(0),
+                        device=cuda)
+    toks = torch.as_tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (3, 64)), device=cuda)
+    before = slstm_mod.launches
+    got, _ = forward(model, {"tokens": toks}, cfg)
+    assert slstm_mod.launches == before + cfg.n_layers // 2
+    want, _ = forward(model, {"tokens": toks}, cfg, force_ref=True)
+    assert torch.isfinite(got).all()
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+        st = init_decode_state(cfg, 3, 64, device=cuda)
+        for t in range(toks.shape[1]):
+            step, st = decode_step(model, st, toks[:, t:t + 1], cfg)
+            torch.testing.assert_close(step[:, 0], got[:, t], rtol=0,
+                                       atol=1e-4)
+    else:
+        assert (got - want).abs().max().item() <= 0.15
+        assert (got.argmax(-1) == want.argmax(-1)).float().mean() >= 0.9

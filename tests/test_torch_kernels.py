@@ -286,7 +286,9 @@ def test_port_imports_without_jax():
         "          'kernels.beam_gather_hamming', 'kernels.pq_adc',\n"
         "          'kernels.hamming', 'kernels._launch', 'kernels.l2',\n"
         "          'core.sparse', 'core.ivf', 'api.database',\n"
-        "          'serving.batcher', 'checkpoint.store'):\n"
+        "          'serving.batcher', 'checkpoint.store', 'kernels.slstm',\n"
+        "          'configs', 'configs.xlstm_1_3b', 'models.model',\n"
+        "          'models.recurrent', 'models.convert', 'models.steps'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
