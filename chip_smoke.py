@@ -45,8 +45,10 @@ xLSTM language model through ``repro_torch.models``:
 
 Every phase must pass and every kernel of its path must have launched, or
 the script exits non-zero.  The exact scans of phases A-E (delta segment,
-flat route, flat index) run the ``l2_distance`` kernel; every sLSTM layer
-of phase F's prefill runs the ``slstm`` kernel.  Before the last
+flat route, flat index) run B5's fused entry (``l2_topk``: distances and
+their top-k in one launch over the whole corpus), and phase E's k = 1,000
+query its matrix entry (``l2_distance``); every sLSTM layer of phase F's
+prefill runs the ``slstm`` kernel.  Before the last
 line it prints the card's name and power limit and one JSON line with each
 kernel's launches, error, time, plain-version time, bound and library-call
 time; the last line is the device JSON.  It needs a CUDA device and the
@@ -73,6 +75,8 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 # H100 SXM published peaks (NVIDIA data sheet), used for the bounds
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+# dense TF32 on the tensor cores; B5's 3xTF32 does three per fp32 product
+TF32_FLOP_PER_S = 495e12
 # population count: 16 results per clock per SM for compute capability 9.0
 # (CUDA C++ Programming Guide, throughput of native arithmetic
 # instructions), x 132 SMs x the H100 SXM's 1.98 GHz boost clock
@@ -99,6 +103,8 @@ QUERY_BATCH = 1024
 # k=256 and BQ 256 bits over the 128-wide corpus
 PQ_M, PQ_K, BQ_BITS = 16, 256, 256
 FLAT_CHUNK = 65536       # the flat route's corpus chunk (core/engine.py)
+# k of the fused entry's sweep against the route it replaced (topk_k_sweep)
+TOPK_SWEEP_K = (16, 17, 64, 65, 100, 101, 128, 256)
 # recall@10 floors by phase and ef, each a margin under the recall this
 # script measured on an H100 (PERF.md): at ef=64 to catch a regression of
 # the search itself, and at the ef where the phase first passes 0.80 (A,
@@ -113,16 +119,20 @@ RECALL_FLOORS = {"A": {64: 0.60, 256: 0.82},
 FIRST_PASS_FLOORS = {"C": 0.18, "D": 0.12}
 QUANT = {"A": "none", "B": "none", "C": "pq", "D": "bq"}
 # the kernels each phase's path runs; each must launch in its phase
-# (l2_distance: the delta scan and, in A and B, the exact flat route)
+# (l2_topk, B5's fused entry: every exact scan, the delta scan and, in A, B
+# and E, the exact flat route and the flat index; l2_distance, its matrix
+# entry: E's k = 1,000 query, past the fused entry's k)
 PHASE_KERNELS = {
-    "A": ("beam_gather", "pair_gather", "l2_distance"),
-    "B": ("beam_gather", "pair_gather", "l2_distance"),
+    "A": ("beam_gather", "pair_gather", "l2_topk"),
+    "B": ("beam_gather", "pair_gather", "l2_topk"),
     "C": ("beam_gather", "pair_gather", "beam_gather_adc", "pq_adc",
-          "l2_distance"),
+          "l2_topk"),
     "D": ("beam_gather", "pair_gather", "beam_gather_hamming", "hamming",
-          "l2_distance"),
-    "E": ("beam_gather", "pair_gather", "l2_distance"),
+          "l2_topk"),
+    "E": ("beam_gather", "pair_gather", "l2_topk", "l2_distance"),
     "F": ("slstm",)}
+# kernels whose source file is named otherwise: B5's two entries share one
+SOURCES = {"l2_topk": "l2_distance"}
 # phase E: the exact collection's fields and its checks' sizes
 N_CATEGORIES = 8         # KeywordField("category"): cat-0 .. cat-7
 TITLE_VOCAB = 5_000      # TextField("title"): 4 words from this vocabulary
@@ -396,33 +406,119 @@ def quant_kernel_checks(torch, codes, lut, words, q_words, log):
     return rows
 
 
-def l2_kernel_checks(torch, sift_cos, sift_raw, fm, signs, log):
-    """B5 against its plain version at the exact scans' shapes: the flat
-    route's Q = 1,024 against one 65,536-row chunk (cosine rows in dot
-    mode, raw rows in l2), Fashion-MNIST's 60,000 x 784 in both modes, the
-    BQ delta scan's signs against a power-of-two delta pad, and the
-    batcher's buckets (Q = 1, 7, 32) against the 16,960-row last chunk of
-    1M.
+def bound_3xtf32(nbytes: float, mm_flops: float, other_flops: float = 0.0):
+    """(ms, "bytes" | "operations"): B5's bound on the tensor cores, each
+    fp32 product three TF32 products at the dense TF32 rate and any other
+    flops at the fp32 rate, against the bytes over the memory rate."""
+    tb = nbytes / HBM_BYTES_PER_S
+    tf = 3 * mm_flops / TF32_FLOP_PER_S + other_flops / FP32_FLOP_PER_S
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
-    library_ms: one PyTorch call on the same inputs, TF32 off (cuBLAS
+
+def topk_vs_plain(torch, q, x, mode, k, got_d, got_i):
+    """The fused entry against its plain version (plain distances, then
+    topk_smallest), one 65,536-row block at a time: the k distances agree
+    within RTOL + ATOL_PER_NORM |q||x|, and every returned row's plain
+    distance lies within that tolerance of the plain k-th (the two sum in
+    other orders, so rows that tie within rounding may trade places).
+    Returns the largest distance error."""
+    from repro_torch.core.flat import scan_topk
+    from repro_torch.kernels import ref
+
+    def plain(lo, hi):
+        if mode == "l2":
+            return ref.l2_distance_ref(q, x[lo:hi])
+        d = ref.dot_distance_ref(q, x[lo:hi])
+        return 1.0 + d if mode == "cosine" else d
+
+    pd, pi = scan_topk(plain, x.shape[0], k, chunk=FLAT_CHUNK)
+    xn = x.norm(dim=1)
+    scale = ATOL_PER_NORM * q.norm(dim=1)[:, None]
+    err = (got_d - pd).abs()
+    check(bool((err <= RTOL * pd.abs() + scale * xn[pi.long()]).all()),
+          f"l2_topk {mode} Q={q.shape[0]} N={x.shape[0]}: distances off "
+          f"the plain version by {float(err.max())}")
+    rows = x[got_i.reshape(-1)].view(*got_i.shape, -1)
+    if mode == "l2":
+        mine = ((rows - q[:, None, :]) ** 2).sum(-1)
+    else:
+        mine = -(rows * q[:, None, :]).sum(-1)
+        mine = 1.0 + mine if mode == "cosine" else mine
+    slack = RTOL * pd[:, -1:].abs() + scale * xn[got_i] + \
+        RTOL * mine.abs()
+    check(bool((mine <= pd[:, -1:] + slack).all()),
+          f"l2_topk {mode} Q={q.shape[0]} N={x.shape[0]}: a returned row "
+          f"lies outside the plain top-{k}")
+    return float(err.max())
+
+
+def l2_kernel_checks(torch, sift_cos, sift_raw, fm, signs, log):
+    """B5's two entries against their plain versions.
+
+    The matrix entry (``l2_distance``) at the shapes the exact scans gave
+    it: Q = 1,024 against one 65,536-row chunk (cosine rows in dot mode,
+    raw rows in l2), Q = 32 against it in dot mode (phase E's k = 1,000
+    query, the matrix entry's one use on the main path), Fashion-MNIST's
+    60,000 x 784 in both modes, the BQ delta scan's signs against a
+    power-of-two delta pad, and the batcher's buckets (Q = 1, 7, 32)
+    against the 16,960-row last chunk of 1M; at each,
+    the fused entry (``l2_topk``, k = 10, cosine on the unit rows) must equal
+    ``topk_smallest`` over the matrix entry's output bit for bit and agree
+    with its plain version (`topk_vs_plain`).  Then the fused entry where
+    the exact scans now run it: phase E's batch, Q = 1,024 against the
+    whole 1M corpus (cosine, k = 10), and the batcher's Q = 1, 7, 32 against
+    it, each beside the route it replaced (``route_ms``: the matrix entry
+    over 65,536-row chunks, ``topk_smallest`` and ``merge_topk``, what
+    ``flat_search`` ran before; a yardstick, not a library call), which it
+    must equal bit for bit.
+
+    bound_ms: the 3xTF32 bound the kernel is held to (`bound_3xtf32`),
+    bound_fp32_ms the CUDA-core fp32 bound of the same work.  library_ms,
+    matrix entry only: one PyTorch call on the same inputs, TF32 off (cuBLAS
     SGEMM): ``addmm(out, q, x.T, beta=0, alpha=-1)`` for dot and
     ``cdist(q, x, compute_mode="use_mm_for_euclid_dist")`` for l2, whose
-    square root is ignored; the port never calls either."""
+    square root is ignored; the port never calls either.  The fused entry
+    has none: no one PyTorch call computes distances and their top-k."""
+    from repro_torch.core.flat import scan_topk, topk_smallest
     from repro_torch.kernels import ref
-    from repro_torch.kernels.l2 import l2_distance
+    from repro_torch.kernels.l2 import l2_distance, l2_topk
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     rows = []
-    shapes = [("dot", sift_cos, QUERY_BATCH, FLAT_CHUNK),
-              ("l2", sift_raw, QUERY_BATCH, FLAT_CHUNK),
-              ("l2", fm, QUERY_BATCH, fm.shape[0]),
-              ("dot", fm, QUERY_BATCH, fm.shape[0]),
-              ("dot", signs, QUERY_BATCH, 8192)]
+
+    def plain_topk(q, x, mode):
+        return lambda: ref.l2_topk_ref(q, x, K, mode)
+
+    def topk_row(q, x, mode, got_d, got_i, **extra):
+        nq, n, d = q.shape[0], x.shape[0], q.shape[1]
+        err = topk_vs_plain(torch, q, x, mode, K, got_d, got_i)
+        # inputs read once, the (Q, k) distances and ids written once
+        nbytes = (nq + n) * d * 4 + nq * K * 12
+        mm, other = 2 * nq * n * d, (2 * (nq + n) * d + 3 * nq * n
+                                     if mode == "l2" else nq * n)
+        b3, bf = bound_3xtf32(nbytes, mm, other), bound(nbytes, mm + other)
+        ms = time_ms(torch, lambda: l2_topk(q, x, K, mode=mode))
+        rows.append({"name": "l2_topk", "mode": mode, "Q": nq, "N": n,
+                     "D": d, "k": K, "max_abs_err": err, "ms": ms,
+                     "bound_ms": b3[0], "bound_by": b3[1],
+                     "bound_fp32_ms": bf[0], "bound_held_to": "3xtf32",
+                     "share": b3[0] / ms, "library_ms": None, **extra})
+        return rows[-1]
+
+    # (matrix mode, the fused entry's mode, corpus, Q, N): cosine is the
+    # dot mode on the unit rows, plus one
+    shapes = [("dot", "cosine", sift_cos, QUERY_BATCH, FLAT_CHUNK),
+              ("dot", "cosine", sift_cos, 32, FLAT_CHUNK),
+              ("l2", "l2", sift_raw, QUERY_BATCH, FLAT_CHUNK),
+              ("l2", "l2", fm, QUERY_BATCH, fm.shape[0]),
+              ("dot", "dot", fm, QUERY_BATCH, fm.shape[0]),
+              ("dot", "dot", signs, QUERY_BATCH, 8192)]
     last = sift_cos.shape[0] % FLAT_CHUNK          # 16,960 at 1M
-    shapes += [("dot", sift_cos[-last:], nq, last) for nq in (1, 7, 32)]
-    for mode, corpus, nq, n in shapes:
+    shapes += [("dot", "cosine", sift_cos[-last:], nq, last)
+               for nq in (1, 7, 32)]
+    for mode, tmode, corpus, nq, n in shapes:
         x = corpus[:n].contiguous()
         n, d = x.shape
         q = x[torch.randint(0, n, (nq,), generator=gen, device="cuda")]
@@ -439,7 +535,19 @@ def l2_kernel_checks(torch, sift_cos, sift_raw, fm, signs, log):
         check(bool((err <= tol).all()),
               f"l2_distance {mode} Q={nq} N={n} D={d}: max err "
               f"{max_err} over tolerance")
-        del got, want, err, tol
+        del want, err, tol
+        # the fused entry: topk_smallest over the matrix entry's output
+        mat = 1.0 + got if tmode == "cosine" else got
+        fd, fi = l2_topk(q, x, K, mode=tmode)
+        wd, wi = topk_smallest(mat, K)
+        check(torch.equal(fi, wi) and torch.equal(
+            fd.view(torch.int32), wd.view(torch.int32)),
+            f"l2_topk {tmode} Q={nq} N={n} D={d}: differs from topk_smallest "
+            f"over the matrix entry")
+        del got, mat, wd, wi
+        r = topk_row(q, x, tmode, fd, fi)
+        r["plain_ms"] = time_ms(torch, plain_topk(q, x, tmode))
+        log(r)
         out = torch.empty((nq, n), device="cuda")
         library = (lambda: torch.addmm(out, q, x.T, beta=0, alpha=-1)) \
             if mode == "dot" else (lambda: torch.cdist(
@@ -447,19 +555,101 @@ def l2_kernel_checks(torch, sift_cos, sift_raw, fm, signs, log):
         # each input read once, the output written once; 2 flops per
         # product term, plus for l2 the norms and a 3-op epilogue
         nbytes = (nq + n) * d * 4 + nq * n * 4
-        flops = 2 * nq * n * d + (2 * (nq + n) * d + 3 * nq * n
-                                  if mode == "l2" else nq * n)
-        b_ms, b_by = bound(nbytes, flops)
+        mm, other = 2 * nq * n * d, (2 * (nq + n) * d + 3 * nq * n
+                                     if mode == "l2" else nq * n)
+        b3, bf = bound_3xtf32(nbytes, mm, other), bound(nbytes, mm + other)
         ms = time_ms(torch, lambda: l2_distance(q, x, mode=mode))
         rows.append({"name": "l2_distance", "mode": mode, "Q": nq, "N": n,
-                     "D": d, "max_abs_err": max_err, "ms": ms, "plain_ms": time_ms(torch, lambda: plain(q, x)),
-                     "bound_ms": b_ms, "bound_us": b_ms * 1e3,
-                     "bound_by": b_by, "share": b_ms / ms,
+                     "D": d, "max_abs_err": max_err, "ms": ms,
+                     "plain_ms": time_ms(torch, lambda: plain(q, x)),
+                     "bound_ms": b3[0], "bound_us": b3[0] * 1e3,
+                     "bound_by": b3[1], "bound_fp32_ms": bf[0],
+                     "bound_held_to": "3xtf32", "share": b3[0] / ms,
                      "library_ms": time_ms(torch, library)})
         log(rows[-1])
-        del out, x, q
+        del out, x, q, fd, fi
+        torch.cuda.empty_cache()
+
+    # the fused entry where the exact scans run it: the whole 1M corpus
+    x = sift_cos
+    n = x.shape[0]
+    for nq in (QUERY_BATCH, 1, 7, 32):
+        q = x[torch.randint(0, n, (nq,), generator=gen, device="cuda")]
+        q = q + 0.01 * q.abs().mean() * torch.randn(
+            q.shape, generator=gen, device="cuda")
+
+        def route():
+            return scan_topk(lambda lo, hi: 1.0 + l2_distance(
+                q, x[lo:hi], mode="dot"), n, K, chunk=FLAT_CHUNK)
+
+        fd, fi = l2_topk(q, x, K, mode="cosine")
+        rd, ri = route()
+        check(torch.equal(fi.int(), ri) and torch.equal(
+            fd.view(torch.int32), rd.view(torch.int32)),
+            f"l2_topk cosine Q={nq} N={n}: differs from the chunked route")
+        r = topk_row(q, x, "cosine", fd, fi, route_ms=time_ms(torch, route))
+        r["plain_ms"] = time_ms(torch, plain_topk(q, x, "cosine"), reps=5,
+                                warmup=1)
+        log(r)
+        del q, fd, fi, rd, ri
         torch.cuda.empty_cache()
     return rows
+
+
+def topk_k_sweep(torch, sift_cos, sift_raw, log):
+    """The fused entry against the chunked route it replaced (the matrix
+    entry over 65,536-row chunks, ``topk_smallest``, ``merge_topk``) over
+    the whole 1M corpus (cosine) at phase E's batch (Q = 1,024) and the
+    batcher's largest bucket (Q = 32), for each k in TOPK_SWEEP_K: on
+    either side of the k where a block's lists leave shared memory for
+    ``cand`` in global memory (16 / 17 at Q > 32, 64 / 65 at Q <= 32) and
+    up to the fused entry's limit.  Each pair must agree bit for bit;
+    ``flat_search`` takes the one ``dispatch`` names (``FUSED_MAX_K``).
+    Then the exact cosine batch's transient device memory (peak minus what
+    was allocated before it) through ``flat_search``, with the corpus
+    normalized in the call and with the engine's cached unit rows."""
+    from repro_torch.core.flat import FUSED_MAX_K, flat_search, scan_topk
+    from repro_torch.kernels.l2 import l2_distance, l2_topk
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    x = sift_cos
+    n = x.shape[0]
+    for nq in (QUERY_BATCH, 32):
+        q = x[torch.randint(0, n, (nq,), generator=gen, device="cuda")]
+        q = q + 0.01 * q.abs().mean() * torch.randn(
+            q.shape, generator=gen, device="cuda")
+        for k in TOPK_SWEEP_K:
+            def route():
+                return scan_topk(lambda lo, hi: 1.0 + l2_distance(
+                    q, x[lo:hi], mode="dot"), n, k, chunk=FLAT_CHUNK)
+
+            fd, fi = l2_topk(q, x, k, mode="cosine")
+            rd, ri = route()
+            check(torch.equal(fi.int(), ri) and torch.equal(
+                fd.view(torch.int32), rd.view(torch.int32)),
+                f"l2_topk cosine Q={nq} N={n} k={k}: differs from the "
+                f"chunked route")
+            del fd, fi, rd, ri
+            log({"topk_sweep": "l2_topk vs route", "Q": nq, "N": n, "k": k,
+                 "ms": time_ms(torch, lambda: l2_topk(q, x, k, mode="cosine"),
+                               reps=5, warmup=1),
+                 "route_ms": time_ms(torch, route, reps=5, warmup=1),
+                 "dispatch": "fused" if k <= FUSED_MAX_K else "route"})
+        torch.cuda.empty_cache()
+
+    q = sift_raw[:QUERY_BATCH]
+    out = {"memory": "exact cosine batch, flat_search", "Q": QUERY_BATCH,
+           "N": n, "k": K}
+    for name, corpus, unit in (("normalized_per_call_gb", sift_raw, False),
+                               ("unit_corpus_gb", sift_cos, True)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        flat_search(q, corpus, K, metric="cosine", unit_corpus=unit)
+        torch.cuda.synchronize()
+        out[name] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    log(out)
 
 
 # ---------------------------------------------------------------------------
@@ -735,6 +925,15 @@ def run_api(torch, corpus, queries, gt, new_rows, phase_a, counters, log):
     res["exact_recall_at_10"] = recall_at_k(rows, gt)
     check(res["exact_recall_at_10"] >= EXACT_RECALL_FLOOR,
           f"E: exact batched recall {res['exact_recall_at_10']}")
+    # one more batch: the device memory it takes past what stays resident
+    # (by now the collection's unit corpus, cached by the engine)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    exact.query(queries[:QUERY_BATCH]).top_k(K).run()
+    torch.cuda.synchronize()
+    res["exact_resident_gb"] = base / 2**30
+    res["exact_batch_transient_gb"] = \
+        (torch.cuda.max_memory_allocated() - base) / 2**30
 
     # single vectors from 32 threads, coalesced by the batcher
     single = queries[:SINGLE_QUERIES]
@@ -755,6 +954,17 @@ def run_api(torch, corpus, queries, gt, new_rows, phase_a, counters, log):
     check(res["single_mean_batch"] > 1, "E: the batcher never coalesced")
     check(res["single_recall_at_10"] >= EXACT_RECALL_FLOOR,
           f"E: single-vector recall {res['single_recall_at_10']}")
+
+    # a rerank-sized query, k = 1,000 (past B5's fused entry's 256: the
+    # matrix entry and the chunked scan): its first 10 hits are the k = 10
+    # answer, which the fused entry gave
+    wide_q = queries[:32]
+    wide = exact.query(wide_q).top_k(1000).run()
+    narrow = exact.query(wide_q).top_k(K).run()
+    check(all(len(w) == 1000 for w in wide) and
+          [[h.id for h in w[:K]] for w in wide] ==
+          [[h.id for h in nw] for nw in narrow],
+          "E: the k = 1,000 query's first 10 hits differ from k = 10's")
 
     # a metadata filter (1 in 8): every hit matches, exact against a
     # masked top-k
@@ -1071,18 +1281,23 @@ class Counters:
         from repro_torch.kernels import (beam_gather, beam_gather_adc,
                                          beam_gather_hamming, bulk_prune,
                                          hamming, l2, pq_adc, slstm)
-        self.mods = {"beam_gather": beam_gather, "pair_gather": bulk_prune,
-                     "beam_gather_adc": beam_gather_adc,
-                     "beam_gather_hamming": beam_gather_hamming,
-                     "pq_adc": pq_adc, "hamming": hamming,
-                     "l2_distance": l2, "slstm": slstm}
+        # name -> (wrapper module, its counter)
+        self.mods = {"beam_gather": (beam_gather, "launches"),
+                     "pair_gather": (bulk_prune, "launches"),
+                     "beam_gather_adc": (beam_gather_adc, "launches"),
+                     "beam_gather_hamming": (beam_gather_hamming, "launches"),
+                     "pq_adc": (pq_adc, "launches"),
+                     "hamming": (hamming, "launches"),
+                     "l2_distance": (l2, "launches"),
+                     "l2_topk": (l2, "topk_launches"),
+                     "slstm": (slstm, "launches")}
 
     def reset(self):
-        for m in self.mods.values():
-            m.launches = 0
+        for m, attr in self.mods.values():
+            setattr(m, attr, 0)
 
     def read(self):
-        return {k: m.launches for k, m in self.mods.items()}
+        return {k: getattr(m, attr) for k, (m, attr) in self.mods.items()}
 
 
 def main() -> int:
@@ -1158,6 +1373,7 @@ def main() -> int:
         rows += quant_kernel_checks(torch, codes, lut, words, q_words, log)
         rows += l2_kernel_checks(torch, sift_cos, sift_raw, fm_dev, signs,
                                  log)
+        topk_k_sweep(torch, sift_cos, sift_raw, log)
         del sift_raw, sift_cos, fm_dev, pq, bq, codes, lut, words, q_words
         del signs, q_dev
         torch.cuda.empty_cache()
@@ -1202,9 +1418,14 @@ def main() -> int:
     # (quant_kernel_checks), addmm for l2_distance in dot mode
     # (l2_kernel_checks); null for the four gathers, since no single
     # PyTorch call fuses a row gather with its distance, pair matrix, LUT
-    # sum or bit count.  l2_distance's launches: phase E, the exact
-    # collection's path.  slstm: the full-width bf16 call (B=8, S=2,048) of
-    # phase F's prefill, launches counted over one prefill; library_ms null,
+    # sum or bit count.  l2_distance's launches: phase E (its k = 1,000
+    # query), at that query's shape (Q=32 x one 65,536-row chunk, dot)
+    # against addmm; l2_topk, B5's fused entry, at phase E's batch (Q=1024
+    # x the 1M corpus, cosine, k=10), launches in phase E (every exact
+    # scan), with route_ms (the chunked matrix route it replaced) and
+    # library_ms null; both with bound_ms held to 3xTF32 and bound_fp32_ms
+    # beside it.  slstm: the full-width bf16 call (B=8, S=2,048) of phase
+    # F's prefill, launches counted over one prefill; library_ms null,
     # since no PyTorch call computes its cell (slstm_kernel_checks).
     main_rows = {
         "beam_gather": (pick("beam_gather", mode="dot", D=128, L=128), "A",
@@ -1217,15 +1438,19 @@ def main() -> int:
                                 "beam_gather.py:185"),
         "pq_adc": (pick("pq_adc", N=FLAT_CHUNK), "C", "pq_adc.py:59"),
         "hamming": (pick("hamming", N=FLAT_CHUNK), "D", "hamming.py:33"),
-        "l2_distance": (pick("l2_distance", mode="dot", D=128,
-                             Q=QUERY_BATCH), "E", "l2.py:62"),
+        "l2_distance": (pick("l2_distance", mode="dot", D=128, Q=32,
+                             N=FLAT_CHUNK), "E", "l2.py:62"),
+        "l2_topk": (next(r for r in rows if r["name"] == "l2_topk"
+                         and "route_ms" in r and r["Q"] == QUERY_BATCH),
+                    "E", "l2.py:62"),
         "slstm": (pick("slstm", dtype="bfloat16", S=PREFILL_S), "F",
                   "slstm.py:90")}
     kernels = []
     for name, (r, home, tpu) in main_rows.items():
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{name}.cu",
+            "source": "src/repro_torch/csrc/"
+                      f"{SOURCES.get(name, name)}.cu",
             "replaces": f"src/repro/kernels/{tpu}",
             "launches": phase[home]["launches"][name],
             "launches_by_phase": {p: phase[p]["launches"][name]
@@ -1233,6 +1458,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+            **{k: r[k] for k in ("bound_fp32_ms", "route_ms") if k in r},
             "at": {k: r[k] for k in ("mode", "dtype", "Q", "L", "B", "C",
                                      "D", "N", "m", "k", "W", "S", "d", "H")
                    if k in r}})

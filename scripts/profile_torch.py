@@ -16,16 +16,19 @@ under a ~5 % mask (the flat route) it prints, as one JSON line each:
              stream, so the events do not overlap);
   <kernel>_ms  each of the port's CUDA kernels' share (beam_gather,
              pair_gather, beam_gather_adc, beam_gather_hamming, pq_adc,
-             hamming, l2_distance);
-  topk_ms    the share of PyTorch's top-k kernels (names holding "topk");
+             hamming, l2_distance, l2_topk: B5's matrix and fused entries);
+  topk_ms    the share of PyTorch's top-k kernels (names holding "topk",
+             the port's kernels aside: the scans' selections, and behind
+             ``l2_topk`` the merge of its per-block candidates);
   host_ms    wall_ms - device_ms;
   top        the device events that take most of the span, by name.
 
 ``--phase E`` profiles the public API instead: an exact (flat) cosine
 collection of the same corpus through ``repro_torch.api.Database``, one
-warm-up batch, then one 1,024-query batch (k=10), which scans the corpus in
-65,536-row chunks through the ``l2_distance`` kernel; its span gives that
-kernel's ms against the top-k's and against the host's.
+warm-up batch, then one 1,024-query batch (k=10), which scans the whole
+corpus in one launch of B5's fused entry (``l2_topk``: distances and each
+block's top-k, no (Q, N) matrix); its span gives that kernel's ms against
+the candidates' merge (``topk_ms``) and against the host's.
 
 ``--phase F`` profiles the xLSTM serving path instead: xlstm-1.3b at full
 width (random weights, ``torch.Generator`` seeded 0), one warm-up prefill of
@@ -77,6 +80,7 @@ KERNELS = {"beam_gather": "beam_gather_f32_kernel",
            "pq_adc": "pq_adc_kernel",
            "hamming": "::hamming_kernel",
            "l2_distance": "l2_distance_kernel",
+           "l2_topk": "l2_topk_kernel",
            "slstm": "slstm_sequence_kernel"}
 # the device kernels of the matrix products (cuBLAS / cuBLASLt / CUTLASS)
 GEMM_PARTS = ("gemm", "nvjet", "xmma", "cutlass")
@@ -118,7 +122,8 @@ def span_rows(prof, labels):
         for k, part in KERNELS.items():
             row[f"{k}_ms"] = sum(v for n, v in c.items() if part in n) / 1e6
         row["topk_ms"] = sum(v for n, v in c.items()
-                             if "topk" in n.lower()) / 1e6
+                             if "topk" in n.lower() and not any(
+                                 part in n for part in KERNELS.values())) / 1e6
         row["top"] = [[n[:80], v / 1e6] for n, v in c.most_common(6)]
         print(json.dumps(row), flush=True)
     return dev, total_dev

@@ -5,11 +5,13 @@ inner product and Hamming over packed codes, as in the JAX package's
 Queries ``(Q, D)`` against a corpus ``(N, D)`` give a ``(Q, N)`` distance
 matrix; smaller is closer for every metric (similarities are negated), so
 top-k code is metric-agnostic.  The pairwise l2 and dot scans run the
-``l2_distance`` kernel (B5) on the card through ``kernels.ops``, cosine runs
-it in dot mode on normalized rows, and Hamming runs the ``hamming`` kernel;
-CPU tensors take the kernels' plain versions.  Every exact scan of the
-engine (the flat index, the low-selectivity flat route, the delta segment)
-goes through this registry.  `rowwise` applies the same formulas to each
+``l2_distance`` kernel (B5's matrix entry) on the card through
+``kernels.ops``, cosine runs it in dot mode on normalized rows, and Hamming
+runs the ``hamming`` kernel; CPU tensors take the kernels' plain versions.
+The engine's exact scans (the flat index, the low-selectivity flat route,
+the delta segment) go through ``core.flat.flat_search``: on the CPU over
+this registry, on the card through B5's fused entry with the same
+formulas.  `rowwise` applies the same formulas to each
 query's own gathered rows, batched (the exact rescore): a plain
 ``torch.bmm`` in full fp32, as the JAX package leaves it outside Pallas.
 """

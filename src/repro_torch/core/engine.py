@@ -37,7 +37,7 @@ import torch
 from ..device import resolve_device
 from . import bq as bq_mod
 from . import pq as pq_mod
-from .distances import rowwise
+from .distances import normalize, rowwise
 from .executor import AnnParams
 from .flat import flat_search
 from .hnsw_build import (HNSWConfig, PackedHNSW, ProgressFn, build,
@@ -127,6 +127,7 @@ class QuantixarEngine:
         self._delta: Optional[DeltaSegment] = None  # exists once sealed
         self._delta_cache = None    # (delta, version, eff_device, metric)
         self._corpus_cache = None   # (n, raw corpus on the device)
+        self._unit_cache = None     # (n, unit corpus rows on the device)
         self._codes_cache = None    # (n, codes on the device)
         self.build_seconds: float = 0.0
         self.insert_seconds: float = 0.0
@@ -381,6 +382,16 @@ class QuantixarEngine:
             self._corpus_cache = (self._n, self._to_dev(self.vectors))
         return self._corpus_cache[1]
 
+    def _unit_corpus_device(self) -> torch.Tensor:
+        """All vectors as unit rows on the device (the cosine exact scan's
+        corpus), normalized once and cached until the next add(); the raw
+        rows are not kept beside them."""
+        if self._unit_cache is None or self._unit_cache[0] != self._n:
+            self._unit_cache = None          # free the stale copy first
+            self._unit_cache = (self._n,
+                                normalize(self._to_dev(self.vectors)))
+        return self._unit_cache[1]
+
     def _codes_device(self) -> torch.Tensor:
         """All codes on the device, cached until the next add()."""
         if self._codes_cache is None or self._codes_cache[0] != self._n:
@@ -403,9 +414,16 @@ class QuantixarEngine:
                                          self._codes_device(), k,
                                          mask=mask_t, chunk=FLAT_CHUNK)
         else:
-            d, ids = flat_search(q, self._corpus_device(), k,
-                                 metric=cfg.metric, chunk=FLAT_CHUNK,
-                                 mask=mask_t)
+            # on the card the cosine scan takes the cached unit rows (the
+            # fused kernel scans the whole corpus at once; normalizing it on
+            # every call would cost a transient (N, D) copy); on the CPU
+            # each chunk is normalized as it is scanned
+            unit = cfg.metric == "cosine" and q.device.type == "cuda"
+            corpus = self._unit_corpus_device() if unit \
+                else self._corpus_device()
+            d, ids = flat_search(q, corpus, k, metric=cfg.metric,
+                                 chunk=FLAT_CHUNK, mask=mask_t,
+                                 unit_corpus=unit)
         return d.cpu().numpy(), ids.cpu().numpy()
 
     def _hnsw_pass(self, queries, k, ef, mask, expansion_width=None):

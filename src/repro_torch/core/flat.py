@@ -1,17 +1,30 @@
 """Flat (exact) index (paper §III-C) and the port's one top-k primitive.
 
-`topk_smallest` is the tie-stable top-k every part of the port uses: the k
-smallest entries of each row, ascending, equal values in index order —
-what ``lax.top_k(-x, k)`` gives in the JAX package (signed zeros included), where ``torch.topk``
-leaves the order of ties unspecified.  It selects on a unique 64-bit key
-(order-preserving float bits above the column index) with ``torch.topk``,
-so it never sorts a whole row.
+`topk_smallest` (defined beside the kernels' plain versions, in
+``kernels/ref.py``) is the tie-stable top-k every part of the port uses:
+the k smallest entries of each row, ascending, equal values in index order
+— what ``lax.top_k(-x, k)`` gives in the JAX package (signed zeros
+included), where ``torch.topk`` leaves the order of ties unspecified.  It
+selects on a unique 64-bit key (order-preserving float bits above the
+column index) with ``torch.topk``, so it never sorts a whole row.
 
-`scan_topk` is the chunked streaming top-k every scan of the port runs
-(mask, ``base_index``): the exact flat scan, and the PQ and BQ flat routes
-whose blocks come from the ``pq_adc`` and ``hamming`` kernels.
-`flat_search` is the exact scan: each block comes from the metric registry,
-so on the card from the ``l2_distance`` kernel (B5) in l2 or dot mode.
+`scan_topk` is the chunked streaming top-k over blocks of a distance
+matrix (mask, ``base_index``): the PQ and BQ flat routes, whose blocks come
+from the ``pq_adc`` and ``hamming`` kernels, and the exact scan on the CPU
+or past `FUSED_MAX_K`.
+
+`flat_search` is the exact scan.  On the card, for l2, dot and cosine with
+k <= `FUSED_MAX_K` (100), it is one launch of B5's fused entry
+(``kernels/l2.py:l2_topk``) over the whole corpus: the cross term in 3xTF32
+on the tensor cores and a per-block top-k on the same 64-bit key, so the
+(Q, N) matrix is never written and no chunk loop runs; it returns what the
+chunked scan over B5's matrix entry returns, bit for bit.  On the CPU, for
+other metrics and for larger k it is `scan_topk` over the metric registry
+(on the card, the matrix entry ``l2_distance``), where a larger k is
+faster: the fused entry takes k <= 256, but past ~100 its lists' insertions
+cost more than the matrix and the chunked top-k.  Cosine normalizes the
+rows, the corpus once per call or not at all where the caller passes its
+cached unit rows (``unit_corpus``).
 """
 
 from __future__ import annotations
@@ -20,30 +33,29 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from .distances import get_metric
+from ..kernels import ops
+from ..kernels.ref import topk_smallest
+from .distances import get_metric, normalize, pairwise_dot
 
-
-def topk_smallest(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The k smallest entries along the last dim of float x, ascending, ties
-    broken by the lowest index.  Returns (values, int64 indices)."""
-    x = x.float()
-    # float bits -> int32 in the same order, -0.0 below +0.0 as in XLA's
-    # total order; NaN above +inf
-    bits = x.view(torch.int32)
-    ordered = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF).to(torch.int64)
-    col = torch.arange(x.shape[-1], device=x.device, dtype=torch.int64)
-    key = (ordered << 32) | col
-    _, pos = torch.topk(key, k, dim=-1, largest=False, sorted=True)
-    return x.gather(-1, pos), pos
+#: metrics whose exact scan the fused kernel runs on the card
+_FUSED = ("l2", "dot", "cosine")
+#: the largest k whose exact scan takes the fused kernel on the card.  Past
+#: 16 (Q > 32) or 64 (Q <= 32) a block's lists leave shared memory and each
+#: insertion walks global memory.  On an H100 at 1,024 x 1M x 128 the fused
+#: scan takes 5.8 ms at k = 16, 31 at 64, 61 at 100 and 314 at 256, the
+#: chunked matrix route 62-64 throughout; at Q = 32, 0.74 / 3.5 / 9.1 / 42
+#: ms against 7.5-11.5 (chip_smoke.py's topk_k_sweep).  Past it, the route.
+FUSED_MAX_K = 100
 
 
 def merge_topk(d_a: torch.Tensor, i_a: torch.Tensor, d_b: torch.Tensor,
                i_b: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Merge two (Q, ka)/(Q, kb) candidate sets into the best-k (ascending);
-    on equal distances the first set's entries come first."""
+    """Merge two (Q, ka)/(Q, kb) candidate sets into the best-k (ascending;
+    all ka + kb where that is fewer); on equal distances the first set's
+    entries come first."""
     d = torch.cat([d_a, d_b], dim=-1)
     i = torch.cat([i_a, i_b], dim=-1)
-    top, sel = topk_smallest(d, k)
+    top, sel = topk_smallest(d, min(k, d.shape[-1]))
     return top, i.gather(-1, sel)
 
 
@@ -76,8 +88,9 @@ def scan_topk(dist_fn: Callable[[int, int], torch.Tensor], n: int, k: int,
 
 def flat_search(queries: torch.Tensor, corpus: torch.Tensor, k: int,
                 metric: str = "cosine", chunk: Optional[int] = None,
-                mask: Optional[torch.Tensor] = None,
-                base_index: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+                mask: Optional[torch.Tensor] = None, base_index: int = 0,
+                unit_corpus: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k scan.
 
     Args:
@@ -86,16 +99,40 @@ def flat_search(queries: torch.Tensor, corpus: torch.Tensor, k: int,
       k: neighbours to return.
       metric: registry name.
       chunk: if set, scan the corpus in chunks of this many rows (bounds the
-        transient (Q, chunk) distance matrix).  Results equal the unchunked
-        scan's, ties included.
+        transient (Q, chunk) distance matrix) where `scan_topk` runs; the
+        fused kernel has no such matrix and ignores it.  Results equal the
+        unchunked scan's, ties included.
       mask: optional (N,) bool — MEVS metadata filter; False rows are
         excluded (distance = +inf).
       base_index: offset added to returned indices (shard-local -> global).
+      unit_corpus: cosine only: the corpus rows are already unit
+        (``normalize``, as the engine caches them) and are not normalized
+        again.  Otherwise the fused kernel's cosine scan normalizes the
+        whole corpus, a transient (N, D) copy, on every call.
 
     Returns:
       (distances (Q,k) ascending, indices (Q,k) int32).
     """
+    if (corpus.device.type == "cuda" and metric in _FUSED
+            and corpus.shape[0] > 0
+            and min(k, corpus.shape[0]) <= FUSED_MAX_K):
+        if metric == "cosine":
+            queries = normalize(queries)
+            corpus = corpus if unit_corpus else normalize(corpus)
+        d, idx = ops.l2_topk(queries, corpus, min(k, corpus.shape[0]),
+                             mode=metric, mask=mask)
+        return d, (idx + base_index).to(torch.int32)
     pair = get_metric(metric)
-    return scan_topk(lambda lo, hi: pair(queries, corpus[lo:hi]),
-                     corpus.shape[0], k, chunk=chunk, mask=mask,
+    unit = metric == "cosine" and unit_corpus
+    if unit:
+        queries = normalize(queries)
+
+    def dist(lo: int, hi: int) -> torch.Tensor:
+        if unit:
+            # pairwise_cosine on rows normalized once: the same bits, since
+            # normalize works row by row
+            return 1.0 + pairwise_dot(queries, corpus[lo:hi])
+        return pair(queries, corpus[lo:hi])
+
+    return scan_topk(dist, corpus.shape[0], k, chunk=chunk, mask=mask,
                      base_index=base_index)

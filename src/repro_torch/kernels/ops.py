@@ -8,6 +8,8 @@ explicitly, which only the tests and ``chip_smoke.py``'s comparison do.
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
 from . import ref
@@ -17,6 +19,7 @@ from .beam_gather_hamming import beam_gather_hamming as _beam_gather_hamming
 from .bulk_prune import pair_gather
 from .hamming import hamming
 from .l2 import l2_distance
+from .l2 import l2_topk as _l2_topk
 from .pq_adc import pq_adc
 from .slstm import slstm_sequence as _slstm_sequence
 
@@ -106,6 +109,20 @@ def dot_distances(q: torch.Tensor, x: torch.Tensor, *,
         return ref.dot_distance_ref(q, x)
     return l2_distance(q.float().contiguous(), x.float().contiguous(),
                        mode="dot")
+
+
+def l2_topk(q: torch.Tensor, x: torch.Tensor, k: int, *, mode: str,
+            mask: Optional[torch.Tensor] = None,
+            force_ref: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q (Q, D) × x (N, D) -> the k smallest distances of each query
+    (l2 | dot | cosine = 1.0 + dot), rows where ``mask`` is False at +inf:
+    (distances (Q, k) ascending, int64 columns (Q, k)), ties to the lowest
+    column.  The exact scan on the card, without the (Q, N) matrix."""
+    if _plain(x, force_ref):
+        return ref.l2_topk_ref(q, x, k, mode, mask)
+    return _l2_topk(q.float().contiguous(), x.float().contiguous(), k,
+                    mode=mode, mask=None if mask is None
+                    else mask.to(torch.bool).contiguous())
 
 
 def slstm_sequence(gates_x: torch.Tensor, r: torch.Tensor, b: torch.Tensor,

@@ -14,6 +14,8 @@ also plain code of the main path.
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
 
@@ -29,6 +31,41 @@ def l2_distance_ref(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor
 def dot_distance_ref(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
     """(Q, D) × (N, D) -> (Q, N) negative inner product, float32 accumulation."""
     return -(queries.float() @ corpus.float().T)
+
+
+def topk_smallest(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k smallest entries along the last dim of float x, ascending, ties
+    broken by the lowest index: ``lax.top_k(-x, k)``'s order, signed zeros
+    included, where ``torch.topk`` leaves the order of ties unspecified.
+    Selects on a unique 64-bit key (order-preserving float bits above the
+    column index), never sorting a whole row.  Returns (values, int64
+    indices).  The fused ``l2_topk`` kernel selects on the same key."""
+    x = x.float()
+    # float bits -> int32 in the same order, -0.0 below +0.0 as in XLA's
+    # total order; NaN above +inf
+    bits = x.view(torch.int32)
+    ordered = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF).to(torch.int64)
+    col = torch.arange(x.shape[-1], device=x.device, dtype=torch.int64)
+    key = (ordered << 32) | col
+    _, pos = torch.topk(key, k, dim=-1, largest=False, sorted=True)
+    return x.gather(-1, pos), pos
+
+
+def l2_topk_ref(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+                mode: str, mask: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused scan's plain version: `topk_smallest` of the plain
+    distances (l2 | dot | cosine = 1.0 + dot), columns where ``mask`` is
+    False at +inf.  Returns (distances (Q, k), int64 columns (Q, k))."""
+    if mode == "l2":
+        d = l2_distance_ref(queries, corpus)
+    else:
+        d = dot_distance_ref(queries, corpus)
+        if mode == "cosine":
+            d = 1.0 + d
+    if mask is not None:
+        d = d.masked_fill(~mask[None, :], float("inf"))
+    return topk_smallest(d, k)
 
 
 def gathered_dists(q: torch.Tensor, rows: torch.Tensor,

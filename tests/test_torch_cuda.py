@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch.core import EngineConfig, HNSWConfig, QuantixarEngine
+from repro_torch.core.flat import FUSED_MAX_K, flat_search, topk_smallest
 from repro_torch.data.synthetic import gaussian_mixture
 from repro_torch.kernels import beam_gather as bg_mod
 from repro_torch.kernels import beam_gather_adc as bga_mod
@@ -226,14 +227,20 @@ def _l2_tol(want, q, x):
     return 2e-4 * want.abs() + 1e-5 * q.norm(dim=1)[:, None] * x.norm(dim=1)
 
 
-# every axis's tail: Q from 1 to 10,000 (the batcher's buckets take the
-# 32-row tile), the flat route's 65,536-row chunk and the 16,960-row last
-# chunk of 1M, N = 60,000, a power-of-two delta pad, D in {128, 256, 784},
-# a D that is not a multiple of 4 or 16, and N not a multiple of 4
-@pytest.mark.parametrize("nq,n,d", [
+# every axis's tail: Q from 1 to 10,000 (the batcher's buckets, Q <= 32,
+# swap the kernel's roles), the flat route's 65,536-row chunk and the
+# 16,960-row last chunk of 1M, N = 60,000, a power-of-two delta pad, D in
+# {128, 256, 784}, a D that is not a multiple of 4 or 16 (plain loads, no
+# TMA), N not a multiple of 4, and Q and N on either side of the kernel's
+# 64-row wgmma and 128-row tiles
+L2_SHAPES = [
     (1, 16960, 128), (7, 16960, 128), (32, 16960, 128), (33, 16960, 128),
     (1024, 65536, 128), (904, 8192, 256), (100, 60000, 784),
-    (10000, 3000, 128), (5, 301, 130), (40, 77, 7), (3, 5, 1)])
+    (10000, 3000, 128), (5, 301, 130), (40, 77, 7), (3, 5, 1),
+    (63, 127, 128), (64, 129, 128), (65, 127, 128), (65, 129, 784)]
+
+
+@pytest.mark.parametrize("nq,n,d", L2_SHAPES)
 @pytest.mark.parametrize("mode", ["l2", "dot"])
 def test_l2_distance(cuda, nq, n, d, mode):
     rng = np.random.RandomState(nq + n + d)
@@ -250,16 +257,117 @@ def test_l2_distance(cuda, nq, n, d, mode):
 
 
 def test_l2_distance_unaligned_rows(cuda):
-    """Inputs one float off 16-byte alignment take the 4-byte load path."""
+    """Inputs one float off 16-byte alignment take the plain-load path (TMA
+    needs 16-byte aligned rows), in both entries."""
     rng = np.random.RandomState(3)
     buf = torch.as_tensor(rng.randn(500 * 128 + 1).astype(np.float32),
                           device=cuda)
     x = buf[1:].view(500, 128)
     q = torch.as_tensor(rng.randn(70, 128).astype(np.float32), device=cuda)
-    for fn in (ops.l2_distances, ops.dot_distances):
+    for fn, mode in ((ops.l2_distances, "l2"), (ops.dot_distances, "dot")):
         got = _same_counts(l2_mod, lambda: fn(q, x))
         want = fn(q, x, force_ref=True)
         assert ((got - want).abs() <= _l2_tol(want, q, x)).all()
+        before = l2_mod.topk_launches
+        d, i = ops.l2_topk(q, x, 10, mode=mode)
+        assert l2_mod.topk_launches == before + 1
+        wd, wi = topk_smallest(got, 10)
+        assert torch.equal(i, wi)
+        assert torch.equal(d.view(torch.int32), wd.view(torch.int32))
+
+
+def _tied(rng, nq, n, d, device):
+    """Gaussian rows with duplicate corpus rows (tied distances), zero
+    corpus rows (dot = -0.0) and near-duplicate queries."""
+    x = rng.randn(n, d).astype(np.float32)
+    q = rng.randn(nq, d).astype(np.float32)
+    x[1::7] = x[0]
+    x[3::11] = 0.0
+    dup = min(nq // 2, n)
+    q[:dup] = x[:dup] + 1e-3
+    return (torch.as_tensor(q, device=device),
+            torch.as_tensor(x, device=device))
+
+
+@pytest.mark.parametrize("nq,n,d", L2_SHAPES)
+@pytest.mark.parametrize("mode", ["l2", "dot", "cosine"])
+def test_l2_topk_matches_the_matrix_entry(cuda, nq, n, d, mode):
+    """The fused entry is topk_smallest over the matrix entry's output
+    (cosine: 1.0 + its dot mode), masked rows at +inf, bit for bit:
+    values and indices, ties, -0.0, masks leaving fewer live rows than k."""
+    rng = np.random.RandomState(nq + n + d)
+    q, x = _tied(rng, nq, n, d, cuda)
+    mat = l2_mod.l2_distance(q, x, mode="l2" if mode == "l2" else "dot")
+    if mode == "cosine":
+        mat = 1.0 + mat
+    sparse = torch.zeros(n, dtype=torch.bool, device=cuda)
+    sparse[::max(1, n // 5)] = True               # at most ~5 live rows
+    masks = [None, torch.as_tensor(rng.rand(n) < 0.4, device=cuda), sparse]
+    for k in (1, 10, 40, 256):
+        if k > n:
+            continue
+        for mask in masks:
+            full = mat if mask is None else \
+                mat.masked_fill(~mask[None], float("inf"))
+            wd, wi = topk_smallest(full, k)
+            before = l2_mod.topk_launches
+            got_d, got_i = l2_mod.l2_topk(q, x, k, mode=mode, mask=mask)
+            assert l2_mod.topk_launches == before + 1
+            assert torch.equal(got_i, wi), (k, mask is None)
+            assert torch.equal(got_d.view(torch.int32),
+                               wd.view(torch.int32)), (k, mask is None)
+
+
+@pytest.mark.parametrize("nq", [1, 32])
+@pytest.mark.parametrize("d", [7, 32])
+@pytest.mark.parametrize("k", [10, 256])
+@pytest.mark.parametrize("mode", ["l2", "dot", "cosine"])
+def test_l2_topk_swapped_roles_many_tiles(cuda, nq, d, k, mode):
+    """Q <= 32 (roles swapped) with D <= 32 (one stage a tile) over enough
+    rows that every block walks two or more tiles: each tile's epilogue
+    stages it in shared memory behind the previous tile's slow insertions
+    (lists far from full at k = 256), and must still equal topk_smallest
+    over the matrix entry bit for bit."""
+    n = 40_000
+    rng = np.random.RandomState(nq + d + k)
+    q, x = _tied(rng, nq, n, d, cuda)
+    mat = l2_mod.l2_distance(q, x, mode="l2" if mode == "l2" else "dot")
+    if mode == "cosine":
+        mat = 1.0 + mat
+    assert -(-n // 128) >= 2 * l2_mod.splits(nq, n, q.device)
+    mask = torch.as_tensor(rng.rand(n) < 0.5, device=cuda)
+    for m in (None, mask):
+        full = mat if m is None else mat.masked_fill(~m[None], float("inf"))
+        wd, wi = topk_smallest(full, k)
+        got_d, got_i = l2_mod.l2_topk(q, x, k, mode=mode, mask=m)
+        assert torch.equal(got_i, wi), m is None
+        assert torch.equal(got_d.view(torch.int32), wd.view(torch.int32))
+
+
+@pytest.mark.parametrize("metric", ["l2", "dot", "cosine"])
+def test_flat_search_on_card_runs_the_fused_entry(cuda, metric):
+    """flat_search on the card: one fused launch over the whole corpus,
+    equal bit for bit to the chunked scan over the matrix entry (what it
+    ran before), mask and base_index included; k past FUSED_MAX_K (101,
+    256, and 257, past the fused entry's own limit) takes the matrix entry
+    and the chunked scan explicitly."""
+    from repro_torch.core.distances import get_metric
+    from repro_torch.core.flat import scan_topk
+    rng = np.random.RandomState(8)
+    q, x = _tied(rng, 40, 3000, 32, cuda)
+    mask = torch.as_tensor(rng.rand(3000) < 0.3, device=cuda)
+    pair = get_metric(metric)
+    for k in (10, FUSED_MAX_K, FUSED_MAX_K + 1, 256, 257):
+        before = (l2_mod.launches, l2_mod.topk_launches)
+        d, i = flat_search(q, x, k, metric=metric, chunk=1024, mask=mask,
+                           base_index=7)
+        fused = k <= FUSED_MAX_K
+        assert (l2_mod.launches > before[0]) != fused
+        assert l2_mod.topk_launches == before[1] + int(fused)
+        wd, wi = scan_topk(lambda lo, hi: pair(q, x[lo:hi]), 3000, k,
+                           chunk=1024, mask=mask, base_index=7)
+        assert torch.equal(i, wi)
+        assert torch.equal(d.view(torch.int32), wd.view(torch.int32))
 
 
 def test_l2_distance_64bit_offsets(cuda):
@@ -280,7 +388,7 @@ def test_l2_distance_64bit_offsets(cuda):
 @pytest.mark.parametrize("metric", ["cosine", "l2"])
 def test_exact_collection_on_card_matches_cpu(cuda, metric):
     """An exact (flat) collection through the public API on the card, whose
-    every scan runs the l2_distance kernel, returns the CPU collection's
+    every scan runs B5's fused entry (l2_topk), returns the CPU collection's
     hits (plain versions): plain, filtered and batched queries."""
     from repro_torch.api import Database, KeywordField, VectorField
     x = gaussian_mixture(3000, 32, n_clusters=15, scale=0.3, seed=1)
@@ -288,7 +396,7 @@ def test_exact_collection_on_card_matches_cpu(cuda, metric):
     ids = [f"id-{i}" for i in range(len(x))]
     payloads = [{"cat": f"c{i % 4}"} for i in range(len(x))]
     out = []
-    before = l2_mod.launches
+    before = l2_mod.topk_launches
     for dev in ("cuda", "cpu"):
         db = Database(device=dev)
         col = db.create_collection(
@@ -301,7 +409,7 @@ def test_exact_collection_on_card_matches_cpu(cuda, metric):
         filtered = col.query(q).filter(cat="c1").top_k(10).run()
         out.append((batched + [single] + filtered))
         db.close()
-    assert l2_mod.launches > before
+    assert l2_mod.topk_launches > before
     # the kernel sums in another order than the CPU: two hits may trade
     # places only where their scores tie within fp32 rounding
     for got, want in zip(*out):

@@ -153,6 +153,27 @@ class TestEndToEnd:
         _assert_same_hits(peng.search(q, K, mask=mask),
                           jeng.search(q, K, mask=mask))
 
+    def test_unit_corpus_cache(self):
+        """The unit rows the cosine flat pass scans on the card: the corpus
+        normalized once, cached until the next add(), and scanned with
+        unit_corpus=True they give the flat index's hits bit for bit."""
+        from repro_torch.core.distances import normalize
+        from repro_torch.core.flat import flat_search
+        x, q, _ = _data()
+        _, pcfg = _configs("cosine", index="flat")
+        eng = QuantixarEngine(pcfg, device="cpu")
+        eng.add(x[:N])
+        unit = eng._unit_corpus_device()
+        assert torch.equal(unit, normalize(torch.as_tensor(x[:N])))
+        assert eng._unit_corpus_device() is unit
+        d, i = flat_search(torch.as_tensor(q), unit, K, metric="cosine",
+                           unit_corpus=True)
+        wd, wi = eng.search(q, K)
+        np.testing.assert_array_equal(i.numpy(), wi)
+        np.testing.assert_array_equal(d.numpy(), wd)
+        eng.add(x[N:])
+        assert eng._unit_corpus_device().shape[0] == N + N_DELTA
+
 
 class TestConfig:
     def test_entry_points_need_cuda_unless_told_cpu(self, monkeypatch):
