@@ -5,6 +5,8 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
+(``--kernels`` runs the kernel checks of B1-B7 alone and prints their rows.)
+
 It builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 against its plain PyTorch version on the card at the main paths' shapes, and
 then drives four collections end to end through
@@ -51,12 +53,16 @@ query its matrix entry (``l2_distance``); every sLSTM layer of phase F's
 prefill runs the ``slstm`` kernel.  Before the last
 line it prints the card's name and power limit and one JSON line with each
 kernel's launches, error, time, plain-version time, bound and library-call
-time; the last line is the device JSON.  It needs a CUDA device and the
+time; the last line is the device JSON.  A kernel's ``ms`` is its device
+time: CUDA events around a CUDA graph of many calls over rotating input
+sets, divided by the count (`device_ms`); ``call_ms`` is what one call
+costs its caller, host included (`time_ms`).  It needs a CUDA device and the
 repository's ``src/`` beside it, and fails without either.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import shutil
@@ -92,6 +98,14 @@ ATOL_PER_NORM = 1e-5
 # as their plain versions, so they agree to rounding: rtol 1e-6 (the JAX
 # package's tests allow 1e-5).  Hamming is integer arithmetic: error 0.
 ADC_RTOL = 1e-6
+# the device timer (`device_ms`): input sets taken in turn, work per graph
+# replay, the most calls a graph holds, replays timed; plain versions whose
+# one call is longer than PLAIN_GRAPH_MAX_MS keep their per-call time
+SETS = 4
+DEVICE_WINDOW_MS = 20.0
+DEVICE_MAX_REPS = 200
+DEVICE_REPLAYS = 5
+PLAIN_GRAPH_MAX_MS = 5.0
 
 N_SIFT = 1_000_000       # SIFT-128's published size (phases A, C, D)
 N_FMNIST = 60_000        # Fashion-MNIST-784's published size (phase B)
@@ -173,7 +187,10 @@ def card_line() -> str:
 
 
 def time_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median of per-call CUDA-event times, after warm-up."""
+    """Per-call time, what a caller pays, host included: the median of
+    CUDA events recorded around one call each (the wrapper's checks,
+    allocation and launch included), after warm-up.  Reported as
+    ``call_ms``."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -189,6 +206,74 @@ def time_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(torch, fns, graph: bool = True) -> float:
+    """Device time of one call: CUDA events around one replay of a CUDA
+    graph holding R calls, divided by R, the median of DEVICE_REPLAYS
+    replays after a warm one.  The graph keeps the wrapper's host work
+    (checks, allocation, the launch) from pacing the card.  ``fns`` holds
+    one call per input set (SETS of them, taken in turn), so that rows a
+    real caller finds cold are not L2-resident from the call before.  R
+    makes about DEVICE_WINDOW_MS of work a replay, at least one call per
+    set.  ``graph=False`` times R calls issued back to back instead (for
+    calls long enough that the host never paces them)."""
+    for f in fns:                        # builds, caches, kernel attributes
+        f()
+    torch.cuda.synchronize()
+    one = time_ms(torch, fns[0], reps=3, warmup=0)
+    reps = max(1, min(DEVICE_MAX_REPS, int(DEVICE_WINDOW_MS / max(one, 1e-3))))
+    reps = len(fns) * -(-reps // len(fns))
+
+    def calls():
+        for i in range(reps):
+            fns[i % len(fns)]()
+
+    run = calls
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            calls()
+        run = g.replay
+    run()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(DEVICE_REPLAYS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times)
+
+
+def timing(torch, fns, prefix: str = "", graph: bool = True,
+           reps: int = 25, warmup: int = 3) -> dict:
+    """{prefix + "ms": device time (`device_ms`), prefix + "call_ms":
+    per-call time (`time_ms`, the first input set)}."""
+    return {f"{prefix}ms": device_ms(torch, fns, graph=graph),
+            f"{prefix}call_ms": time_ms(torch, fns[0], reps, warmup)}
+
+
+def plain_timing(torch, fns, reps: int = 25, warmup: int = 3) -> dict:
+    """A plain version's times: ``plain_ms`` is its device time where one
+    call takes under PLAIN_GRAPH_MAX_MS, else its per-call time, which at
+    that length is the device's (``plain_timer`` says which);
+    ``plain_call_ms`` the per-call time."""
+    call = time_ms(torch, fns[0], reps, warmup)
+    if call < PLAIN_GRAPH_MAX_MS:
+        return {"plain_ms": device_ms(torch, fns), "plain_call_ms": call,
+                "plain_timer": "graph"}
+    return {"plain_ms": call, "plain_call_ms": call, "plain_timer": "call"}
+
+
+def output_digest(t) -> str:
+    """The first 16 hex digits of the SHA-256 of a tensor's bytes: two
+    versions of a kernel that agree bit for bit print the same digest."""
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()) \
+        .hexdigest()[:16]
+
+
 def bound(nbytes: float, ops: float, rate: float = FP32_FLOP_PER_S):
     """(ms, "bytes" | "operations"): the larger of the bytes over the
     memory rate and the operations over their peak rate."""
@@ -201,6 +286,9 @@ def bound(nbytes: float, ops: float, rate: float = FP32_FLOP_PER_S):
 # ---------------------------------------------------------------------------
 
 def kernel_checks(torch, corpora, log):
+    """B1 ``beam_gather`` and B2 ``pair_gather`` against their plain
+    versions, on SETS input sets of random ids each (the first one checked,
+    all of them timed in turn)."""
     from repro_torch.kernels import beam_gather as bg
     from repro_torch.kernels import bulk_prune as pg
     from repro_torch.kernels import ref
@@ -214,14 +302,20 @@ def kernel_checks(torch, corpora, log):
         for mode in modes:
             plain = ref.beam_gather_l2_ref if mode == "l2" \
                 else ref.beam_gather_dot_ref
+            # L = 128: search (width 4 x M0 32); 256: the stitch's
+            # re-search (width 8 x M0 32)
             for length in (1, 128, 256):
                 nq = QUERY_BATCH
-                ids = torch.randint(0, n, (nq, length), generator=gen,
-                                    device="cuda", dtype=torch.int32)
-                q = corpus[torch.randint(0, n, (nq,), generator=gen,
-                                         device="cuda")]
-                q = q + 0.01 * torch.randn(q.shape, generator=gen,
-                                           device="cuda")
+                sets = []
+                for _ in range(SETS):
+                    ids = torch.randint(0, n, (nq, length), generator=gen,
+                                        device="cuda", dtype=torch.int32)
+                    q = corpus[torch.randint(0, n, (nq,), generator=gen,
+                                             device="cuda")]
+                    q = q + 0.01 * torch.randn(q.shape, generator=gen,
+                                               device="cuda")
+                    sets.append((q, ids))
+                q, ids = sets[0]
                 got = bg.beam_gather(q, ids, corpus, mode=mode)
                 want = plain(q, ids, corpus)
                 torch.cuda.synchronize()
@@ -231,27 +325,43 @@ def kernel_checks(torch, corpora, log):
                 check(bool((err <= tol).all()),
                       f"beam_gather {mode} D={d} L={length}: max err "
                       f"{float(err.max())} over tolerance")
+                digest = output_digest(got)
                 uniq = int(torch.unique(ids).numel())
                 nbytes = uniq * d * 4 + nq * d * 4 + nq * length * 8
                 flops = nq * length * d * (3 if mode == "l2" else 2)
                 b_ms, b_by = bound(nbytes, flops)
-                rows.append({
-                    "name": "beam_gather", "mode": mode, "Q": nq, "L": length,
-                    "D": d, "N": n, "max_abs_err": float(err.max()),
-                    "ms": time_ms(torch, lambda: bg.beam_gather(
-                        q, ids, corpus, mode=mode)),
-                    "plain_ms": time_ms(torch, lambda: plain(q, ids, corpus)),
-                    "bound_ms": b_ms, "bound_us": b_ms * 1e3,
-                    "bound_by": b_by})
-                log(rows[-1])
+                r = {"name": "beam_gather", "mode": mode, "Q": nq,
+                     "L": length, "D": d, "N": n,
+                     "max_abs_err": float(err.max()), "digest": digest,
+                     **timing(torch, [
+                         lambda q=q, ids=ids: bg.beam_gather(
+                             q, ids, corpus, mode=mode) for q, ids in sets]),
+                     **plain_timing(torch, [
+                         lambda q=q, ids=ids: plain(q, ids, corpus)
+                         for q, ids in sets]),
+                     "bound_ms": b_ms, "bound_us": b_ms * 1e3,
+                     "bound_by": b_by}
+                r["share"] = b_ms / r["ms"]
+                rows.append(r)
+                log(r)
             plain = ref.pair_gather_l2_ref if mode == "l2" \
                 else ref.pair_gather_dot_ref
             # main-path shapes: the coarse prune (4096-node chunks of 52
             # kNN + 8 random candidates) and the stitch re-prune (1024-node
-            # batches of 48 beam hits + the 32-slot row)
-            for b, c in ((4096, 60), (1024, 80)):
-                ids = torch.randint(0, n, (b, c), generator=gen,
-                                    device="cuda", dtype=torch.int32)
+            # batches of 48 beam hits + the 32-slot row); the prune pads
+            # invalid slots (empty row slots, duplicates, the node itself)
+            # with row 0, so the stitch shape also runs with a third of its
+            # slots on row 0
+            for b, c, pad in ((4096, 60, 0.0), (1024, 80, 0.0),
+                              (1024, 80, 0.3)):
+                sets = []
+                for _ in range(SETS):
+                    ids = torch.randint(0, n, (b, c), generator=gen,
+                                        device="cuda", dtype=torch.int32)
+                    zero = torch.rand((b, c), generator=gen,
+                                      device="cuda") < pad
+                    sets.append(ids.masked_fill(zero, 0))
+                ids = sets[0]
                 got = pg.pair_gather(ids, corpus, mode=mode)
                 want = plain(ids, corpus)
                 torch.cuda.synchronize()
@@ -259,9 +369,20 @@ def kernel_checks(torch, corpora, log):
                 nr = norms[ids.long()]
                 tol = RTOL * want.abs() \
                     + ATOL_PER_NORM * nr[:, :, None] * nr[:, None, :]
+                err_max = float(err.max())
                 check(bool((err <= tol).all()),
                       f"pair_gather {mode} D={d} C={c}: max err "
-                      f"{float(err.max())} over tolerance")
+                      f"{err_max} over tolerance")
+                # exactly symmetric, and in l2 an exact-zero diagonal: each
+                # entry is one fmaf chain over d, and fmaf(a, b, s) equals
+                # fmaf(b, a, s)
+                check(torch.equal(got, got.transpose(1, 2)),
+                      f"pair_gather {mode} D={d} C={c}: not symmetric")
+                if mode == "l2":
+                    check(not bool(got.diagonal(dim1=1, dim2=2).any()),
+                          f"pair_gather l2 D={d} C={c}: non-zero diagonal")
+                digest = output_digest(got)
+                del got, want, err, nr, tol
                 # the C x C output is symmetric: the function needs only its
                 # C(C+1)/2 distinct dot products (the diagonal gives the l2
                 # norms), plus for l2 a 3-op epilogue on each; the output
@@ -271,15 +392,20 @@ def kernel_checks(torch, corpora, log):
                 nbytes = uniq * d * 4 + b * c * 4 + b * c * c * 4
                 flops = pairs * d * 2 + (pairs * 3 if mode == "l2" else 0)
                 b_ms, b_by = bound(nbytes, flops)
-                rows.append({
-                    "name": "pair_gather", "mode": mode, "B": b, "C": c,
-                    "D": d, "N": n, "max_abs_err": float(err.max()),
-                    "ms": time_ms(torch, lambda: pg.pair_gather(
-                        ids, corpus, mode=mode)),
-                    "plain_ms": time_ms(torch, lambda: plain(ids, corpus)),
-                    "bound_ms": b_ms, "bound_us": b_ms * 1e3,
-                    "bound_by": b_by})
-                log(rows[-1])
+                r = {"name": "pair_gather", "mode": mode, "B": b, "C": c,
+                     "D": d, "N": n, "row0_frac": pad,
+                     "max_abs_err": err_max, "digest": digest,
+                     **timing(torch, [
+                         lambda ids=ids: pg.pair_gather(ids, corpus, mode=mode)
+                         for ids in sets]),
+                     **plain_timing(torch, [lambda ids=ids: plain(ids, corpus)
+                                            for ids in sets]),
+                     "bound_ms": b_ms, "bound_us": b_ms * 1e3,
+                     "bound_by": b_by}
+                r["share"] = b_ms / r["ms"]
+                rows.append(r)
+                log(r)
+                torch.cuda.empty_cache()
     return rows
 
 
@@ -311,17 +437,22 @@ def quant_kernel_checks(torch, codes, lut, words, q_words, log):
     w = words.shape[1]
     rows = []
 
-    def row(name, err, fn, plain, b, library=None, **shape):
-        lib_ms = time_ms(torch, library) if library else None
-        rows.append({"name": name, **shape, "max_abs_err": err,
-                     "ms": time_ms(torch, fn), "plain_ms": time_ms(torch, plain),
-                     "bound_ms": b[0], "bound_us": b[0] * 1e3,
-                     "bound_by": b[1], "library_ms": lib_ms})
-        log(rows[-1])
+    def row(name, err, fns, plains, b, libraries=None, **shape):
+        r = {"name": name, **shape, "max_abs_err": err,
+             **timing(torch, fns), **plain_timing(torch, plains),
+             "bound_ms": b[0], "bound_us": b[0] * 1e3, "bound_by": b[1],
+             "library_ms": None}
+        if libraries:
+            r.update(timing(torch, libraries, prefix="library_"))
+        r["share"] = b[0] / r["ms"]
+        rows.append(r)
+        log(r)
 
     for length in (1, 128, 256):
-        ids = torch.randint(0, n, (nq, length), generator=gen, device="cuda",
-                            dtype=torch.int32)
+        sets = [torch.randint(0, n, (nq, length), generator=gen,
+                              device="cuda", dtype=torch.int32)
+                for _ in range(SETS)]
+        ids = sets[0]
         uniq = int(torch.unique(ids).numel())
         got = beam_gather_adc(lut, ids, codes)
         want = ref.beam_gather_adc_ref(lut, ids, codes)
@@ -339,8 +470,9 @@ def quant_kernel_checks(torch, codes, lut, words, q_words, log):
         lut_bytes = int(torch.unique(entry // 8).numel()) * 32
         del picked, entry
         row("beam_gather_adc", float(err.max()),
-            lambda: beam_gather_adc(lut, ids, codes),
-            lambda: ref.beam_gather_adc_ref(lut, ids, codes),
+            [lambda ids=ids: beam_gather_adc(lut, ids, codes) for ids in sets],
+            [lambda ids=ids: ref.beam_gather_adc_ref(lut, ids, codes)
+             for ids in sets],
             bound(uniq * m + lut_bytes + nq * length * 8, nq * length * m),
             Q=nq, L=length, m=m, k=k, N=n, lut_bytes=lut_bytes)
         got = beam_gather_hamming(q_words, ids, words)
@@ -350,23 +482,30 @@ def quant_kernel_checks(torch, codes, lut, words, q_words, log):
         check(err == 0, f"beam_gather_hamming L={length}: max err {err}")
         # bytes: unique word rows, query words, ids, output; W popcounts
         row("beam_gather_hamming", err,
-            lambda: beam_gather_hamming(q_words, ids, words),
-            lambda: ref.beam_gather_hamming_ref(q_words, ids, words),
+            [lambda ids=ids: beam_gather_hamming(q_words, ids, words)
+             for ids in sets],
+            [lambda ids=ids: ref.beam_gather_hamming_ref(q_words, ids, words)
+             for ids in sets],
             bound(uniq * w * 4 + nq * w * 4 + nq * length * 8,
                   nq * length * w, POPC_PER_S),
             Q=nq, L=length, W=w, N=n)
 
-    # the flat route's shape (Q=1024 against one corpus chunk) and a small
-    # batch against the whole corpus
+    # the flat route's shape (Q=1024 against one corpus chunk; the sets
+    # are consecutive chunks, as the route scans them) and a small batch
+    # against the whole corpus
     for q_n, rows_n in ((nq, FLAT_CHUNK), (64, n)):
-        lut_q, cw = lut[:q_n], codes[:rows_n]
+        lut_q = lut[:q_n]
+        chunks = [codes[i * rows_n:(i + 1) * rows_n]
+                  for i in range(max(1, min(SETS, n // rows_n)))]
+        cw = chunks[0]
         got = pq_adc(lut_q, cw)
         want = ref.pq_adc_ref(lut_q, cw)
         # the library call: row n's bag holds its m codes offset into the
         # flattened (m * k, Q) LUTs; it adds in its own order (rtol 1e-5)
-        idx = cw.long() + torch.arange(m, device="cuda") * k
+        offs = torch.arange(m, device="cuda") * k
+        idxs = [c.long() + offs for c in chunks]
         lut_t = lut_q.reshape(q_n, m * k).T.contiguous()
-        lib = F.embedding_bag(idx, lut_t, mode="sum").T
+        lib = F.embedding_bag(idxs[0], lut_t, mode="sum").T
         torch.cuda.synchronize()
         err = (got - want).abs()
         check(bool((err <= ADC_RTOL * want.abs()).all()),
@@ -374,32 +513,37 @@ def quant_kernel_checks(torch, codes, lut, words, q_words, log):
         check(bool(((lib - want).abs() <= 1e-5 * want.abs()).all()),
               f"embedding_bag Q={q_n} N={rows_n} disagrees with pq_adc_ref")
         del got, want, lib
-        row("pq_adc", float(err.max()), lambda: pq_adc(lut_q, cw),
-            lambda: ref.pq_adc_ref(lut_q, cw),
+        row("pq_adc", float(err.max()),
+            [lambda c=c: pq_adc(lut_q, c) for c in chunks],
+            [lambda c=c: ref.pq_adc_ref(lut_q, c) for c in chunks],
             bound(rows_n * m + q_n * m * k * 4 + q_n * rows_n * 4,
                   q_n * rows_n * m),
-            lambda: F.embedding_bag(idx, lut_t, mode="sum"),
+            [lambda i=i: F.embedding_bag(i, lut_t, mode="sum")
+             for i in idxs],
             Q=q_n, N=rows_n, m=m, k=k)
-        del idx, lut_t
-        qw, xw = q_words[:q_n], words[:rows_n]
+        del idxs, lut_t
+        qw = q_words[:q_n]
+        chunks = [words[i * rows_n:(i + 1) * rows_n]
+                  for i in range(max(1, min(SETS, n // rows_n)))]
+        xw = chunks[0]
         got = hamming(qw, xw)
         want = ref.hamming_ref(qw, xw)
         # the library call: the count of differing coordinates of the
         # unpacked bits, exact in fp32 up to 2**24
         q_bits = unpack_bits(qw, w * 32).float()
-        x_bits = unpack_bits(xw, w * 32).float()
-        lib = torch.cdist(q_bits, x_bits, p=0)
+        x_bits = [unpack_bits(c, w * 32).float() for c in chunks]
+        lib = torch.cdist(q_bits, x_bits[0], p=0)
         torch.cuda.synchronize()
         err = int((got - want).abs().max())
         check(err == 0, f"hamming Q={q_n} N={rows_n}: max err {err}")
         check(torch.equal(lib.int(), want),
               f"cdist(p=0) Q={q_n} N={rows_n} disagrees with hamming_ref")
         del got, want, lib
-        row("hamming", err, lambda: hamming(qw, xw),
-            lambda: ref.hamming_ref(qw, xw),
+        row("hamming", err, [lambda c=c: hamming(qw, c) for c in chunks],
+            [lambda c=c: ref.hamming_ref(qw, c) for c in chunks],
             bound(rows_n * w * 4 + q_n * w * 4 + q_n * rows_n * 4,
                   q_n * rows_n * w, POPC_PER_S),
-            lambda: torch.cdist(q_bits, x_bits, p=0),
+            [lambda x=x: torch.cdist(q_bits, x, p=0) for x in x_bits],
             Q=q_n, N=rows_n, W=w)
         del q_bits, x_bits
         torch.cuda.empty_cache()
@@ -491,7 +635,7 @@ def l2_kernel_checks(torch, sift_cos, sift_raw, fm, signs, log):
     def plain_topk(q, x, mode):
         return lambda: ref.l2_topk_ref(q, x, K, mode)
 
-    def topk_row(q, x, mode, got_d, got_i, **extra):
+    def topk_row(q, x, mode, got_d, got_i, sets, **extra):
         nq, n, d = q.shape[0], x.shape[0], q.shape[1]
         err = topk_vs_plain(torch, q, x, mode, K, got_d, got_i)
         # inputs read once, the (Q, k) distances and ids written once
@@ -499,12 +643,13 @@ def l2_kernel_checks(torch, sift_cos, sift_raw, fm, signs, log):
         mm, other = 2 * nq * n * d, (2 * (nq + n) * d + 3 * nq * n
                                      if mode == "l2" else nq * n)
         b3, bf = bound_3xtf32(nbytes, mm, other), bound(nbytes, mm + other)
-        ms = time_ms(torch, lambda: l2_topk(q, x, K, mode=mode))
+        t = timing(torch, [lambda q=q, x=x: l2_topk(q, x, K, mode=mode)
+                           for q, x in sets])
         rows.append({"name": "l2_topk", "mode": mode, "Q": nq, "N": n,
-                     "D": d, "k": K, "max_abs_err": err, "ms": ms,
+                     "D": d, "k": K, "max_abs_err": err, **t,
                      "bound_ms": b3[0], "bound_by": b3[1],
                      "bound_fp32_ms": bf[0], "bound_held_to": "3xtf32",
-                     "share": b3[0] / ms, "library_ms": None, **extra})
+                     "share": b3[0] / t["ms"], "library_ms": None, **extra})
         return rows[-1]
 
     # (matrix mode, the fused entry's mode, corpus, Q, N): cosine is the
@@ -519,11 +664,18 @@ def l2_kernel_checks(torch, sift_cos, sift_raw, fm, signs, log):
     shapes += [("dot", "cosine", sift_cos[-last:], nq, last)
                for nq in (1, 7, 32)]
     for mode, tmode, corpus, nq, n in shapes:
-        x = corpus[:n].contiguous()
+        # the sets: consecutive n-row chunks of the corpus where it holds
+        # several (the flat route scans them in turn), each with its queries
+        sets = []
+        for i in range(max(1, min(SETS, corpus.shape[0] // n))):
+            x = corpus[i * n:(i + 1) * n].contiguous()
+            q = x[torch.randint(0, x.shape[0], (nq,), generator=gen,
+                                device="cuda")]
+            q = q + 0.01 * q.abs().mean() * torch.randn(
+                q.shape, generator=gen, device="cuda")
+            sets.append((q, x))
+        q, x = sets[0]
         n, d = x.shape
-        q = x[torch.randint(0, n, (nq,), generator=gen, device="cuda")]
-        q = q + 0.01 * q.abs().mean() * torch.randn(
-            q.shape, generator=gen, device="cuda")
         plain = ref.l2_distance_ref if mode == "l2" else ref.dot_distance_ref
         got = l2_distance(q, x, mode=mode)
         want = plain(q, x)
@@ -545,38 +697,49 @@ def l2_kernel_checks(torch, sift_cos, sift_raw, fm, signs, log):
             f"l2_topk {tmode} Q={nq} N={n} D={d}: differs from topk_smallest "
             f"over the matrix entry")
         del got, mat, wd, wi
-        r = topk_row(q, x, tmode, fd, fi)
-        r["plain_ms"] = time_ms(torch, plain_topk(q, x, tmode))
+        r = topk_row(q, x, tmode, fd, fi, sets)
+        r.update(plain_timing(torch, [plain_topk(a, b, tmode)
+                                      for a, b in sets]))
         log(r)
         out = torch.empty((nq, n), device="cuda")
-        library = (lambda: torch.addmm(out, q, x.T, beta=0, alpha=-1)) \
-            if mode == "dot" else (lambda: torch.cdist(
-                q, x, compute_mode="use_mm_for_euclid_dist"))
+        if mode == "dot":
+            library = [lambda a=a, b=b: torch.addmm(out, a, b.T, beta=0,
+                                                    alpha=-1)
+                       for a, b in sets]
+        else:
+            library = [lambda a=a, b=b: torch.cdist(
+                a, b, compute_mode="use_mm_for_euclid_dist") for a, b in sets]
         # each input read once, the output written once; 2 flops per
         # product term, plus for l2 the norms and a 3-op epilogue
         nbytes = (nq + n) * d * 4 + nq * n * 4
         mm, other = 2 * nq * n * d, (2 * (nq + n) * d + 3 * nq * n
                                      if mode == "l2" else nq * n)
         b3, bf = bound_3xtf32(nbytes, mm, other), bound(nbytes, mm + other)
-        ms = time_ms(torch, lambda: l2_distance(q, x, mode=mode))
+        t = timing(torch, [lambda a=a, b=b: l2_distance(a, b, mode=mode)
+                           for a, b in sets])
         rows.append({"name": "l2_distance", "mode": mode, "Q": nq, "N": n,
-                     "D": d, "max_abs_err": max_err, "ms": ms,
-                     "plain_ms": time_ms(torch, lambda: plain(q, x)),
+                     "D": d, "max_abs_err": max_err, **t,
+                     **plain_timing(torch, [lambda a=a, b=b: plain(a, b)
+                                            for a, b in sets]),
                      "bound_ms": b3[0], "bound_us": b3[0] * 1e3,
                      "bound_by": b3[1], "bound_fp32_ms": bf[0],
-                     "bound_held_to": "3xtf32", "share": b3[0] / ms,
-                     "library_ms": time_ms(torch, library)})
+                     "bound_held_to": "3xtf32", "share": b3[0] / t["ms"],
+                     **timing(torch, library, prefix="library_")})
         log(rows[-1])
-        del out, x, q, fd, fi
+        del out, x, q, fd, fi, sets, library
         torch.cuda.empty_cache()
 
     # the fused entry where the exact scans run it: the whole 1M corpus
     x = sift_cos
     n = x.shape[0]
     for nq in (QUERY_BATCH, 1, 7, 32):
-        q = x[torch.randint(0, n, (nq,), generator=gen, device="cuda")]
-        q = q + 0.01 * q.abs().mean() * torch.randn(
-            q.shape, generator=gen, device="cuda")
+        # the sets: queries only (the 512 MB corpus is cold in any case)
+        qs = []
+        for _ in range(SETS):
+            q = x[torch.randint(0, n, (nq,), generator=gen, device="cuda")]
+            qs.append(q + 0.01 * q.abs().mean() * torch.randn(
+                q.shape, generator=gen, device="cuda"))
+        q = qs[0]
 
         def route():
             return scan_topk(lambda lo, hi: 1.0 + l2_distance(
@@ -587,11 +750,12 @@ def l2_kernel_checks(torch, sift_cos, sift_raw, fm, signs, log):
         check(torch.equal(fi.int(), ri) and torch.equal(
             fd.view(torch.int32), rd.view(torch.int32)),
             f"l2_topk cosine Q={nq} N={n}: differs from the chunked route")
-        r = topk_row(q, x, "cosine", fd, fi, route_ms=time_ms(torch, route))
-        r["plain_ms"] = time_ms(torch, plain_topk(q, x, "cosine"), reps=5,
-                                warmup=1)
+        r = topk_row(q, x, "cosine", fd, fi, [(a, x) for a in qs],
+                     route_ms=time_ms(torch, route))
+        r.update(plain_timing(torch, [plain_topk(q, x, "cosine")], reps=5,
+                              warmup=1))
         log(r)
-        del q, fd, fi, rd, ri
+        del q, qs, fd, fi, rd, ri
         torch.cuda.empty_cache()
     return rows
 
@@ -1117,8 +1281,11 @@ def slstm_kernel_checks(torch, layer, n_heads, log):
                                     device="cuda")
             bias = torch.randn((4 * d,), generator=gen, device="cuda")
         g32 = torch.randn((b, s, 4 * d), generator=gen, device="cuda")
+        # a second input set for the timer
+        g32b = torch.randn((b, s, 4 * d), generator=gen, device="cuda")
         for dtype in ("bfloat16", "float32"):
             g = g32.to(getattr(torch, dtype))
+            gb = g32b.to(g.dtype)
             got = slstm_sequence(g, r, bias, n_heads=h)
             want = ref.slstm_sequence_ref(g, r, bias, h)
             torch.cuda.synchronize()
@@ -1130,19 +1297,24 @@ def slstm_kernel_checks(torch, layer, n_heads, log):
                 + r.numel() * 4 + bias.numel() * 4
             b_ms, b_by = bound(nbytes, 2 * b * s * 4 * d * blk)
             plain_reps = 25 if s <= 128 else 5
+            # the device timer issues the cooperative launches back to back
+            # (no graph): one call is long enough that the host never
+            # paces it
             rows.append({
                 "name": "slstm", "dtype": dtype, "B": b, "S": s, "d": d,
                 "H": h, "max_abs_err": err,
-                "ms": time_ms(torch, lambda: slstm_sequence(
-                    g, r, bias, n_heads=h)),
-                "plain_ms": time_ms(torch, lambda: ref.slstm_sequence_ref(
-                    g, r, bias, h), reps=plain_reps, warmup=1),
+                **timing(torch, [lambda x=x: slstm_sequence(
+                    x, r, bias, n_heads=h) for x in (g, gb)], graph=False),
+                **plain_timing(torch, [lambda x=x: ref.slstm_sequence_ref(
+                    x, r, bias, h) for x in (g, gb)], reps=plain_reps,
+                    warmup=1),
                 "plain_reps": plain_reps,
                 "bound_ms": b_ms, "bound_us": b_ms * 1e3, "bound_by": b_by,
                 "library_ms": None})
             rows[-1]["share"] = b_ms / rows[-1]["ms"]
             log(rows[-1])
-            del got, want
+            del got, want, gb
+        del g32b
     return rows
 
 
@@ -1300,7 +1472,11 @@ class Counters:
         return {k: getattr(m, attr) for k, (m, attr) in self.mods.items()}
 
 
-def main() -> int:
+def main(argv) -> int:
+    kernels_only = argv == ["--kernels"]
+    if argv and not kernels_only:
+        print("usage: chip_smoke.py [--kernels]", file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: nothing run", file=sys.stderr)
@@ -1373,6 +1549,19 @@ def main() -> int:
         rows += quant_kernel_checks(torch, codes, lut, words, q_words, log)
         rows += l2_kernel_checks(torch, sift_cos, sift_raw, fm_dev, signs,
                                  log)
+        if kernels_only:
+            # phase 1 alone (B1-B7; B8 needs phase F's model): one line a
+            # row with the shapes and times, then the card
+            keys = ("name", "mode", "Q", "L", "B", "C", "D", "N", "k",
+                    "row0_frac",
+                    "ms", "call_ms", "plain_ms", "plain_call_ms",
+                    "library_ms", "bound_ms", "bound_by", "share",
+                    "max_abs_err", "digest")
+            for r in rows:
+                print(json.dumps({k: r[k] for k in keys if k in r},
+                                 default=float))
+            print(card)
+            return 0
         topk_k_sweep(torch, sift_cos, sift_raw, log)
         del sift_raw, sift_cos, fm_dev, pq, bq, codes, lut, words, q_words
         del signs, q_dev
@@ -1409,7 +1598,11 @@ def main() -> int:
                     and all(r.get(k) == v for k, v in shape.items()))
 
     # the line reports each kernel at its main path's dominant shape:
-    # search's (Q=1024, L=width*M0=128) gathers (cosine for beam_gather),
+    # ms is the device time (`device_ms`), call_ms the per-call time with
+    # the host (`time_ms`); beam_gather at the stitch's (Q=1024,
+    # L=width 8 * M0 32=256, cosine) gathers, where A runs most of its
+    # launches (L=128, search's, is in the log), the other gathers at
+    # search's (Q=1024, L=width*M0=128),
     # the coarse prune's (B=4096, C=60) pair matrices, and the flat route's
     # Q=1024 against one 65,536-row chunk; the full sweep is in the log.
     # launches: the count in the phase whose path the kernel serves first
@@ -1428,9 +1621,10 @@ def main() -> int:
     # F's prefill, launches counted over one prefill; library_ms null,
     # since no PyTorch call computes its cell (slstm_kernel_checks).
     main_rows = {
-        "beam_gather": (pick("beam_gather", mode="dot", D=128, L=128), "A",
+        "beam_gather": (pick("beam_gather", mode="dot", D=128, L=256), "A",
                         "beam_gather.py:98"),
-        "pair_gather": (pick("pair_gather", mode="dot", D=128, C=60), "A",
+        "pair_gather": (pick("pair_gather", mode="dot", D=128, C=60,
+                             row0_frac=0.0), "A",
                         "bulk_prune.py:47"),
         "beam_gather_adc": (pick("beam_gather_adc", L=128), "C",
                             "beam_gather.py:148"),
@@ -1458,7 +1652,9 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
-            **{k: r[k] for k in ("bound_fp32_ms", "route_ms") if k in r},
+            **{k: r[k] for k in ("call_ms", "plain_call_ms",
+                                 "library_call_ms", "bound_fp32_ms",
+                                 "route_ms") if k in r},
             "at": {k: r[k] for k in ("mode", "dtype", "Q", "L", "B", "C",
                                      "D", "N", "m", "k", "W", "S", "d", "H")
                    if k in r}})
@@ -1481,4 +1677,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -100,8 +100,12 @@ def flat_search(queries: torch.Tensor, corpus: torch.Tensor, k: int,
       metric: registry name.
       chunk: if set, scan the corpus in chunks of this many rows (bounds the
         transient (Q, chunk) distance matrix) where `scan_topk` runs; the
-        fused kernel has no such matrix and ignores it.  Results equal the
-        unchunked scan's, ties included.
+        fused kernel has no such matrix.  The distances and the ids of
+        finite slots equal the unchunked scan's, ties included.  Where
+        ``chunk < N``, slots left at +inf (fewer than k rows pass the mask)
+        come back as -1, without ``base_index``, as the reference's chunked
+        scan returns them; unchunked (None or >= N), they carry masked
+        rows' ids, as the reference's unchunked scan does.
       mask: optional (N,) bool — MEVS metadata filter; False rows are
         excluded (distance = +inf).
       base_index: offset added to returned indices (shard-local -> global).
@@ -121,7 +125,8 @@ def flat_search(queries: torch.Tensor, corpus: torch.Tensor, k: int,
             corpus = corpus if unit_corpus else normalize(corpus)
         d, idx = ops.l2_topk(queries, corpus, min(k, corpus.shape[0]),
                              mode=metric, mask=mask)
-        return d, (idx + base_index).to(torch.int32)
+        return d, _empty_slots(d, (idx + base_index).to(torch.int32),
+                               chunk, corpus.shape[0])
     pair = get_metric(metric)
     unit = metric == "cosine" and unit_corpus
     if unit:
@@ -134,5 +139,16 @@ def flat_search(queries: torch.Tensor, corpus: torch.Tensor, k: int,
             return 1.0 + pairwise_dot(queries, corpus[lo:hi])
         return pair(queries, corpus[lo:hi])
 
-    return scan_topk(dist, corpus.shape[0], k, chunk=chunk, mask=mask,
-                     base_index=base_index)
+    d, idx = scan_topk(dist, corpus.shape[0], k, chunk=chunk, mask=mask,
+                       base_index=base_index)
+    return d, _empty_slots(d, idx, chunk, corpus.shape[0])
+
+
+def _empty_slots(d: torch.Tensor, idx: torch.Tensor, chunk: Optional[int],
+                 n: int) -> torch.Tensor:
+    """The reference's chunked scan starts from k (+inf, -1) slots and keeps
+    them ahead of later +inf candidates, so its +inf slots hold -1; its
+    unchunked scan (chunk None or >= n) returns the masked rows' ids."""
+    if chunk is None or chunk >= n:
+        return idx
+    return torch.where(d == float("inf"), torch.full_like(idx, -1), idx)

@@ -70,6 +70,99 @@ def test_pair_gather(cuda, d, c, mode):
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4 * d)
 
 
+def _unaligned(corpus, device):
+    """A contiguous (N, D) view of `corpus` that starts 4 bytes past a
+    16-byte boundary: the kernels' 4-byte gather path."""
+    n, d = corpus.shape
+    flat = torch.zeros(n * d + 1, device=device)
+    view = flat[1:].view(n, d)
+    view.copy_(torch.as_tensor(corpus, device=device))
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+def _edge_ids(rng, rows, cols, n):
+    """Random ids with duplicates in a row, both corpus ends, and ids past
+    either end (the kernels clamp them; the plain versions get the clamped
+    ids)."""
+    ids = rng.randint(0, n, (rows, cols)).astype(np.int32)
+    ids[:, 1::3] = ids[:, :1]
+    ids[:, 2::5] = n - 1
+    ids[:, 3::7] = 0
+    ids[::2, 4::9] = n + 17
+    ids[1::2, 5::11] = -3
+    return ids
+
+
+@pytest.mark.parametrize("c", [1, 2, 7, 60, 61, 80, 100, 119, 129, 256])
+@pytest.mark.parametrize("d", [128, 30, 784])
+@pytest.mark.parametrize("mode", ["l2", "dot"])
+def test_pair_gather_symmetric_and_edges(cuda, c, d, mode):
+    """B2 at the edges of its design: C = 1, C odd with C*C % 4 != 0 (the
+    scalar store-out), C = 100 (one node a block, staged through shared
+    memory), 119 (one pass, stored directly), 129 and 256 (several passes
+    over the tiles), D % 4 != 0 (the 4-byte gather), D = 784 (49 slices),
+    duplicated and clamped ids, B not a multiple of the nodes a block
+    takes.  The output is exactly symmetric and its l2 diagonal exactly 0,
+    and it holds against the plain version on the clamped ids."""
+    rng = np.random.RandomState(c * 1000 + d)
+    n, b = 300, 13
+    corpus = torch.as_tensor(rng.randn(n, d).astype(np.float32), device=cuda)
+    ids = torch.as_tensor(_edge_ids(rng, b, c, n), device=cuda)
+    got = _same_counts(pg_mod, lambda: ops.pair_gather_distances(
+        ids, corpus, mode=mode))
+    assert got.shape == (b, c, c)
+    assert torch.equal(got, got.transpose(1, 2))
+    if mode == "l2":
+        assert not got.diagonal(dim1=1, dim2=2).any()
+    want = ops.pair_gather_distances(ids.clamp(0, n - 1), corpus, mode=mode,
+                                     force_ref=True)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4 * d)
+
+
+@pytest.mark.parametrize("d", [128, 31])
+@pytest.mark.parametrize("mode", ["l2", "dot"])
+def test_pair_gather_unaligned_corpus(cuda, d, mode):
+    """A corpus view 4 bytes past a 16-byte boundary takes the 4-byte
+    gather and gives the aligned copy's output bit for bit."""
+    rng = np.random.RandomState(d)
+    corpus = rng.randn(500, d).astype(np.float32)
+    ids = torch.as_tensor(_edge_ids(rng, 9, 60, 500), device=cuda)
+    view = _unaligned(corpus, cuda)
+    got = ops.pair_gather_distances(ids, view, mode=mode)
+    same = ops.pair_gather_distances(ids, torch.as_tensor(corpus,
+                                                          device=cuda),
+                                     mode=mode)
+    assert torch.equal(got, same)
+    want = ops.pair_gather_distances(ids.clamp(0, 499), view, mode=mode,
+                                     force_ref=True)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4 * d)
+
+
+@pytest.mark.parametrize("nq,length", [(1, 1), (1, 256), (3, 37),
+                                       (64, 255), (130, 256)])
+@pytest.mark.parametrize("d", [128, 30, 784])
+@pytest.mark.parametrize("mode", ["l2", "dot"])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_beam_gather_edges(cuda, nq, length, d, mode, aligned):
+    """B1 at the edges: Q = 1, L = 1 and L not a multiple of a warp's rows
+    in flight, D % 4 != 0, a corpus view at an unaligned offset (the
+    scalar path), duplicated and clamped ids; against the plain version on
+    the clamped ids."""
+    rng = np.random.RandomState(nq * 7 + length + d)
+    n = 400
+    corpus = rng.randn(n, d).astype(np.float32)
+    x = torch.as_tensor(corpus, device=cuda) if aligned \
+        else _unaligned(corpus, cuda)
+    q = torch.as_tensor(rng.randn(nq, d).astype(np.float32), device=cuda)
+    ids = torch.as_tensor(_edge_ids(rng, nq, length, n), device=cuda)
+    got = _same_counts(bg_mod, lambda: ops.beam_gather_distances(
+        q, ids, x, mode=mode))
+    want = ops.beam_gather_distances(q, ids.clamp(0, n - 1), x, mode=mode,
+                                     force_ref=True)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4 * d)
+
+
 def _codes(rng, n, m, k, dtype):
     codes = rng.randint(0, k, (n, m))
     codes[::7] = k - 1                       # the top code (255 at k = 256)
@@ -368,6 +461,31 @@ def test_flat_search_on_card_runs_the_fused_entry(cuda, metric):
                            chunk=1024, mask=mask, base_index=7)
         assert torch.equal(i, wi)
         assert torch.equal(d.view(torch.int32), wd.view(torch.int32))
+
+
+@pytest.mark.parametrize("metric", ["l2", "dot", "cosine"])
+@pytest.mark.parametrize("chunk", [None, 16, 50])
+@pytest.mark.parametrize("live", [0, 3, 30])
+def test_flat_search_empty_slots_on_card(cuda, metric, chunk, live):
+    """A mask that leaves fewer than k rows: the card's fused entry returns
+    what the CPU scan returns, -1 in the +inf slots where chunk < N and
+    the masked rows' ids unchunked."""
+    rng = np.random.RandomState(live)
+    x = rng.randn(50, 8).astype(np.float32)
+    q = rng.randn(4, 8).astype(np.float32)
+    mask = np.zeros(50, dtype=bool)
+    mask[rng.permutation(50)[:live]] = True
+    got = flat_search(torch.as_tensor(q, device=cuda),
+                      torch.as_tensor(x, device=cuda), 5, metric=metric,
+                      chunk=chunk, mask=torch.as_tensor(mask, device=cuda),
+                      base_index=100)
+    want = flat_search(torch.as_tensor(q), torch.as_tensor(x), 5,
+                       metric=metric, chunk=chunk,
+                       mask=torch.as_tensor(mask), base_index=100)
+    assert torch.equal(got[1].cpu(), want[1])
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=2e-4, atol=2e-4)
+    if chunk == 16:
+        assert (want[1][torch.isinf(want[0])] == -1).all()
 
 
 def test_l2_distance_64bit_offsets(cuda):

@@ -164,3 +164,34 @@ def test_cpu_flat_search_on_unit_rows(k, chunk):
     wd, wi = flat_search(qt, xt, k, metric="cosine", chunk=chunk, mask=mask)
     assert torch.equal(i, wi)
     assert torch.equal(d.view(torch.int32), wd.view(torch.int32))
+
+
+@pytest.mark.parametrize("metric", ["l2", "dot", "cosine"])
+@pytest.mark.parametrize("chunk", [None, 16, 50, 64])
+@pytest.mark.parametrize("live", [0, 3, 30])
+def test_cpu_flat_search_empty_slots_match_jax(metric, chunk, live):
+    """A mask that leaves fewer than k rows: the chunked scan (chunk < N)
+    returns the reference's -1 in the +inf slots, base_index not added;
+    unchunked (None, or chunk >= N = 50) the masked rows' ids, as the
+    reference's own unchunked scan does.  Finite slots agree exactly."""
+    from repro.core.flat import flat_search as jax_flat_search
+    rng = np.random.RandomState(live)
+    x = rng.randn(50, 8).astype(np.float32)
+    q = rng.randn(4, 8).astype(np.float32)
+    mask = np.zeros(50, dtype=bool)
+    mask[rng.permutation(50)[:live]] = True
+    k = 5
+    wd, wi = jax_flat_search(jnp.asarray(q), jnp.asarray(x), k,
+                             metric=metric, chunk=chunk,
+                             mask=jnp.asarray(mask), base_index=100)
+    wd, wi = np.asarray(wd), np.asarray(wi)
+    d, i = flat_search(torch.as_tensor(q), torch.as_tensor(x), k,
+                       metric=metric, chunk=chunk,
+                       mask=torch.as_tensor(mask), base_index=100)
+    assert i.dtype == torch.int32
+    np.testing.assert_array_equal(i.numpy(), wi)
+    np.testing.assert_allclose(d.numpy(), wd, **TOL)
+    empty = np.isinf(wd)
+    assert empty.sum() == 4 * max(k - live, 0)
+    if chunk is not None and chunk < 50:
+        assert (wi[empty] == -1).all()
