@@ -422,9 +422,12 @@ def quant_kernel_checks(torch, codes, lut, words, q_words, log):
     The two gathers have none: the gather of code rows by ids is part of
     their function, and no one call both gathers and LUT-sums or counts.
     """
+    import ctypes
+
     import torch.nn.functional as F
     from repro_torch.core.bq import unpack_bits
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import _launch, ref
+    from repro_torch.kernels import pq_adc as adc_mod
     from repro_torch.kernels.beam_gather_adc import beam_gather_adc
     from repro_torch.kernels.beam_gather_hamming import beam_gather_hamming
     from repro_torch.kernels.hamming import hamming
@@ -491,15 +494,28 @@ def quant_kernel_checks(torch, codes, lut, words, q_words, log):
             Q=nq, L=length, W=w, N=n)
 
     # the flat route's shape (Q=1024 against one corpus chunk; the sets
-    # are consecutive chunks, as the route scans them) and a small batch
-    # against the whole corpus
-    for q_n, rows_n in ((nq, FLAT_CHUNK), (64, n)):
+    # are consecutive chunks, as the route scans them), a small batch
+    # against the whole corpus, and the batcher's small batches against one
+    # chunk (Q = 1 takes the row-lane path, 32 and 33 the query-lane path)
+    pq_fn = adc_mod._fn()
+    for q_n, rows_n in ((nq, FLAT_CHUNK), (64, n), (1, FLAT_CHUNK),
+                        (32, FLAT_CHUNK), (33, FLAT_CHUNK)):
         lut_q = lut[:q_n]
         chunks = [codes[i * rows_n:(i + 1) * rows_n]
                   for i in range(max(1, min(SETS, n // rows_n)))]
         cw = chunks[0]
+        before = dict(adc_mod.path_launches)
         got = pq_adc(lut_q, cw)
+        path = next(p for p, v in adc_mod.path_launches.items()
+                    if v != before[p])
         want = ref.pq_adc_ref(lut_q, cw)
+        # the row-lane path on the same inputs (the C entry takes it when
+        # it is given no scratch): both paths must give these bits
+        rows_out = torch.empty_like(got)
+        info = (ctypes.c_int * 1)()
+        _launch.launch("pq_adc", pq_fn, lut_q.device, lut_q.data_ptr(),
+                       cw.data_ptr(), rows_out.data_ptr(), None,
+                       ctypes.addressof(info), q_n, rows_n, m, k, 1)
         # the library call: row n's bag holds its m codes offset into the
         # flattened (m * k, Q) LUTs; it adds in its own order (rtol 1e-5)
         offs = torch.arange(m, device="cuda") * k
@@ -508,11 +524,15 @@ def quant_kernel_checks(torch, codes, lut, words, q_words, log):
         lib = F.embedding_bag(idxs[0], lut_t, mode="sum").T
         torch.cuda.synchronize()
         err = (got - want).abs()
-        check(bool((err <= ADC_RTOL * want.abs()).all()),
-              f"pq_adc Q={q_n} N={rows_n}: max err {float(err.max())}")
+        digest = output_digest(got)
+        digests = {"plain": output_digest(want),
+                   "row_lanes": output_digest(rows_out)}
+        check(info[0] == 0, "pq_adc without scratch took the query lanes")
+        check(all(v == digest for v in digests.values()),
+              f"pq_adc Q={q_n} N={rows_n}: digest {digest} vs {digests}")
         check(bool(((lib - want).abs() <= 1e-5 * want.abs()).all()),
               f"embedding_bag Q={q_n} N={rows_n} disagrees with pq_adc_ref")
-        del got, want, lib
+        del got, want, lib, rows_out
         row("pq_adc", float(err.max()),
             [lambda c=c: pq_adc(lut_q, c) for c in chunks],
             [lambda c=c: ref.pq_adc_ref(lut_q, c) for c in chunks],
@@ -520,8 +540,12 @@ def quant_kernel_checks(torch, codes, lut, words, q_words, log):
                   q_n * rows_n * m),
             [lambda i=i: F.embedding_bag(i, lut_t, mode="sum")
              for i in idxs],
-            Q=q_n, N=rows_n, m=m, k=k)
+            Q=q_n, N=rows_n, m=m, k=k, path=path, digest=digest,
+            digest_plain=digests["plain"],
+            digest_row_lanes=digests["row_lanes"])
         del idxs, lut_t
+        torch.cuda.empty_cache()
+    for q_n, rows_n in ((nq, FLAT_CHUNK), (64, n)):
         qw = q_words[:q_n]
         chunks = [words[i * rows_n:(i + 1) * rows_n]
                   for i in range(max(1, min(SETS, n // rows_n)))]
@@ -1260,8 +1284,12 @@ def slstm_kernel_checks(torch, layer, n_heads, log):
     against the gates, the output, R and b moved once; the S sequential
     steps add a latency floor this bound does not count.  library_ms is
     null: no PyTorch call computes this stabilised exp-gate cell with a
-    block-diagonal recurrence (``nn.LSTM`` is another function)."""
+    block-diagonal recurrence (``nn.LSTM`` is another function).  Each row
+    names the kernel's path and layout (``slstm.last_launch``); at full
+    width ``floor_ms`` is the cluster path's step floor, the same clusters
+    doing only the S steps' h exchange and waits (``slstm.step_floor``)."""
     from repro_torch.kernels import ref
+    from repro_torch.kernels import slstm as slstm_mod
     from repro_torch.kernels.slstm import slstm_sequence
 
     gen = torch.Generator(device="cuda")
@@ -1287,8 +1315,12 @@ def slstm_kernel_checks(torch, layer, n_heads, log):
             g = g32.to(getattr(torch, dtype))
             gb = g32b.to(g.dtype)
             got = slstm_sequence(g, r, bias, n_heads=h)
+            layout = dict(slstm_mod.last_launch)
+            again = slstm_sequence(g, r, bias, n_heads=h)
             want = ref.slstm_sequence_ref(g, r, bias, h)
             torch.cuda.synchronize()
+            check(torch.equal(got, again),
+                  f"slstm {dtype} B={b} S={s} d={d} H={h}: two calls differ")
             err = (got.float() - want.float()).abs().max().item()
             check(err <= SLSTM_ATOL[dtype],
                   f"slstm {dtype} B={b} S={s} d={d} H={h}: max err {err}")
@@ -1310,10 +1342,16 @@ def slstm_kernel_checks(torch, layer, n_heads, log):
                     warmup=1),
                 "plain_reps": plain_reps,
                 "bound_ms": b_ms, "bound_us": b_ms * 1e3, "bound_by": b_by,
-                "library_ms": None})
+                "library_ms": None, **layout})
+            if scale is None:
+                check(layout["path"] == "cluster",
+                      f"slstm full width took the {layout['path']} path")
+                rows[-1]["floor_ms"] = device_ms(torch, [
+                    lambda: slstm_mod.step_floor(b, s, d, h, g.device)],
+                    graph=False)
             rows[-1]["share"] = b_ms / rows[-1]["ms"]
             log(rows[-1])
-            del got, want, gb
+            del got, again, want, gb
         del g32b
     return rows
 
@@ -1553,7 +1591,7 @@ def main(argv) -> int:
             # phase 1 alone (B1-B7; B8 needs phase F's model): one line a
             # row with the shapes and times, then the card
             keys = ("name", "mode", "Q", "L", "B", "C", "D", "N", "k",
-                    "row0_frac",
+                    "row0_frac", "path",
                     "ms", "call_ms", "plain_ms", "plain_call_ms",
                     "library_ms", "bound_ms", "bound_by", "share",
                     "max_abs_err", "digest")
@@ -1630,7 +1668,8 @@ def main(argv) -> int:
                             "beam_gather.py:148"),
         "beam_gather_hamming": (pick("beam_gather_hamming", L=128), "D",
                                 "beam_gather.py:185"),
-        "pq_adc": (pick("pq_adc", N=FLAT_CHUNK), "C", "pq_adc.py:59"),
+        "pq_adc": (pick("pq_adc", Q=QUERY_BATCH, N=FLAT_CHUNK), "C",
+                   "pq_adc.py:59"),
         "hamming": (pick("hamming", N=FLAT_CHUNK), "D", "hamming.py:33"),
         "l2_distance": (pick("l2_distance", mode="dot", D=128, Q=32,
                              N=FLAT_CHUNK), "E", "l2.py:62"),
@@ -1654,7 +1693,8 @@ def main(argv) -> int:
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
             **{k: r[k] for k in ("call_ms", "plain_call_ms",
                                  "library_call_ms", "bound_fp32_ms",
-                                 "route_ms") if k in r},
+                                 "route_ms", "path", "floor_ms", "digest")
+               if k in r},
             "at": {k: r[k] for k in ("mode", "dtype", "Q", "L", "B", "C",
                                      "D", "N", "m", "k", "W", "S", "d", "H")
                    if k in r}})

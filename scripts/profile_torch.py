@@ -77,11 +77,11 @@ KERNELS = {"beam_gather": "beam_gather_f32_kernel",
            "pair_gather": "pair_gather_f32_kernel",
            "beam_gather_adc": "beam_gather_adc_kernel",
            "beam_gather_hamming": "beam_gather_hamming_kernel",
-           "pq_adc": "pq_adc_kernel",
+           "pq_adc": "pq_adc_",
            "hamming": "::hamming_kernel",
            "l2_distance": "l2_distance_kernel",
            "l2_topk": "l2_topk_kernel",
-           "slstm": "slstm_sequence_kernel"}
+           "slstm": "slstm_"}
 # the device kernels of the matrix products (cuBLAS / cuBLASLt / CUTLASS)
 GEMM_PARTS = ("gemm", "nvjet", "xmma", "cutlass")
 

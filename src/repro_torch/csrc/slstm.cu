@@ -17,39 +17,69 @@
 // 2 * B * S * 4d * blk flops (137 GFLOP at B = 8, S = 2,048, d = 2,048,
 // blk = 512: 2.05 ms at 67 TFLOP/s fp32) against 0.35 GB of gates, output
 // and R (0.105 ms at 3.35 TB/s).  The S steps are sequential, and every step
-// needs the whole h of the step before: that latency floor (S grid-wide
-// synchronisations) is not in the bound.
+// needs the whole h of its head from the step before: a latency floor of S
+// exchanges that the bound does not count.
 //
 // Design: the TPU kernel keeps R resident in VMEM for the whole sequence
-// and carries (h, c, n, m) across sequential grid steps.  Here one
-// persistent cooperative launch walks the whole sequence, its blocks spread
-// over the SMs.  A block owns tiles of 16 units l of one head n; with one
-// tile per block (128 blocks at full width) it copies its R columns
-// R[g, n, :, l0:l0+16] (4 x blk x 16 floats, 128 KB at blk = 512) into
-// shared memory once and reads them from there at every step; when the
-// tiles outnumber the blocks that fit on the card at once, or the columns
-// do not fit, it reads them from L2 instead.  At each step, for each tile
-// and 8 batch rows at a time, the cell's threads first load their gates,
-// biases and state (which do not wait for h_{t-1}), then the block stages
-// h_{t-1}[rows, n, :] in shared memory and its 256 threads split the blk-deep product 16 ways (thread =
-// 16 k-slices x 16 units), each holding 4 gates x 8 rows of fp32 sums in
-// registers; the two k-slices of a warp are added with a shuffle, the
-// warps' partial sums through shared memory in a fixed order, and one
-// thread per (row, unit) runs the cell, keeping c, n, m in f32 global state
-// that only it touches and writing h to a ping-pong f32 buffer and to the
-// output, rounded to nearest (__float2bfloat16_rn, as
-// Tensor.to(torch.bfloat16)).  A grid-wide barrier (cooperative groups,
-// which fences memory) then makes h_t visible to every block before step
-// t + 1.  Step 0 starts from the constant state and skips the product.  No
-// fast-math intrinsics: expf, log1pf, tanhf.
+// and carries (h, c, n, m) across sequential grid steps.  Here R is
+// block-diagonal, so head n's h_t needs only head n's h_{t-1}, and batch rows
+// never meet: each (head, group of RB batch rows) is one thread block
+// cluster of CS = blk / 32 blocks (16 at blk = 512, the non-portable
+// maximum), and nothing crosses clusters.  Two paths:
 //
-// The kernel allocates nothing (the wrapper passes the 5 x B x d f32
-// scratch), launches on the caller's stream and returns cudaGetLastError().
+// * cluster (blk a multiple of 32, at most 512): block c of a cluster owns
+//   units l0 = 32c .. l0 + 31 of its head and keeps their columns of R,
+//   R[g, n, :, l0:l0+32] (4 x blk x 32 floats, 256 KB at blk = 512), on
+//   chip for the whole sequence: each lane takes 4 gates x 2 units over one
+//   of 16 k-slices (8 warps x 2 half-warps) and holds the slice's first
+//   KR = 16 k of R in registers (128 a thread), the rest in shared memory
+//   (128 KB); at blk = 512 the two parts run in step, so that the shared
+//   part's loads overlap the register part's products.  h_{t-1}[rows, k]
+//   comes from the block's own shared memory; each h value read feeds 8
+//   products.  The 16 slices' partial sums meet in shared memory in a fixed
+//   order, and one thread per (row, unit) runs the cell with c, n, m in
+//   registers for the whole sequence, writes h to the output (rounded to
+//   nearest, __float2bfloat16_rn, as Tensor.to(torch.bfloat16)) and stages
+//   it.  The block then writes its 32 x RB / 2 h values into every peer's h
+//   buffer with asynchronous remote stores (st.async into distributed
+//   shared memory), double-buffered by step parity; each store completes on
+//   the peer's mbarrier, whose transaction count says when all CS slices
+//   have landed.  The RB rows run as two halves a half-step apart, so that
+//   one half's h travels while the other half computes.  No barrier spans
+//   the cluster inside the loop, no grid barrier, no h from global memory.
+//   A cell's gates are loaded a step ahead (they do not depend on h).  The
+//   launch is an ordinary cluster launch: clusters need not be co-resident.
+//   RB is 8 or 4 (R copied per cluster), whichever gives the fewer waves of
+//   clusters times rows, by cudaOccupancyMaxActiveClusters (7 clusters of 16
+//   on an H100 SXM: 4 of 8 rows at B = 8, 4 heads; 4 of 4 rows at B = 1).
+// * l2 (every other width: blk not a multiple of 32 or over 512): one
+//   persistent cooperative launch walks the whole sequence, its blocks
+//   spread over the SMs.  A block owns tiles of 16 units l of one head n;
+//   with one tile per block it copies its R columns R[g, n, :, l0:l0+16]
+//   (4 x blk x 16 floats) into shared memory once, and when the tiles
+//   outnumber the blocks that fit on the card at once, or the columns do not
+//   fit, it reads them from L2.  At each step, for each tile and 8 batch
+//   rows at a time, the block stages h_{t-1}[rows, n, :] from L2 in shared
+//   memory and its 256 threads split the blk-deep product 16 ways (thread =
+//   16 k-slices x 16 units), each holding 4 gates x 8 rows of fp32 sums;
+//   the two k-slices of a warp are added with a shuffle, the warps' partial
+//   sums through shared memory in a fixed order, and one thread per (row,
+//   unit) runs the cell, keeping c, n, m in f32 global state that only it
+//   touches and writing h to a ping-pong f32 buffer and to the output.  A
+//   grid-wide barrier (cooperative groups, which fences memory) then makes
+//   h_t visible to every block before step t + 1.
+//
+// Both paths start step 0 from the constant state and skip its product, and
+// use no fast-math intrinsics: expf, log1pf, tanhf.  The kernel allocates
+// nothing (the wrapper passes the 5 x B x d f32 scratch the l2 path uses),
+// launches on the caller's stream and returns cudaGetLastError().
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 namespace cg = cooperative_groups;
 
@@ -231,9 +261,457 @@ slstm_sequence_kernel(const T* __restrict__ gates,
   }
 }
 
+// ---------------------------------------------------------------------------
+// cluster path
+// ---------------------------------------------------------------------------
+
+constexpr int kCThreads = 256;
+constexpr int kCWarps = kCThreads / 32;
+constexpr int kCU = 32;                 // units per block
+constexpr int kCKS = 2 * kCWarps;       // k-slices: 2 a warp (half-warps)
+constexpr int kCMaxBlk = 512;           // 16 blocks a cluster
+constexpr int kCKR = 16;                // k of a slice held in registers
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(b)),
+               "r"(count));
+}
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* b, int parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred P;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2;\n"
+      "selp.b32 %0, 1, 0, P;\n}\n"
+      : "=r"(ok)
+      : "r"(smem_u32(b)), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+// a phase that has not completed in 2^35 clocks (~17 s) is a deadlock:
+// trap, so that the launch fails instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* b, int parity) {
+  if (mbar_try_wait(b, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(b, parity))
+    if (clock64() - t0 > (1ll << 35)) __trap();
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(b)),
+               "r"(bytes)
+               : "memory");
+}
+// the same shared-memory offset in block `rank` of the cluster
+__device__ __forceinline__ uint32_t peer_u32(uint32_t a, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r)
+               : "r"(a), "r"(rank));
+  return r;
+}
+// 16 bytes into a peer's shared memory, completing on the peer's mbarrier
+// (an asynchronous remote store: the issuing thread does not wait for it)
+__device__ __forceinline__ void st_async(uint32_t dst, float4 v,
+                                         uint32_t mbar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32"
+      " [%0], {%1, %2, %3, %4}, [%5];" ::"r"(dst),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(mbar)
+      : "memory");
+}
+
+// floats of shared memory: 4 mbarriers (2 halves x 2 parities, 8 floats),
+// h (2 halves x 2 parities x blk x RB / 2), the staged h of this block (2
+// halves x 32 x RB / 2), the partial sums of a half (16 slices x 4 gates x
+// RB / 2 x 32) and R's shared part (4 gates x (blk - 16 KR) x 32)
+__host__ __device__ constexpr size_t cluster_smem_floats(int blk, int rb,
+                                                         int kr) {
+  return 8 + static_cast<size_t>(2) * blk * rb + kCU * rb
+         + static_cast<size_t>(kCKS) * 4 * (rb / 2) * kCU
+         + static_cast<size_t>(4) * (blk - kCKS * kr) * kCU;
+}
+
+// a gate's raw bits, loaded at this point of the program (volatile asm
+// keeps the compiler from sinking the load to its first use) through the
+// non-coherent path, and widened to f32 where the cell reads it
+template <typename T> struct Raw { using type = float; };
+template <> struct Raw<__nv_bfloat16> { using type = unsigned short; };
+__device__ __forceinline__ void load_early(float* v, const float* p) {
+  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(*v) : "l"(p));
+}
+__device__ __forceinline__ void load_early(unsigned short* v,
+                                           const __nv_bfloat16* p) {
+  asm volatile("ld.global.nc.u16 %0, [%1];" : "=h"(*v) : "l"(p));
+}
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(unsigned short v) {
+  return __bfloat162float(__ushort_as_bfloat16(v));
+}
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
+template <int N>
+__device__ __forceinline__ void load_h(float* hv, const float* src) {
+  if constexpr (N == 4) {
+    *reinterpret_cast<float4*>(hv) = *reinterpret_cast<const float4*>(src);
+  } else {
+    *reinterpret_cast<float2*>(hv) = *reinterpret_cast<const float2*>(src);
+  }
+}
+
+// grid (CS, H, ceil(B / RB)), cluster (CS, 1, 1): blockIdx.x is the rank in
+// the cluster (units l0 = 32 x rank), blockIdx.y the head, blockIdx.z the
+// batch-row group.  A lane takes 4 gates x 2 units (2up, 2up + 1, up = lane
+// % 16) over one of 16 k-slices of blk / 16 (warp w, half-warp lane / 16),
+// so that each h value it reads feeds 8 products and each R value RB / 2.
+// The RB rows run as two halves of RH = RB / 2 rows in half-steps u = 2t +
+// x (half x at step t), so that one half's h travels while the other half
+// computes.  Half-step u waits on this block's mbarrier full[x][t-1 & 1]
+// until every peer's h_x(t-1) slice has landed (the transaction count of
+// CS slices), arms it for h_x(t+1), runs its product and cell, and sends
+// h_x(t) to every peer (st.async, completing on the peer's full[x][t & 1]).
+// A peer can only send h_x(t+1) into the buffer of h_x(t-1) after it has
+// this block's h_x(t), which this block sends after its product has read
+// that buffer.  kFloor: the same half-steps' exchange and waits with no
+// product and no cell (the step floor, a measurement).
+template <typename T, int RB, int KR, bool kFloor>
+__global__ void __launch_bounds__(kCThreads, 1)
+slstm_cluster_kernel(const T* __restrict__ gates, const float* __restrict__ r,
+                     const float* __restrict__ bias, T* __restrict__ out,
+                     int B, int S, int d, int H, int blk) {
+  constexpr int RH = RB / 2;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float4 smem4[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem4);   // [half][parity]
+  float* h_s = reinterpret_cast<float*>(smem4) + 8;  // [half][parity][k][row]
+  float* hloc = h_s + 2 * blk * RB;                // [half][unit][row]
+  float* red = hloc + kCU * RB;                    // [slice][gate][row][unit]
+  float* r_s = red + kCKS * 4 * RH * kCU;          // [gate][k'][unit]
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int up = lane % 16;                        // units 2up, 2up + 1
+  const int ks = warp * 2 + lane / 16;             // this lane's k-slice
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int n = blockIdx.y;
+  const int b0 = blockIdx.z * RB;
+  const int l0 = rank * kCU;
+  const int kh = blk / kCKS;                       // k of a slice
+  const int kss = kh - KR;                         // of them in shared memory
+  const int ksm = kCKS * kss;
+  const int k0 = ks * kh;
+  const size_t gate_stride = static_cast<size_t>(H) * blk * blk;
+  const float* r_n = r + static_cast<size_t>(n) * blk * blk + l0;
+
+  // R's columns of this block: registers ([gate][unit][k]), then shared
+  // memory (k' = slice x kss + k - k0 - KR)
+  float rr[4][2][KR > 0 ? KR : 1];
+  if constexpr (!kFloor) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int uu = 0; uu < 2; ++uu)
+#pragma unroll
+        for (int kk = 0; kk < KR; ++kk)
+          rr[g][uu][kk] = r_n[g * gate_stride
+                              + static_cast<size_t>(k0 + kk) * blk + 2 * up
+                              + uu];
+    for (int e = tid; e < 4 * ksm * kCU; e += kCThreads) {
+      const int g = e / (ksm * kCU), kp = (e / kCU) % ksm, u = e % kCU;
+      const int k = (kp / kss) * kh + KR + kp % kss;
+      r_s[e] = r_n[g * gate_stride + static_cast<size_t>(k) * blk + u];
+    }
+  }
+
+  // the cell's thread: (row b0 + cb of half cx, unit l0 + cu)
+  const int cb = tid / kCU, cu = tid % kCU;
+  const int cx = cb / RH, ch = cb % RH;
+  const int row = b0 + cb;
+  const bool cell = tid < RB * kCU;
+  const bool live = cell && row < B;
+  const int j = n * blk + l0 + cu;
+  const size_t d4 = static_cast<size_t>(4) * d;
+  const T* g_row = gates + static_cast<size_t>(live ? row : 0) * S * d4 + j;
+  T* o_row = out + static_cast<size_t>(live ? row : 0) * S * d + j;
+  float bv[4], gx[4] = {0.f, 0.f, 0.f, 0.f};
+  float c = 0.f, nn = 0.f, m = -1e30f;
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    bv[g] = live && !kFloor ? bias[g * d + j] : 0.f;
+    if (live && !kFloor) gx[g] = to_f32(g_row[g * d]);
+  }
+  // h_x(t) for t + 1 < S arrives from every peer: CS slices of 32 x RH
+  const int slice_bytes = kCU * RH * static_cast<int>(sizeof(float));
+  const int step_bytes = cs * slice_bytes;
+  if (tid == 0) {
+    for (int i = 0; i < 4; ++i) mbar_init(full + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int i = 0; i < 4; ++i)                  // h_x(0), h_x(1)
+      if ((i & 1) + 1 < S) mbar_expect_tx(full + i, step_bytes);
+  }
+  cluster.sync();                       // every peer's barriers are up
+
+  for (int u = 0; u < 2 * S; ++u) {
+    const int t = u >> 1, x = u & 1;
+    const bool mine = cell && cx == x;  // this thread's half runs now
+    const int sender = x * RH * 32;     // arms half x's barriers
+    // its gates of step t + 1 in flight through this half-step (issued
+    // here, not where the cell reads them), and step t + 2's into L2
+    typename Raw<T>::type gn[4];
+    if (mine && live && !kFloor && t + 1 < S) {
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        load_early(gn + g, g_row + (t + 1) * d4 + g * d);
+        if (t + 2 < S) prefetch_l2(g_row + (t + 2) * d4 + g * d);
+      }
+    }
+    float* h_x = h_s + x * 2 * blk * RH;           // this half's 2 parities
+    if (t > 0) {
+      uint64_t* bar = full + x * 2 + ((t - 1) & 1);
+      mbar_wait(bar, ((t - 1) >> 1) & 1);       // h_x(t-1) from every peer
+      if (tid == sender && t + 2 < S) mbar_expect_tx(bar, step_bytes);
+    }
+    // the product: h_x(t-1) x this block's R columns
+    float acc[4][2][RH];
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int uu = 0; uu < 2; ++uu)
+#pragma unroll
+        for (int b = 0; b < RH; ++b) acc[g][uu][b] = 0.f;
+    if (!kFloor && t > 0) {
+      const float* hq = h_x + ((t - 1) & 1) * blk * RH + k0 * RH;
+      const float* rs = r_s + (ks * kss) * kCU + 2 * up;
+      const float* hs = hq + KR * RH;
+      if (kss == KR) {
+        // the two parts in step: the shared part's loads overlap the
+        // register part's products
+#pragma unroll
+        for (int kk = 0; kk < KR; ++kk) {
+          float hv[RH], hw[RH];
+          load_h<RH>(hv, hq + kk * RH);
+          load_h<RH>(hw, hs + kk * RH);
+          float2 rv[4];
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            rv[g] = *reinterpret_cast<const float2*>(
+                rs + (g * ksm + kk) * kCU);
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+#pragma unroll
+            for (int b = 0; b < RH; ++b) {
+              acc[g][0][b] = fmaf(hv[b], rr[g][0][kk], acc[g][0][b]);
+              acc[g][1][b] = fmaf(hv[b], rr[g][1][kk], acc[g][1][b]);
+              acc[g][0][b] = fmaf(hw[b], rv[g].x, acc[g][0][b]);
+              acc[g][1][b] = fmaf(hw[b], rv[g].y, acc[g][1][b]);
+            }
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < KR; ++kk) {
+          float hv[RH];
+          load_h<RH>(hv, hq + kk * RH);
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+#pragma unroll
+            for (int uu = 0; uu < 2; ++uu)
+#pragma unroll
+              for (int b = 0; b < RH; ++b)
+                acc[g][uu][b] = fmaf(hv[b], rr[g][uu][kk], acc[g][uu][b]);
+        }
+#pragma unroll 8
+        for (int kk = 0; kk < kss; ++kk) {
+          float hv[RH];
+          load_h<RH>(hv, hs + kk * RH);
+          float2 rv[4];
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            rv[g] = *reinterpret_cast<const float2*>(
+                rs + (g * ksm + kk) * kCU);
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+#pragma unroll
+            for (int b = 0; b < RH; ++b) {
+              acc[g][0][b] = fmaf(hv[b], rv[g].x, acc[g][0][b]);
+              acc[g][1][b] = fmaf(hv[b], rv[g].y, acc[g][1][b]);
+            }
+        }
+      }
+    }
+    // this lane's partial sums, in the order ks = 0..15 later
+    if constexpr (!kFloor) {
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int b = 0; b < RH; ++b)
+          *reinterpret_cast<float2*>(
+              red + ((ks * 4 + g) * RH + b) * kCU + 2 * up) =
+              make_float2(acc[g][0][b], acc[g][1][b]);
+    }
+    __syncthreads();                  // red complete
+    float* hl = hloc + x * kCU * RH;
+    if (mine) {
+      float h = static_cast<float>(u);
+      if constexpr (!kFloor) {
+        float pre[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          float rec = 0.f;
+#pragma unroll
+          for (int w = 0; w < kCKS; ++w)
+            rec += red[((w * 4 + g) * RH + ch) * kCU + cu];
+          pre[g] = gx[g] + rec + bv[g];
+        }
+        const float logf_ = log_sigmoid(pre[1]);
+        const float m_new = fmaxf(logf_ + m, pre[0]);
+        const float i_p = expf(pre[0] - m_new);
+        const float f_p = expf(logf_ + m - m_new);
+        c = f_p * c + i_p * tanhf(pre[2]);
+        nn = f_p * nn + i_p;
+        m = m_new;
+        h = live ? 1.f / (1.f + expf(-pre[3])) * c / fmaxf(nn, 1e-6f) : 0.f;
+        if (live) store(o_row + static_cast<size_t>(t) * d, h);
+        if (live && t + 1 < S) {
+#pragma unroll
+          for (int g = 0; g < 4; ++g) gx[g] = widen(gn[g]);
+        }
+      }
+      hl[cu * RH + ch] = h;
+    }
+    // hloc complete.  Every warp waits for the cell: run beside the other
+    // half's product, the cell warps lose the issue slots to it and the
+    // whole step waits on them
+    __syncthreads();
+    // h_x(t) into every peer's buffer of parity t (units l0.. of the half's
+    // rows): 16-byte asynchronous remote stores, every thread a share
+    if (t + 1 < S) {
+      constexpr int per = kCU * RH / 4;
+      const uint32_t slot = smem_u32(h_x + ((t & 1) * blk + l0) * RH);
+      const uint32_t bar = smem_u32(full + x * 2 + (t & 1));
+      for (int e = tid; e < cs * per; e += kCThreads) {
+        const int q = e / per, i = e % per;
+        st_async(peer_u32(slot + 16 * i, q),
+                 reinterpret_cast<const float4*>(hl)[i], peer_u32(bar, q));
+      }
+    }
+    // half-step u done
+  }
+  cluster.sync();
+  // the kernel's end: no peer writes into this block any more
+}
+
+template <typename T, int RB, int KR, bool kFloor>
+cudaError_t cluster_config(int cs, int H, int B, int blk,
+                           cudaStream_t stream, cudaLaunchConfig_t* cfg,
+                           cudaLaunchAttribute* attr, int* active) {
+  auto kernel = slstm_cluster_kernel<T, RB, KR, kFloor>;
+  const size_t smem = cluster_smem_floats(blk, RB, KR) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e == cudaSuccess && cs > 8)
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(cs, H, (B + RB - 1) / RB);
+  cfg->blockDim = dim3(kCThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cs;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(active, kernel, cfg);
+}
+
+template <typename T, int RB, int KR, bool kFloor>
+cudaError_t cluster_launch(const T* gates, const float* r, const float* b,
+                           T* out, int B, int S, int d, int H,
+                           cudaStream_t stream) {
+  const int blk = d / H;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int active = 0;
+  cudaError_t e = cluster_config<T, RB, KR, kFloor>(
+      blk / kCU, H, B, blk, stream, &cfg, &attr, &active);
+  if (e != cudaSuccess) return e;
+  return cudaLaunchKernelEx(&cfg, slstm_cluster_kernel<T, RB, KR, kFloor>,
+                            gates, r, b, out, B, S, d, H, blk);
+}
+
+// the cluster layout for this shape: info = {path (1 cluster, 0 l2), rows a
+// cluster RB, cluster size CS, clusters the card holds at once}
+template <typename T, int KR>
+cudaError_t choose_rb(int B, int d, int H, int* info) {
+  const int blk = d / H, cs = blk / kCU;
+  int max_smem = 0, dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&max_smem,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int best_cost = 0;
+  for (int rb : {8, 4}) {
+    if (cluster_smem_floats(blk, rb, KR) * sizeof(float)
+        > static_cast<size_t>(max_smem))
+      continue;
+    int active = 0;
+    e = rb == 8 ? cluster_config<T, 8, KR, false>(cs, H, B, blk, nullptr,
+                                                  &cfg, &attr, &active)
+                : cluster_config<T, 4, KR, false>(cs, H, B, blk, nullptr,
+                                                  &cfg, &attr, &active);
+    if (e != cudaSuccess) {
+      cudaGetLastError();             // a refused configuration: not this rb
+      continue;
+    }
+    if (active <= 0) continue;
+    const int clusters = H * ((B + rb - 1) / rb);
+    const int cost = (clusters + active - 1) / active * rb;
+    if (best_cost == 0 || cost < best_cost) {
+      best_cost = cost;
+      info[0] = 1;
+      info[1] = rb;
+      info[2] = cs;
+      info[3] = active;
+    }
+  }
+  return cudaSuccess;
+}
+
+template <typename T, bool kFloor>
+cudaError_t run_cluster(const T* gates, const float* r, const float* b,
+                        T* out, int B, int S, int d, int H, int* info,
+                        cudaStream_t stream) {
+  const int blk = d / H;
+  info[0] = 0;
+  if (blk % kCU != 0 || blk > kCMaxBlk) return cudaSuccess;
+  const bool kr = blk >= kCKS * kCKR;   // a whole register part per slice
+  cudaError_t e = kr ? choose_rb<T, kCKR>(B, d, H, info)
+                     : choose_rb<T, 0>(B, d, H, info);
+  if (e != cudaSuccess || info[0] == 0) return e;
+  if (info[1] == 8)
+    return kr ? cluster_launch<T, 8, kCKR, kFloor>(gates, r, b, out, B, S, d,
+                                                   H, stream)
+              : cluster_launch<T, 8, 0, kFloor>(gates, r, b, out, B, S, d, H,
+                                                stream);
+  return kr ? cluster_launch<T, 4, kCKR, kFloor>(gates, r, b, out, B, S, d, H,
+                                                 stream)
+            : cluster_launch<T, 4, 0, kFloor>(gates, r, b, out, B, S, d, H,
+                                              stream);
+}
+
 template <typename T>
-int run(const T* gates, const float* r, const float* b, T* out,
-        float* scratch, int B, int S, int d, int H, cudaStream_t stream) {
+int run_l2(const T* gates, const float* r, const float* b, T* out,
+           float* scratch, int B, int S, int d, int H, cudaStream_t stream) {
   if (B <= 0 || S <= 0) return static_cast<int>(cudaSuccess);
   if (d <= 0 || H <= 0 || d % H != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -302,20 +780,56 @@ int run(const T* gates, const float* r, const float* b, T* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int run(const T* gates, const float* r, const float* b, T* out,
+        float* scratch, int* info, int B, int S, int d, int H,
+        cudaStream_t stream) {
+  info[0] = info[1] = info[2] = info[3] = 0;
+  if (B <= 0 || S <= 0) return static_cast<int>(cudaSuccess);
+  if (d <= 0 || H <= 0 || d % H != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = run_cluster<T, false>(gates, r, b, out, B, S, d, H, info,
+                                        stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (info[0] == 1) return static_cast<int>(cudaGetLastError());
+  return run_l2<T>(gates, r, b, out, scratch, B, S, d, H, stream);
+}
+
 }  // namespace
 
-// scratch: 5 x B x d f32 (h ping, h pong, c, n, m), written before read
+// scratch: 5 x B x d f32 (h ping, h pong, c, n, m), written before read, for
+// the l2 path.  info (4 ints): {path (1 cluster, 0 l2), batch rows a cluster,
+// cluster size, clusters the card holds at once}
 extern "C" int slstm_sequence_f32(const float* gates, const float* r,
                                   const float* b, float* out, float* scratch,
-                                  int B, int S, int d, int H, void* stream) {
-  return run<float>(gates, r, b, out, scratch, B, S, d, H,
+                                  int* info, int B, int S, int d, int H,
+                                  void* stream) {
+  return run<float>(gates, r, b, out, scratch, info, B, S, d, H,
                     static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int slstm_sequence_bf16(const void* gates, const float* r,
                                    const float* b, void* out, float* scratch,
-                                   int B, int S, int d, int H, void* stream) {
+                                   int* info, int B, int S, int d, int H,
+                                   void* stream) {
   return run<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(gates), r, b,
-                            static_cast<__nv_bfloat16*>(out), scratch, B, S,
-                            d, H, static_cast<cudaStream_t>(stream));
+                            static_cast<__nv_bfloat16*>(out), scratch, info,
+                            B, S, d, H, static_cast<cudaStream_t>(stream));
+}
+
+// The step floor of the cluster path at this shape: the same launch, S steps
+// of h exchange and cluster barriers with no product and no cell; nothing is
+// read or written in global memory.  Fails with cudaErrorInvalidValue where
+// the shape takes the l2 path.
+extern "C" int slstm_step_floor(int* info, int B, int S, int d, int H,
+                                void* stream) {
+  info[0] = info[1] = info[2] = info[3] = 0;
+  if (B <= 0 || S <= 0 || d <= 0 || H <= 0 || d % H != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = run_cluster<float, true>(nullptr, nullptr, nullptr, nullptr,
+                                           B, S, d, H, info,
+                                           static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (info[0] != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
 }

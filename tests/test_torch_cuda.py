@@ -223,14 +223,28 @@ def test_beam_gather_hamming(cuda, w, length):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("nq,n,m,k,dtype,offset", [
-    (1024, 5000, 16, 256, "uint8", 0),   # the flat route's query batch
-    (5, 9000, 16, 256, "uint8", 1),      # 1-byte offset: unaligned rows
-    (9, 333, 8, 64, "uint8", 0),
-    (2, 100, 6, 16, "uint8", 0),
-    (3, 700, 4, 512, "int32", 0),
+# Both B6 paths add the same floats in the same order (acc = 0, then
+# i = 0..m-1) as the plain version: the outputs are equal bit for bit.
+# path: the one the kernel takes ("query_lanes": Q >= 32, uint8 codes,
+# m % 4 == 0, k <= 256, aligned rows; "row_lanes" otherwise).
+@pytest.mark.parametrize("nq,n,m,k,dtype,offset,path", [
+    (1024, 5000, 16, 256, "uint8", 0, "query_lanes"),  # the flat route's batch
+    (5, 9000, 16, 256, "uint8", 1, "row_lanes"),   # 1-byte offset: unaligned
+    (9, 333, 8, 64, "uint8", 0, "row_lanes"),
+    (2, 100, 6, 16, "uint8", 0, "row_lanes"),
+    (3, 700, 4, 512, "int32", 0, "row_lanes"),
+    # the batcher's small batches: one query, a few, one tile, a tile and one
+    (1, 3000, 16, 256, "uint8", 0, "row_lanes"),
+    (7, 3000, 16, 256, "uint8", 0, "row_lanes"),
+    (32, 3000, 16, 256, "uint8", 0, "query_lanes"),
+    (33, 3000, 16, 256, "uint8", 0, "query_lanes"),
+    # query lanes at other widths: m = 4 and 8, k = 64, rows past a tile
+    (40, 2100, 8, 64, "uint8", 0, "query_lanes"),
+    (64, 1500, 4, 16, "uint8", 0, "query_lanes"),
+    (48, 700, 16, 256, "uint8", 1, "row_lanes"),   # unaligned at Q >= 32
+    (40, 700, 6, 16, "uint8", 0, "row_lanes"),     # m % 4 != 0
 ])
-def test_pq_adc(cuda, nq, n, m, k, dtype, offset):
+def test_pq_adc(cuda, nq, n, m, k, dtype, offset, path):
     rng = np.random.RandomState(nq + n)
     lut = torch.as_tensor(rng.rand(nq, m, k).astype(np.float32), device=cuda)
     codes = _codes(rng, n, m, k, dtype).to(cuda)
@@ -239,9 +253,26 @@ def test_pq_adc(cuda, nq, n, m, k, dtype, offset):
                           device=cuda)
         codes = buf[offset:].view(n, m)
         codes.copy_(_codes(rng, n, m, k, dtype))
+    before = adc_mod.path_launches[path]
     got = _same_counts(adc_mod, lambda: ops.pq_adc_distances(lut, codes))
+    assert adc_mod.path_launches[path] == before + 1
     want = ops.pq_adc_distances(lut, codes, force_ref=True)
-    torch.testing.assert_close(got, want, **ADC_TOL)
+    assert torch.equal(got, want)
+
+
+# the flat route's shape, Q = 1,024 x one 65,536-row chunk, and the same
+# with a row tail past the last 1,024-row tile
+@pytest.mark.parametrize("n", [65536, 65536 + 37])
+def test_pq_adc_flat_route_shape(cuda, n):
+    rng = np.random.RandomState(n)
+    nq, m, k = 1024, 16, 256
+    lut = torch.as_tensor(rng.rand(nq, m, k).astype(np.float32), device=cuda)
+    codes = _codes(rng, n, m, k, "uint8").to(cuda)
+    before = adc_mod.path_launches["query_lanes"]
+    got = _same_counts(adc_mod, lambda: ops.pq_adc_distances(lut, codes))
+    assert adc_mod.path_launches["query_lanes"] == before + 1
+    want = ops.pq_adc_distances(lut, codes, force_ref=True)
+    assert torch.equal(got, want)
 
 
 # W = 8 (256 bits) takes the register path, every other W the generic loop
@@ -594,6 +625,51 @@ def test_slstm_sequence_r_from_l2(cuda, d, h, dtype):
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     assert err <= SLSTM_ATOL[dtype], err
+
+
+# xlstm-1.3b's full width takes the cluster path (no cooperative launch):
+# one cluster of 16 blocks a (head, batch-row group); two calls on the same
+# inputs are equal (a fixed summation order); B = 1 at the full sequence
+@pytest.mark.parametrize("b,s", [(8, 64), (1, 2048)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slstm_sequence_full_width_cluster_path(cuda, b, s, dtype):
+    d, h = 2048, 4
+    g, r, bias = _slstm_inputs(s + b, b, s, d, h, dtype, cuda)
+    before = dict(slstm_mod.path_launches)
+    got = ops.slstm_sequence(g, r, bias, n_heads=h)
+    again = ops.slstm_sequence(g, r, bias, n_heads=h)
+    assert slstm_mod.path_launches["cluster"] == before["cluster"] + 2
+    assert slstm_mod.path_launches["l2"] == before["l2"]
+    assert slstm_mod.last_launch["cluster_size"] == 16
+    want = ops.slstm_sequence(g, r, bias, n_heads=h, force_ref=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= SLSTM_ATOL[dtype], err
+
+
+# the widths that take each path: head widths that are multiples of 32 up to
+# 512 the cluster path, the others (and wider heads) the l2 path
+@pytest.mark.parametrize("d,h,path", [(64, 2, "cluster"), (256, 2, "cluster"),
+                                      (512, 1, "cluster"), (512, 2, "cluster"),
+                                      (20, 4, "l2"),
+                                      (64, 8, "l2"), (4096, 2, "l2")])
+def test_slstm_sequence_path_by_width(cuda, d, h, path):
+    g, r, bias = _slstm_inputs(d, 2, 5, d, h, torch.float32, cuda)
+    before = slstm_mod.path_launches[path]
+    got = ops.slstm_sequence(g, r, bias, n_heads=h)
+    assert slstm_mod.path_launches[path] == before + 1
+    want = ops.slstm_sequence(g, r, bias, n_heads=h, force_ref=True)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= SLSTM_ATOL[torch.float32]
+
+
+def test_slstm_step_floor_runs_the_cluster_layout(cuda):
+    layout = slstm_mod.step_floor(8, 16, 2048, 4, cuda)
+    torch.cuda.synchronize()
+    assert layout["path"] == "cluster" and layout["cluster_size"] == 16
+    with pytest.raises(RuntimeError, match="launch failed"):
+        slstm_mod.step_floor(2, 16, 20, 4, cuda)
 
 
 def test_slstm_sequence_refuses_bad_inputs(cuda):

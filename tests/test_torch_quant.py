@@ -314,7 +314,8 @@ class TestPlainVersions:
                     *args, tb=16, interpret=True)))
 
     @pytest.mark.parametrize("q,n,m,k", [(5, 700, 8, 64), (2, 100, 16, 256),
-                                         (9, 333, 6, 16), (1, 64, 32, 256)])
+                                         (9, 333, 6, 16), (1, 64, 32, 256),
+                                         (33, 700, 16, 256)])
     def test_pq_adc(self, q, n, m, k):
         rng = np.random.RandomState(q * n)
         lut = rng.rand(q, m, k).astype(np.float32)
