@@ -5,7 +5,8 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-(``--kernels`` runs the kernel checks of B1-B7 alone and prints their rows.)
+(``--kernels`` runs the kernel checks of B1-B7 alone and prints their rows,
+B4's stage split among them.)
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 against its plain PyTorch version on the card at the main paths' shapes, and
@@ -25,7 +26,10 @@ xLSTM language model through ``repro_torch.models``:
            the build over the reconstructions, code-domain search with the
            exact rescore at ef 64 and 256 and without it at ef 64, delta
            rows, and the masked searches (the ~5 % one scans the codes);
-  phase D  the same with BQ codes (256 bits);
+  phase D  the same with BQ codes (256 bits); every layer-0 step runs B4's
+           fused entry (``beam_gather_hamming_masked``), which one batch
+           under ``torch.profiler`` times in the path and whose inputs at
+           four of that batch's steps it is held and timed on;
   phase E  phase A's corpus, queries and ground truth through
            ``repro_torch.api.Database`` on the card: an exact (flat)
            cosine collection with keyword, numeric, bool and text fields
@@ -141,12 +145,22 @@ PHASE_KERNELS = {
     "B": ("beam_gather", "pair_gather", "l2_topk"),
     "C": ("beam_gather", "pair_gather", "beam_gather_adc", "pq_adc",
           "l2_topk"),
-    "D": ("beam_gather", "pair_gather", "beam_gather_hamming", "hamming",
-          "l2_topk"),
+    "D": ("beam_gather", "pair_gather", "beam_gather_hamming_masked",
+          "hamming", "l2_topk"),
     "E": ("beam_gather", "pair_gather", "l2_topk", "l2_distance"),
     "F": ("slstm",)}
-# kernels whose source file is named otherwise: B5's two entries share one
-SOURCES = {"l2_topk": "l2_distance"}
+# kernels whose source file is named otherwise: B5's two entries share one,
+# and B4's
+SOURCES = {"l2_topk": "l2_distance",
+           "beam_gather_hamming_masked": "beam_gather_hamming"}
+# a kernel row's launches: the counters of every entry of its source that
+# ran it (B4's kernel runs in phase D through its fused entry only)
+ENTRIES = {"beam_gather_hamming": ("beam_gather_hamming",
+                                   "beam_gather_hamming_masked")}
+# B4's fused entry in phase 1: PAD on this share of the slots (never
+# fresh) and fresh on this share of the rest, at L > 1 (L = 1, the entry
+# point's call, is all fresh)
+B4_PAD_SHARE, B4_FRESH_SHARE = 0.125, 0.5
 # phase E: the exact collection's fields and its checks' sizes
 N_CATEGORIES = 8         # KeywordField("category"): cat-0 .. cat-7
 TITLE_VOCAB = 5_000      # TextField("title"): 4 words from this vocabulary
@@ -409,10 +423,57 @@ def kernel_checks(torch, corpora, log):
     return rows
 
 
-def quant_kernel_checks(torch, codes, lut, words, q_words, log):
+def hamming_masked_bound(sets, w, nq):
+    """B4's fused entry's bound, the mean over the input sets (ids, fresh):
+    the unique rows of fresh slots (stale and PAD slots read none), the
+    query words, and per slot 8 bytes of id, 1 of mask and 4 of output; W
+    popcounts a fresh slot."""
+    bs = [bound(int(ids[fresh].unique().numel()) * w * 4 + nq * w * 4
+                + ids.numel() * 13, int(fresh.sum()) * w, POPC_PER_S)
+          for ids, fresh in sets]
+    return sum(b[0] for b in bs) / len(bs), bs[0][1]
+
+
+def hamming_stage_rows(torch, lib, q_words, words, ids_sets, log):
+    """B4's stage split at one (Q, L) (`scripts/hamming_stage_cycles.py`):
+    the launch floor (an empty kernel), the ids' round trip, and (flat
+    layout) the ids with the query words, each on the first kernel's
+    (Q, L / 128) grid of 128 threads and on the shipped flat grid (its
+    block size, a thread a pair)."""
+    import hamming_stage_cycles as hsc
+
+    layouts = [("grid2d", 0, 1, ("empty", "ids"))]
+    block = hsc.shipped_block()
+    if block:
+        layouts.append(("flat", block, 1, ("empty", "ids", "ids_q")))
+    out = torch.empty_like(ids_sets[0])
+    nq, length = ids_sets[0].shape
+    rows = []
+    for layout, threads, w8, stages in layouts:
+        for stage in stages:
+            r = {"name": "beam_gather_hamming_stage", "stage": stage,
+                 "layout": layout, "threads": threads or 128,
+                 "w8_layout": w8, "Q": nq, "L": length,
+                 "W": words.shape[1], "N": words.shape[0],
+                 "ms": device_ms(torch, [
+                     lambda ids=ids, stage=stage, threads=threads,
+                     w8=w8: hsc.stage_call(
+                         torch, lib, stage, threads, w8, q_words, ids,
+                         words, out) for ids in ids_sets])}
+            rows.append(r)
+            log(r)
+    return rows
+
+
+def quant_kernel_checks(torch, codes, lut, words, q_words, log,
+                        stage_lib=None):
     """The PQ and BQ kernels against their plain versions on the corpus's
     real codes: ``codes`` (N, m) uint8 PQ codes with ``lut`` (Q, m, k) the
     queries' LUTs, ``words`` (N, W) BQ words with ``q_words`` (Q, W).
+    B4 has two entries, the TPU function (int32 ids) and the search step's
+    fused form (int64 ids with PAD, a fresh mask, +inf on stale slots);
+    with ``stage_lib`` (the library of `scripts/hamming_stage_cycles.py`)
+    its stage split follows each L.
 
     library_ms, timed where one PyTorch call computes the same function:
     ``pq_adc`` is ``embedding_bag(codes + i * k, lut.T, mode="sum")`` over
@@ -429,7 +490,8 @@ def quant_kernel_checks(torch, codes, lut, words, q_words, log):
     from repro_torch.kernels import _launch, ref
     from repro_torch.kernels import pq_adc as adc_mod
     from repro_torch.kernels.beam_gather_adc import beam_gather_adc
-    from repro_torch.kernels.beam_gather_hamming import beam_gather_hamming
+    from repro_torch.kernels.beam_gather_hamming import (
+        beam_gather_hamming, beam_gather_hamming_masked)
     from repro_torch.kernels.hamming import hamming
     from repro_torch.kernels.pq_adc import pq_adc
 
@@ -492,6 +554,39 @@ def quant_kernel_checks(torch, codes, lut, words, q_words, log):
             bound(uniq * w * 4 + nq * w * 4 + nq * length * 8,
                   nq * length * w, POPC_PER_S),
             Q=nq, L=length, W=w, N=n)
+        msets = []
+        for ids_i in sets:
+            ids64 = ids_i.long()
+            fresh = torch.ones_like(ids_i, dtype=torch.bool)
+            if length > 1:
+                pad = torch.rand(ids_i.shape, generator=gen,
+                                 device="cuda") < B4_PAD_SHARE
+                fresh = (torch.rand(ids_i.shape, generator=gen,
+                                    device="cuda") < B4_FRESH_SHARE) & ~pad
+                ids64 = ids64.masked_fill(pad, -1)
+            msets.append((ids64, fresh))
+        ids64, fresh = msets[0]
+        got = beam_gather_hamming_masked(q_words, ids64, fresh, words)
+        want = ref.beam_gather_hamming_masked_ref(q_words, ids64, fresh,
+                                                  words)
+        torch.cuda.synchronize()
+        # exact, the +inf of every stale slot included
+        check(torch.equal(got, want),
+              f"beam_gather_hamming_masked L={length}: differs from its "
+              f"plain version")
+        err = float((got[fresh] - want[fresh]).abs().max()) \
+            if bool(fresh.any()) else 0.0
+        row("beam_gather_hamming_masked", err,
+            [lambda a=a, f=f: beam_gather_hamming_masked(q_words, a, f, words)
+             for a, f in msets],
+            [lambda a=a, f=f: ref.beam_gather_hamming_masked_ref(
+                q_words, a, f, words) for a, f in msets],
+            hamming_masked_bound(msets, w, nq), Q=nq, L=length, W=w, N=n,
+            fresh_share=float(fresh.float().mean()),
+            pad_share=float((ids64 < 0).float().mean()))
+        if stage_lib is not None:
+            rows.extend(hamming_stage_rows(torch, stage_lib, q_words, words,
+                                           sets, log))
 
     # the flat route's shape (Q=1024 against one corpus chunk; the sets
     # are consecutive chunks, as the route scans them), a small batch
@@ -887,6 +982,83 @@ def search_all(eng, queries, ef, counters, rescore=None):
     return np.concatenate(out), first
 
 
+def fused_step_row(torch, eng, queries, log):
+    """B4's fused entry where phase D runs it.  One 1,024-query batch at
+    ef 64 runs under ``torch.profiler`` after a warm-up batch, with the
+    entry's inputs kept at every call: the kernel's device ms in that
+    batch (``in_path_ms``, its launches beside it), the calls a batch and
+    the share of fresh slots over the layer-0 steps.  Then the entry is
+    held against its plain version on four of the batch's steps (at 20, 40,
+    60 and 80 % of them), exactly, and timed on them as input sets, with
+    its bound from those steps' own fresh rows (`hamming_masked_bound`)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.beam_gather_hamming import \
+        beam_gather_hamming_masked
+
+    fused = ops.beam_gather_hamming_masked
+    calls = []
+
+    def keep(qc, ids, fresh, codes, **kw):
+        calls.append((qc, ids, fresh, codes))
+        return fused(qc, ids, fresh, codes, **kw)
+
+    batch = queries[:QUERY_BATCH]
+    ops.beam_gather_hamming_masked = keep
+    try:
+        eng.search(batch, K, ef=EF, expansion_width=WIDTH)
+        torch.cuda.synchronize()
+        calls.clear()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.search(batch, K, ef=EF, expansion_width=WIDTH)
+            torch.cuda.synchronize()
+    finally:
+        ops.beam_gather_hamming_masked = fused
+    kern = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and "beam_gather_hamming_kernel" in e.name()]
+    steps = [c for c in calls if c[1].shape[1] > 1]
+    check(len(steps) == len(calls) - 1,
+          f"D: {len(calls)} fused calls a batch, {len(steps)} of them steps")
+    picked = [steps[int(len(steps) * f)] for f in (0.2, 0.4, 0.6, 0.8)]
+    qc, _, _, codes = picked[0]
+    errs = []
+    for _, ids, fresh, _ in picked:
+        got = beam_gather_hamming_masked(qc, ids, fresh, codes)
+        want = ref.beam_gather_hamming_masked_ref(qc, ids, fresh, codes)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              "D: the fused entry differs from its plain version on a "
+              "search step")
+        errs.append(float((got[fresh] - want[fresh]).abs().max())
+                    if bool(fresh.any()) else 0.0)
+    nq, length = picked[0][1].shape
+    b = hamming_masked_bound([(i, f) for _, i, f, _ in picked],
+                             codes.shape[1], nq)
+    r = {"name": "beam_gather_hamming_masked", "inputs": "D search steps",
+         "Q": nq, "L": length, "W": codes.shape[1], "N": codes.shape[0],
+         "max_abs_err": max(errs),
+         **timing(torch, [lambda i=i, f=f: beam_gather_hamming_masked(
+             qc, i, f, codes) for _, i, f, _ in picked]),
+         **plain_timing(torch, [
+             lambda i=i, f=f: ref.beam_gather_hamming_masked_ref(
+                 qc, i, f, codes) for _, i, f, _ in picked]),
+         "bound_ms": b[0], "bound_us": b[0] * 1e3, "bound_by": b[1],
+         "library_ms": None,
+         "fresh_share": sum(float(f.float().mean()) for _, _, f, _ in picked)
+         / len(picked),
+         "fresh_share_batch": sum(int(c[2].sum()) for c in steps)
+         / sum(c[2].numel() for c in steps),
+         "calls_batch": len(calls), "steps_batch": len(steps),
+         "in_path_ms": sum(kern) / 1e6, "in_path_launches": len(kern)}
+    r["share"] = b[0] / r["ms"]
+    log(r)
+    return r
+
+
 def run_collection(torch, name, corpus, queries, gt, new_rows, metric,
                    counters, log):
     """One phase: build, search sweep against ``gt``, delta rows, masked
@@ -998,6 +1170,9 @@ def run_collection(torch, name, corpus, queries, gt, new_rows, metric,
     for kname in PHASE_KERNELS[name]:
         check(res["launches"][kname] > 0,
               f"{name}: kernel {kname} never launched")
+    if quant == "bq":
+        # after the launch count: these launches are measurements
+        res["fused_step"] = fused_step_row(torch, eng, queries, log)
     log({"phase_result": res})
     del eng
     torch.cuda.empty_cache()
@@ -1496,6 +1671,8 @@ class Counters:
                      "pair_gather": (bulk_prune, "launches"),
                      "beam_gather_adc": (beam_gather_adc, "launches"),
                      "beam_gather_hamming": (beam_gather_hamming, "launches"),
+                     "beam_gather_hamming_masked": (beam_gather_hamming,
+                                                    "masked_launches"),
                      "pq_adc": (pq_adc, "launches"),
                      "hamming": (hamming, "launches"),
                      "l2_distance": (l2, "launches"),
@@ -1541,9 +1718,14 @@ def main(argv) -> int:
     try:
         from repro_torch.data.synthetic import fashion_mnist_like, sift_like
         from repro_torch.kernels import _build
+        sys.path.insert(0, os.path.join(ROOT, "scripts"))
+        import hamming_stage_cycles
 
         t0 = time.perf_counter()
+        # B4's stage-split library builds beside the kernels
+        stage_build = hamming_stage_cycles.start_build()
         built = _build.build()
+        stage_lib = hamming_stage_cycles.finish_build(stage_build)
         log({"kernel_build_s": time.perf_counter() - t0,
              "per_kernel_s": {k: v[0] for k, v in built.items()}})
         for k, (_, text) in built.items():
@@ -1584,14 +1766,16 @@ def main(argv) -> int:
                                      (128, sift_raw, ("l2",)),
                                      (784, fm_dev, ("l2", "dot")),
                                      (BQ_BITS, signs, ("dot",))], log)
-        rows += quant_kernel_checks(torch, codes, lut, words, q_words, log)
+        rows += quant_kernel_checks(torch, codes, lut, words, q_words, log,
+                                    stage_lib)
         rows += l2_kernel_checks(torch, sift_cos, sift_raw, fm_dev, signs,
                                  log)
         if kernels_only:
             # phase 1 alone (B1-B7; B8 needs phase F's model): one line a
             # row with the shapes and times, then the card
             keys = ("name", "mode", "Q", "L", "B", "C", "D", "N", "k",
-                    "row0_frac", "path",
+                    "row0_frac", "path", "stage", "layout", "threads",
+                    "w8_layout", "fresh_share", "pad_share",
                     "ms", "call_ms", "plain_ms", "plain_call_ms",
                     "library_ms", "bound_ms", "bound_by", "share",
                     "max_abs_err", "digest")
@@ -1619,6 +1803,7 @@ def main(argv) -> int:
                 ("D", sift, sift_q, gt_sift, sift_new, "cosine")):
             phase[name] = run_collection(torch, name, corpus, q, gt, new,
                                          metric, counters, log)
+        rows.append(phase["D"]["fused_step"])
         phase["E"] = run_api(torch, sift, sift_q, gt_sift, sift_new,
                              phase["A"], counters, log)
         del sift, sift_q, sift_new, fm, fm_q, fm_new, gt_sift, gt_fm
@@ -1658,6 +1843,11 @@ def main(argv) -> int:
     # beside it.  slstm: the full-width bf16 call (B=8, S=2,048) of phase
     # F's prefill, launches counted over one prefill; library_ms null,
     # since no PyTorch call computes its cell (slstm_kernel_checks).
+    # beam_gather_hamming: the TPU function's entry at search's shape (the
+    # kernel's launches in D, which all go through its fused entry:
+    # launches_by_entry splits them); beam_gather_hamming_masked, its fused
+    # entry, on four of D's own search steps (fused_step_row), with the
+    # kernel's device ms in one D batch (in_path_ms).
     main_rows = {
         "beam_gather": (pick("beam_gather", mode="dot", D=128, L=256), "A",
                         "beam_gather.py:98"),
@@ -1668,6 +1858,8 @@ def main(argv) -> int:
                             "beam_gather.py:148"),
         "beam_gather_hamming": (pick("beam_gather_hamming", L=128), "D",
                                 "beam_gather.py:185"),
+        "beam_gather_hamming_masked": (phase["D"]["fused_step"], "D",
+                                       "beam_gather.py:185"),
         "pq_adc": (pick("pq_adc", Q=QUERY_BATCH, N=FLAT_CHUNK), "C",
                    "pq_adc.py:59"),
         "hamming": (pick("hamming", N=FLAT_CHUNK), "D", "hamming.py:33"),
@@ -1680,20 +1872,29 @@ def main(argv) -> int:
                   "slstm.py:90")}
     kernels = []
     for name, (r, home, tpu) in main_rows.items():
+        entries = ENTRIES.get(name, (name,))
+
+        def count(p, entries=entries):
+            return sum(phase[p]["launches"][e] for e in entries)
+
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/"
                       f"{SOURCES.get(name, name)}.cu",
             "replaces": f"src/repro/kernels/{tpu}",
-            "launches": phase[home]["launches"][name],
-            "launches_by_phase": {p: phase[p]["launches"][name]
-                                  for p in phase},
+            "launches": count(home),
+            "launches_by_phase": {p: count(p) for p in phase},
+            **({"launches_by_entry": {e: phase[home]["launches"][e]
+                                      for e in entries}}
+               if len(entries) > 1 else {}),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
             **{k: r[k] for k in ("call_ms", "plain_call_ms",
                                  "library_call_ms", "bound_fp32_ms",
-                                 "route_ms", "path", "floor_ms", "digest")
+                                 "route_ms", "path", "floor_ms", "digest",
+                                 "in_path_ms", "in_path_launches",
+                                 "fresh_share", "share")
                if k in r},
             "at": {k: r[k] for k in ("mode", "dtype", "Q", "L", "B", "C",
                                      "D", "N", "m", "k", "W", "S", "d", "H")

@@ -15,13 +15,26 @@ under a ~5 % mask (the flat route) it prints, as one JSON line each:
              that starts in the span, and busy = device_ms / wall_ms (one
              stream, so the events do not overlap);
   <kernel>_ms  each of the port's CUDA kernels' share (beam_gather,
-             pair_gather, beam_gather_adc, beam_gather_hamming, pq_adc,
-             hamming, l2_distance, l2_topk: B5's matrix and fused entries);
+             pair_gather, beam_gather_adc, beam_gather_hamming (both of
+             B4's entries), pq_adc, hamming, l2_distance, l2_topk: B5's
+             matrix and fused entries), and <kernel>_launches its count;
   topk_ms    the share of PyTorch's top-k kernels (names holding "topk",
              the port's kernels aside: the scans' selections, and behind
              ``l2_topk`` the merge of its per-block candidates);
   host_ms    wall_ms - device_ms;
-  top        the device events that take most of the span, by name.
+  top        the device events that take most of the span, by name;
+  step_*     search span only: the layer-0 step, read between consecutive
+             launches of the step's distance kernel (beam_gather in A,
+             beam_gather_adc in C, beam_gather_hamming in D).
+             events_per_step is the median count of device events from one
+             such launch up to the next (the step's kernels, copies and
+             sets), step_events the count of each name (templates cut) in
+             one step of that count, and
+             step_ms the median device ms of a step's events.  In D,
+             fresh_share is the share of the (Q, L) slots of every step
+             (the fused entry's mask, the entry-point calls aside) that
+             are fresh, i.e. the rows the step uses, and
+             launches_per_batch the fused entry's launches per batch.
 
 ``--phase E`` profiles the public API instead: an exact (flat) cosine
 collection of the same corpus through ``repro_torch.api.Database``, one
@@ -61,6 +74,7 @@ import bisect
 import collections
 import json
 import os
+import re
 import sys
 import time
 
@@ -86,9 +100,38 @@ KERNELS = {"beam_gather": "beam_gather_f32_kernel",
 GEMM_PARTS = ("gemm", "nvjet", "xmma", "cutlass")
 
 
-def span_rows(prof, labels):
+# the search span's step kernel, by phase
+STEP_KERNEL = {"A": "beam_gather", "C": "beam_gather_adc",
+               "D": "beam_gather_hamming"}
+
+
+def step_stats(events, part):
+    """events: one span's device events (start ns, duration ns, name) in
+    start order; part: the step kernel's name part.  The layer-0 steps,
+    each from one launch of the step kernel up to the next."""
+    at = [i for i, (_, _, n) in enumerate(events) if part in n]
+    if len(at) < 2:
+        return {}
+    steps = [events[a:b] for a, b in zip(at, at[1:])]
+    counts = sorted(len(st) for st in steps)
+    median = counts[len(counts) // 2]
+    one = next(st for st in steps if len(st) == median)
+    ms = sorted(sum(d for _, d, _ in st) / 1e6 for st in steps)
+    names = collections.Counter(
+        re.sub(r"^void |[<(].*$", "",
+               n.replace("(anonymous namespace)::", "")) for _, _, n in one)
+    return {"step_kernel_launches": len(at), "events_per_step": median,
+            "events_per_step_min": counts[0],
+            "events_per_step_max": counts[-1],
+            "step_ms": ms[len(ms) // 2],
+            "step_events": dict(names.most_common())}
+
+
+def span_rows(prof, labels, steps=None):
     """Assign the device events to the host spans by start time and print
-    one JSON row per span; returns (device events, summed device ms)."""
+    one JSON row per span (with `step_stats` for the spans named in
+    ``steps``: span -> step kernel part); returns (device events, summed
+    device ms)."""
     from torch.autograd import DeviceType
 
     # the raw events (ns): building the profiler's event tree over ~10^6
@@ -104,11 +147,17 @@ def span_rows(prof, labels):
         elif e.device_type() == DeviceType.CUDA:
             dev.append((e.start_ns(), e.duration_ns(), name))
     ranges.sort()
+    steps = steps or {}
     per_span = {name: collections.Counter() for _, _, name in ranges}
-    for start, dur, name in dev:
+    n_span = {name: collections.Counter() for _, _, name in ranges}
+    in_span = {name: [] for name in steps}
+    for start, dur, name in sorted(dev):
         for lo, hi, span in ranges:
             if lo <= start < hi:
                 per_span[span][name] += dur
+                n_span[span][name] += 1
+                if span in in_span:
+                    in_span[span].append((start, dur, name))
                 break
     total_dev = 0.0
     for lo, hi, name in ranges:
@@ -121,10 +170,14 @@ def span_rows(prof, labels):
                "host_ms": wall_ms - dev_ms}
         for k, part in KERNELS.items():
             row[f"{k}_ms"] = sum(v for n, v in c.items() if part in n) / 1e6
+            row[f"{k}_launches"] = sum(v for n, v in n_span[name].items()
+                                       if part in n)
         row["topk_ms"] = sum(v for n, v in c.items()
                              if "topk" in n.lower() and not any(
                                  part in n for part in KERNELS.values())) / 1e6
         row["top"] = [[n[:80], v / 1e6] for n, v in c.most_common(6)]
+        if name in steps:
+            row.update(step_stats(in_span[name], steps[name]))
         print(json.dumps(row), flush=True)
     return dev, total_dev
 
@@ -315,6 +368,15 @@ def main() -> int:
 
     # one batch under a ~5 % mask: the flat route (pq_adc / hamming in C / D)
     mask5 = np.random.RandomState(7).random_sample(len(x)) < 0.05
+    # D: the fused entry's masks in the search span, kept by reference (no
+    # launch) and counted after the profile
+    from repro_torch.kernels import ops
+    masks = []
+    fused = getattr(ops, "beam_gather_hamming_masked", None)
+    if fused is not None:
+        def keep_mask(qc, ids, fresh, codes, **kw):
+            masks.append(fresh)
+            return fused(qc, ids, fresh, codes, **kw)
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card
                                      else [])
     t0 = time.perf_counter()
@@ -325,11 +387,15 @@ def main() -> int:
             torch.cuda.synchronize()
         close_span("repair+pack")
         with record_function("span::search"):
+            if fused is not None:
+                ops.beam_gather_hamming_masked = keep_mask
             for lo in range(0, len(q), QUERY_BATCH):
                 eng.search(q[lo: lo + QUERY_BATCH], K, ef=EF,
                            expansion_width=WIDTH)
             if on_card:
                 torch.cuda.synchronize()
+            if fused is not None:
+                ops.beam_gather_hamming_masked = fused
         with record_function("span::flat_route"):
             eng.search(q[:QUERY_BATCH], K, mask=mask5)
             if on_card:
@@ -337,7 +403,18 @@ def main() -> int:
     wall = time.perf_counter() - t0
     t1 = time.perf_counter()
 
-    dev, total_dev = span_rows(prof, labels)
+    steps = ({"search": KERNELS[STEP_KERNEL[args.phase]]}
+             if args.phase in STEP_KERNEL else None)
+    dev, total_dev = span_rows(prof, labels, steps)
+    if masks:
+        step_masks = [m for m in masks if m.shape[1] > 1]
+        batches = -(-len(q) // QUERY_BATCH)
+        print(json.dumps({
+            "span": "search", "fused_entry_launches": len(masks),
+            "launches_per_batch": len(masks) / batches,
+            "steps": len(step_masks),
+            "fresh_share": sum(int(m.sum()) for m in step_masks)
+            / max(1, sum(m.numel() for m in step_masks))}), flush=True)
     print(json.dumps({"phase": args.phase, "wall_s_profiled": wall, "device_events": len(dev),
                       "device_ms": total_dev,
                       "analysis_s": time.perf_counter() - t1,

@@ -431,7 +431,8 @@ class QuantixarEngine:
         separately).  Unquantized engines gather float rows
         (``beam_gather``); PQ evaluates per-query ADC LUTs against the code
         matrix (``beam_gather_adc``), BQ XOR+popcounts packed words
-        (``beam_gather_hamming``), never a float32 reconstruction gather."""
+        (``beam_gather_hamming``'s fused entry), never a float32
+        reconstruction gather."""
         cfg = self.config
         g, max_level, metric = self._device_graph
         n_sealed = self._packed.n

@@ -23,8 +23,11 @@ iteration counts are the JAX package's.
                                   per iteration (kernels/ops.py: the
                                   ``beam_gather`` CUDA kernel on a card,
                                   or in code domain ``beam_gather_adc`` /
-                                  ``beam_gather_hamming`` over the PQ codes
-                                  / packed BQ words in ``HNSWGraph.codes``)
+                                  ``beam_gather_hamming_masked`` over the
+                                  PQ codes / packed BQ words in
+                                  ``HNSWGraph.codes``); stale and PAD slots
+                                  are +inf (the Hamming entry masks them
+                                  itself and reads no row for them)
 
 The code-domain modes descend the upper layers on the float proxy vectors
 (PQ reconstructions under l2, BQ ±1 signs under dot) and evaluate every
@@ -108,14 +111,18 @@ def _beam_search_base(g: HNSWGraph, ep: torch.Tensor, ef: int, width: int,
                       max_iters: int, n_words: int, block_dist
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fixed-ef wide-beam search on layer 0 for the batch of entry points
-    ep (Q,).  Returns (dists (Q, ef), ids (Q, ef) int64, iterations (Q,))."""
+    ep (Q,).  ``block_dist(ids, fresh)`` maps int64 ids (Q, L) (PAD = -1
+    allowed) and a bool mask (Q, L) to float32 distances, +inf where the
+    mask is False.  Returns (dists (Q, ef), ids (Q, ef) int64, iterations
+    (Q,))."""
     nq = ep.shape[0]
     dev = ep.device
     m0 = g.adj0.shape[1]
     length = width * m0
 
     cand_d = torch.full((nq, ef), INF, device=dev)
-    cand_d[:, 0] = block_dist(ep[:, None])[:, 0]
+    cand_d[:, 0] = block_dist(
+        ep[:, None], torch.ones((nq, 1), dtype=torch.bool, device=dev))[:, 0]
     cand_id = torch.full((nq, ef), -1, dtype=torch.int64, device=dev)
     cand_id[:, 0] = ep
     expanded = torch.zeros((nq, ef), dtype=torch.bool, device=dev)
@@ -157,7 +164,7 @@ def _beam_search_base(g: HNSWGraph, ep: torch.Tensor, ef: int, width: int,
         nbrs = adj_rows.reshape(nq, length)
         fresh = torch.stack(fresh_rows, 1).reshape(nq, length)
 
-        d = torch.where(fresh, block_dist(nbrs.clamp_min(0)), INF)  # fused
+        d = block_dist(nbrs, fresh)                             # fused
         new_id = torch.where(fresh, nbrs, -1)
 
         merged_d = torch.cat([cand_d, d], 1)
@@ -227,15 +234,17 @@ def search(g: HNSWGraph, queries: torch.Tensor, *, k: int, ef: int,
         ep = torch.full((nq,), g.entry_global, dtype=torch.int64, device=dev)
 
     if metric == "adc":
-        def block_dist(ids):
-            return ops.beam_gather_adc(q_codes, ids, g.codes)
+        def block_dist(ids, fresh):
+            return torch.where(fresh, ops.beam_gather_adc(
+                q_codes, ids.clamp_min(0), g.codes), INF)
     elif metric == "hamming":
-        def block_dist(ids):
-            return ops.beam_gather_hamming(q_codes, ids, g.codes).float()
+        def block_dist(ids, fresh):
+            return ops.beam_gather_hamming_masked(q_codes, ids, fresh,
+                                                  g.codes)
     else:
-        def block_dist(ids):
-            return ops.beam_gather_distances(queries, ids, g.vectors,
-                                             mode=metric)
+        def block_dist(ids, fresh):
+            return torch.where(fresh, ops.beam_gather_distances(
+                queries, ids.clamp_min(0), g.vectors, mode=metric), INF)
 
     d, ids, iters = _beam_search_base(g, ep, ef, width, max_iters, n_words,
                                       block_dist)

@@ -46,9 +46,16 @@ def check_dtypes(kernel: str, **want: Sequence) -> None:
 
 def launch(kernel: str, fn: Callable, device: torch.device, *args) -> None:
     """Call the C entry point on ``device``'s current stream; raise on a
-    non-zero CUDA error code."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
+    non-zero CUDA error code.  ``device`` is made current only when it is
+    not already, and the stream is read as its raw handle: entering the
+    device context and building a ``Stream`` object were most of this
+    helper's host time (PERF.md, scripts/hamming_stage_cycles.py)."""
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")

@@ -16,6 +16,8 @@ from . import ref
 from .beam_gather import beam_gather
 from .beam_gather_adc import beam_gather_adc as _beam_gather_adc
 from .beam_gather_hamming import beam_gather_hamming as _beam_gather_hamming
+from .beam_gather_hamming import \
+    beam_gather_hamming_masked as _beam_gather_hamming_masked
 from .bulk_prune import pair_gather
 from .hamming import hamming
 from .l2 import l2_distance
@@ -73,6 +75,19 @@ def beam_gather_hamming(q: torch.Tensor, ids: torch.Tensor,
         return ref.beam_gather_hamming_ref(q, ids, codes)
     return _beam_gather_hamming(q.contiguous(),
                                 ids.to(torch.int32).contiguous(), codes)
+
+
+def beam_gather_hamming_masked(q: torch.Tensor, ids: torch.Tensor,
+                               fresh: torch.Tensor, codes: torch.Tensor, *,
+                               force_ref: bool = False) -> torch.Tensor:
+    """q (Q, W) int32 words × ids (Q, L) int64 as the beam makes them (PAD =
+    -1 allowed, clamped to [0, N)) × fresh (Q, L) bool × codes (N, W) ->
+    (Q, L) float32 Hamming distances, +inf where ``fresh`` is False: the BQ
+    search step's distances in one launch, with no cast or mask around it.
+    ids and fresh go to the kernel as they are (contiguous, or it raises)."""
+    if _plain(codes, force_ref):
+        return ref.beam_gather_hamming_masked_ref(q, ids, fresh, codes)
+    return _beam_gather_hamming_masked(q.contiguous(), ids, fresh, codes)
 
 
 def pq_adc_distances(lut: torch.Tensor, codes: torch.Tensor, *,

@@ -146,6 +146,17 @@ def beam_gather_hamming_ref(q: torch.Tensor, ids: torch.Tensor,
     return popcount32(rows ^ q[:, None, :]).sum(-1).to(torch.int32)
 
 
+def beam_gather_hamming_masked_ref(q: torch.Tensor, ids: torch.Tensor,
+                                   fresh: torch.Tensor,
+                                   codes: torch.Tensor) -> torch.Tensor:
+    """q (Q, W) × ids (Q, L) × fresh (Q, L) bool × codes (N, W) -> (Q, L)
+    float32: the Hamming distance to codes[clamp(id, 0, N - 1)] where
+    ``fresh`` is set, +inf where it is not (the BQ search step's distances;
+    PAD = -1 allowed)."""
+    d = beam_gather_hamming_ref(q, ids.clamp(0, codes.shape[0] - 1), codes)
+    return torch.where(fresh, d.float(), float("inf"))
+
+
 def pq_adc_ref(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """lut (Q, m, k) × codes (N, m) -> (Q, N) float32 ADC, accumulated one
     sub-space after the other: the (Q, N) sum is the largest intermediate

@@ -223,6 +223,111 @@ def test_beam_gather_hamming(cuda, w, length):
     assert torch.equal(got, want)
 
 
+def _codes_at(words, offset, device):
+    """``words`` on the card, ``offset`` int32 words past a 16-byte
+    boundary (1: the kernels' 4-byte path)."""
+    n, w = words.shape
+    buf = torch.zeros(n * w + offset, dtype=torch.int32, device=device)
+    view = buf[offset:].view(n, w)
+    view.copy_(words)
+    return view
+
+
+@pytest.mark.parametrize("w,length,nq,offset", [
+    (8, 128, 17, 0), (8, 1, 17, 0), (4, 37, 17, 0), (3, 20, 17, 0),
+    (16, 256, 17, 0),
+    (8, 1, 1024, 0),           # the search's entry-point call
+    (8, 128, 1024, 0),         # a search step (width 4 x M0 32)
+    (8, 128, 17, 1), (4, 37, 17, 1), (16, 256, 17, 1),   # unaligned codes
+])
+def test_beam_gather_hamming_entries(cuda, w, length, nq, offset):
+    """B4's two entries against their plain versions, one launch a call.
+    The fused entry gets the beam's int64 ids with PAD (-1) and ids >= N on
+    fresh slots (both clamp), an all-stale query and an all-fresh one."""
+    rng = np.random.RandomState(w * length + nq + offset)
+    n = 400
+    q = _words(rng, nq, w).to(cuda)
+    codes = _codes_at(_words(rng, n, w), offset, cuda)
+    assert (codes.data_ptr() % 16 == 0) == (offset == 0)
+    ids = torch.as_tensor(_inputs(3, nq, n, 4, length)[2], device=cuda)
+    got = _same_counts(bgh_mod,
+                       lambda: ops.beam_gather_hamming(q, ids, codes))
+    assert torch.equal(got, ops.beam_gather_hamming(q, ids, codes,
+                                                    force_ref=True))
+
+    ids64 = ids.long()
+    ids64[:, ::4] = -1
+    ids64[:, 1::5] = n + 7
+    fresh = torch.as_tensor(rng.rand(nq, length) < 0.6, device=cuda)
+    fresh[:, ::4] = False
+    fresh[0] = False
+    fresh[-1] = True                 # PAD on a fresh slot reads row 0
+    before = (bgh_mod.launches, bgh_mod.masked_launches)
+    got = ops.beam_gather_hamming_masked(q, ids64, fresh, codes)
+    assert (bgh_mod.launches, bgh_mod.masked_launches) == \
+        (before[0], before[1] + 1)
+    want = ops.beam_gather_hamming_masked(q, ids64, fresh, codes,
+                                          force_ref=True)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert torch.equal(torch.isinf(got), ~fresh)
+    if nq > 1:
+        assert torch.isinf(got[0]).all()
+
+
+def test_beam_gather_hamming_masked_refuses_bad_inputs(cuda):
+    q = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
+    codes = torch.zeros((10, 8), dtype=torch.int32, device=cuda)
+    ids = torch.zeros((4, 6), dtype=torch.int64, device=cuda)
+    fresh = torch.ones((4, 6), dtype=torch.bool, device=cuda)
+    fn = bgh_mod.beam_gather_hamming_masked
+    for args, match in (((q, ids.int(), fresh, codes), "ids must be"),
+                        ((q, ids, fresh.to(torch.uint8), codes), "fresh must"),
+                        ((q, ids, fresh[:, :5].contiguous(), codes),
+                         "fresh .* is not ids' shape"),
+                        ((q, ids.t().contiguous().t(), fresh, codes),
+                         "contiguous"),
+                        ((q, ids, fresh, codes[:, :4].contiguous()),
+                         "shapes"),
+                        ((q, ids, fresh, codes.cpu()), "CUDA tensor")):
+        with pytest.raises(ValueError, match=match):
+            fn(*args)
+
+
+def test_bq_search_one_fused_launch_per_step(cuda):
+    """A BQ search on the card launches B4's fused entry once for the
+    entry points and once a layer-0 step, and nothing of the TPU-function
+    entry; it returns the CPU search's ids, distances and iteration counts
+    (Hamming is exact)."""
+    from repro_torch.core import BQConfig
+    from repro_torch.core import bq as bq_mod
+    from repro_torch.core.hnsw_search import search
+    x = gaussian_mixture(3000, 32, n_clusters=15, scale=0.3, seed=1)
+    q = gaussian_mixture(64, 32, n_clusters=15, scale=0.3, seed=2)
+    cfg = EngineConfig(dim=32, metric="cosine", builder="bulk",
+                       quantization="bq", bq=BQConfig(bits=64),
+                       hnsw=HNSWConfig(seed=0))
+    cpu = QuantixarEngine(cfg, device="cpu")
+    cpu.add(x)
+    cpu.build()
+    card = QuantixarEngine.from_state_dict(cfg, cpu.state_dict(),
+                                           device="cuda")
+    out = []
+    for eng, dev in ((cpu, "cpu"), (card, cuda)):
+        g, ml, _ = eng._device_graph
+        qc = eng._bq.encode(torch.as_tensor(q, device=dev))
+        before = (bgh_mod.launches, bgh_mod.masked_launches)
+        d, i, it = search(g, bq_mod.signs(qc, 64), k=10, ef=64, max_level=ml,
+                          metric="hamming", expansion_width=4, q_codes=qc,
+                          with_iters=True)
+        out.append((d.cpu(), i.cpu(), it.cpu(), bgh_mod.launches - before[0],
+                    bgh_mod.masked_launches - before[1]))
+    (cd, ci, cit, c_tpu, c_masked), (gd, gi, git, g_tpu, g_masked) = out
+    assert (c_tpu, c_masked) == (0, 0)          # the CPU launches nothing
+    assert g_tpu == 0 and g_masked == 1 + int(git.max())
+    assert torch.equal(gi, ci) and torch.equal(git, cit)
+    assert torch.equal(gd, cd)
+
+
 # Both B6 paths add the same floats in the same order (acc = 0, then
 # i = 0..m-1) as the plain version: the outputs are equal bit for bit.
 # path: the one the kernel takes ("query_lanes": Q >= 32, uint8 codes,
@@ -325,8 +430,10 @@ def test_quantized_engine_on_card_matches_cpu(cuda, quant):
     cpu.add(x[2900:])
     card = QuantixarEngine.from_state_dict(cfg, cpu.state_dict(),
                                            device="cuda")
-    mods = (bga_mod, adc_mod) if quant == "pq" else (bgh_mod, hm_mod)
-    before = [m.launches for m in mods]
+    # (module, counter): BQ's search steps run B4's fused (masked) entry
+    mods = ((bga_mod, "launches"), (adc_mod, "launches")) if quant == "pq" \
+        else ((bgh_mod, "masked_launches"), (hm_mod, "launches"))
+    before = [getattr(m, c) for m, c in mods]
     mask = np.random.RandomState(0).rand(3000) < 0.05
     for queries, kw in ((q, {}), (x[2900:2950], {}), (q, {"mask": mask})):
         (gd, gi), (wd, wi) = (card.search(queries, 10, **kw),
@@ -341,7 +448,7 @@ def test_quantized_engine_on_card_matches_cpu(cuda, quant):
         np.testing.assert_allclose((qu * unit[gi[r, j]]).sum(1),
                                    (qu * unit[wi[r, j]]).sum(1),
                                    rtol=0, atol=1e-5)
-    assert all(m.launches > b for m, b in zip(mods, before))
+    assert all(getattr(m, c) > b for (m, c), b in zip(mods, before))
 
 
 def _l2_tol(want, q, x):

@@ -313,6 +313,47 @@ class TestPlainVersions:
                 got[i], np.asarray(beam_gather_hamming_kernel(
                     *args, tb=16, interpret=True)))
 
+    @pytest.mark.parametrize("n,w,length", [(150, 8, 40), (64, 4, 7),
+                                            (20, 1, 20), (200, 8, 1)])
+    def test_beam_gather_hamming_masked(self, n, w, length):
+        """The BQ search step's fused entry: the Hamming distance to the
+        clamped id's row where the slot is fresh, +inf where it is not,
+        against the JAX kernel (interpret mode) and ``repro``'s plain
+        version under the JAX search's own cast and mask.  Ids hold PAD,
+        repeats and the all-ones row; query 0 is all fresh, query 1 all
+        stale.  Exact, inf slots included."""
+        rng = np.random.RandomState(n * w + length)
+        nq = 5
+        xw, xv = _words(rng, n, w)
+        qw, qv = _words(rng, nq, w)
+        ids = rng.randint(0, n, (nq, length)).astype(np.int64)
+        ids[:, ::2] = 0                          # the all-ones row
+        ids[:, 1::3] = ids[:, 1:2]               # repeats
+        ids[2:, ::4] = -1                        # PAD
+        fresh = rng.rand(nq, length) < 0.6
+        fresh[0], fresh[1] = True, False
+        fresh[2:, ::4] = False                   # PAD is never fresh
+        got = ref.beam_gather_hamming_masked_ref(
+            _t(qv), _t(ids), _t(fresh), _t(xv)).numpy()
+        assert got.dtype == np.float32
+        safe = np.clip(ids, 0, n - 1).astype(np.int32)
+        for i in range(nq):
+            args = (jnp.asarray(qw[i]), jnp.asarray(safe[i]),
+                    jnp.asarray(xw))
+            for dist in (jref.beam_gather_hamming_ref(*args),
+                         beam_gather_hamming_kernel(*args, tb=16,
+                                                    interpret=True)):
+                want = jnp.where(jnp.asarray(fresh[i]),
+                                 dist.astype(jnp.float32), jnp.inf)
+                np.testing.assert_array_equal(got[i], np.asarray(want))
+        assert np.isinf(got[1]).all() and np.isfinite(got[0]).all()
+        # on CPU tensors ops takes this plain version and launches nothing
+        before = (bgh_mod.launches, bgh_mod.masked_launches)
+        via_ops = ops.beam_gather_hamming_masked(_t(qv), _t(ids), _t(fresh),
+                                                 _t(xv))
+        assert torch.equal(via_ops, torch.as_tensor(got))
+        assert (bgh_mod.launches, bgh_mod.masked_launches) == before
+
     @pytest.mark.parametrize("q,n,m,k", [(5, 700, 8, 64), (2, 100, 16, 256),
                                          (9, 333, 6, 16), (1, 64, 32, 256),
                                          (33, 700, 16, 256)])
@@ -374,6 +415,8 @@ class TestPlainVersions:
         for call in (lambda: bga_mod.beam_gather_adc(lut, ids, codes),
                      lambda: bgh_mod.beam_gather_hamming(words[:1], ids,
                                                          words),
+                     lambda: bgh_mod.beam_gather_hamming_masked(
+                         words[:1], ids.long(), ids.bool(), words),
                      lambda: adc_mod.pq_adc(lut, codes),
                      lambda: hm_mod.hamming(words, words)):
             with pytest.raises(ValueError, match="CUDA tensor"):
@@ -429,6 +472,47 @@ class TestCodeDomainSearch:
             np.testing.assert_array_equal(d.numpy(), np.asarray(jd))
         else:
             np.testing.assert_allclose(d.numpy(), np.asarray(jd), **ADC_TOL)
+
+    @pytest.mark.parametrize("quant_graph", ["bq"], indirect=True)
+    def test_hamming_steps_pass_pad_and_stale_slots(self, quant_graph, data,
+                                                    monkeypatch):
+        """Every layer-0 step of the Hamming search goes through the fused
+        entry with the beam's own int64 ids and mask: the entry point's
+        call is (Q, 1) and all fresh, and the steps hand it PAD ids and
+        stale slots, which come back +inf.  The search still returns the
+        JAX search's ids, distances and iteration counts."""
+        quant, jeng, (g, ml, _) = quant_graph
+        _, q = data
+        calls = []
+
+        def spy(qc, ids, fresh, codes, **kw):
+            out = ops_masked(qc, ids, fresh, codes, **kw)
+            calls.append((ids.clone(), fresh.clone(), out))
+            return out
+
+        ops_masked = ops.beam_gather_hamming_masked
+        monkeypatch.setattr(ops, "beam_gather_hamming_masked", spy)
+        jg, _, _ = jeng._device_graph
+        jqc = jeng._bq.encode(jnp.asarray(q))
+        proxy = np.asarray(jbq.unpack_bits(jqc, 64), np.float32) * 2 - 1
+        kw = dict(k=10, ef=32, max_level=ml, metric="hamming",
+                  expansion_width=4, with_iters=True)
+        jd, ji, jit = j_search(jg, jnp.asarray(proxy), q_codes=jqc, **kw)
+        d, i, it = search(g, _t(proxy), q_codes=_t(pbq.from_uint32(
+            np.asarray(jqc))), **kw)
+        np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+        np.testing.assert_array_equal(it.numpy(), np.asarray(jit))
+        np.testing.assert_array_equal(d.numpy(), np.asarray(jd))
+        ids0, fresh0, _ = calls[0]
+        assert ids0.shape == (len(q), 1) and bool(fresh0.all())
+        assert len(calls) == 1 + int(it.max())     # one call a step
+        steps = calls[1:]
+        assert all(c[0].dtype == torch.int64 and c[1].dtype == torch.bool
+                   for c in steps)
+        assert any(bool((c[0] == -1).any()) for c in steps)
+        assert any(bool((~c[1] & (c[0] >= 0)).any()) for c in steps)
+        for ids, fresh, out in steps:
+            assert torch.equal(torch.isinf(out), ~fresh)
 
     def test_needs_codes(self, quant_graph, data):
         _, _, (g, ml, _) = quant_graph
