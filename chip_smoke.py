@@ -10,9 +10,10 @@ B4's stage split among them.)
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 against its plain PyTorch version on the card at the main paths' shapes, and
-then drives four collections end to end through
-``repro_torch.core.QuantixarEngine``, two through the public API and the
-xLSTM language model through ``repro_torch.models``:
+then drives five collections end to end through
+``repro_torch.core.QuantixarEngine``, three through the public API (one of
+them sharded, behind the HTTP server) and the xLSTM language model through
+``repro_torch.models``:
 
   phase A  cosine, HNSW, no quantization, bulk builder, over a SIFT-like
            corpus at SIFT's published size (1M x 128): build, 10,000 queries
@@ -47,7 +48,27 @@ xLSTM language model through ``repro_torch.models``:
            ``make_serve_step`` and then 32 generated tokens each (ms per
            step), and in fp32 ``forward`` on the ``slstm`` kernel against
            ``forward(force_ref=True)`` and teacher-forced ``decode_step``
-           against ``forward``.
+           against ``forward``;
+  phase G  phase A's corpus, queries, ground truth and delta rows in an IVF
+           engine (cosine, nlist 1,024, nprobe 32, the other IVF knobs at
+           their defaults): k-means and list build, 10,000 queries in
+           batches of 1,024 at k=10 held to recall@10, delta rows, masked
+           searches at ~50 % (the probed lists) and ~5 % (the flat route),
+           and ``state_dict`` / ``from_state_dict`` on the card; the coarse
+           probe runs B5's fused entry, the probed lists B1, and each is
+           held to its plain version and timed on the phase's own inputs
+           (the probes' queries and centroids, the lists' candidates);
+  phase H  phase E's exact collection schema at ``shards=4, replicas=2``
+           over phase A's corpus by string id (eight engines on the card),
+           held hit for hit to a single-engine collection over the same
+           rows, embedded and through ``QuantixarService`` + the HTTP server
+           on 127.0.0.1 + ``QuantixarClient``; 2,048 single-vector queries
+           over HTTP from 32 threads of a client process of its own
+           (``scripts/http_load.py``: p50 / p99, mean coalesced batch,
+           each answer held to the batch's hits and to exact recall), a
+           replica failover, and save / load of the sharded database; B5
+           is held to its plain version on one shard's scans at Q = 1,024
+           and 32.
 
 Every phase must pass and every kernel of its path must have launched, or
 the script exits non-zero.  The exact scans of phases A-E (delta segment,
@@ -66,6 +87,7 @@ repository's ``src/`` beside it, and fails without either.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -148,7 +170,9 @@ PHASE_KERNELS = {
     "D": ("beam_gather", "pair_gather", "beam_gather_hamming_masked",
           "hamming", "l2_topk"),
     "E": ("beam_gather", "pair_gather", "l2_topk", "l2_distance"),
-    "F": ("slstm",)}
+    "F": ("slstm",),
+    "G": ("beam_gather", "l2_topk"),
+    "H": ("l2_topk",)}
 # kernels whose source file is named otherwise: B5's two entries share one,
 # and B4's
 SOURCES = {"l2_topk": "l2_distance",
@@ -178,6 +202,25 @@ SLSTM_ATOL = {"float32": 1e-4, "bfloat16": 7.9e-3}
 # the fp32 end-to-end checks: kernel vs plain forward, decode vs forward
 LOGIT_REL_TOL = 1e-3
 ARGMAX_AGREEMENT = 0.99
+# phase G: IVF at SIFT1M's usual setting, nlist ~ sqrt(N) (ann-benchmarks'
+# faiss-ivf grid over SIFT-128 holds nlist 1,024 and nprobe in the tens);
+# the schema's default nlist 64 would scan 187,504 candidates a query
+IVF_NLIST, IVF_NPROBE = 1024, 32
+# recall@10 floor at nprobe 32, a margin under the H100 reading (0.82399,
+# PERF.md)
+IVF_RECALL_FLOOR = 0.80
+# B1 at IVF's shape: its plain version would gather (Q, C, D) rows (24.6 GB
+# at Q = 1,024), so it is held on this many of the batch's queries
+IVF_PLAIN_Q = 64
+# phase H: the sharded layout: 4 shards, the corpus split of the
+# reference's distributed search tests (a data axis of 4,
+# tests/test_distributed.py) and its sharded checkpoints
+# (tests/test_checkpoint.py), each shard mirrored twice for failover
+SHARDS, REPLICAS = 4, 2
+# the batcher's largest bucket: B5 is held on a shard's scan at this Q too
+SHARD_SMALL_Q = 32
+# a phase's kernel rows, which its summary leaves to the kernels line
+ROW_KEYS = ("b1_row", "probe_row", "shard_rows")
 
 
 class SmokeFailure(Exception):
@@ -715,6 +758,75 @@ def topk_vs_plain(torch, q, x, mode, k, got_d, got_i):
     return float(err.max())
 
 
+def fused_topk_row(torch, q, x, mode, k, got_d, got_i, sets, **extra):
+    """B5's fused entry's row: ``got`` (its output on ``q``, ``x``) held to
+    its plain version (`topk_vs_plain`), its device time over ``sets``
+    ((q, x) input sets), and its bound held to 3xTF32 with the fp32 bound
+    beside it.  library_ms is null: no one PyTorch call computes distances
+    and their top-k."""
+    from repro_torch.kernels.l2 import l2_topk
+
+    nq, n, d = q.shape[0], x.shape[0], q.shape[1]
+    err = topk_vs_plain(torch, q, x, mode, k, got_d, got_i)
+    # inputs read once, the (Q, k) distances and ids written once
+    nbytes = (nq + n) * d * 4 + nq * k * 12
+    mm, other = 2 * nq * n * d, (2 * (nq + n) * d + 3 * nq * n
+                                 if mode == "l2" else nq * n)
+    b3, bf = bound_3xtf32(nbytes, mm, other), bound(nbytes, mm + other)
+    t = timing(torch, [lambda q=q, x=x: l2_topk(q, x, k, mode=mode)
+                       for q, x in sets])
+    return {"name": "l2_topk", "mode": mode, "Q": nq, "N": n, "D": d,
+            "k": k, "max_abs_err": err, **t, "bound_ms": b3[0],
+            "bound_by": b3[1], "bound_fp32_ms": bf[0],
+            "bound_held_to": "3xtf32", "share": b3[0] / t["ms"],
+            "library_ms": None, **extra}
+
+
+def captured_topk_row(torch, calls, log, **extra):
+    """B5's fused entry where a phase ran it: ``calls`` holds the (queries,
+    corpus, k, mode) of its launches there (`capture_topk`), the first of
+    them the one it is held to and all of them its input sets.  The entry
+    runs again on the first call's inputs, and its row (`fused_topk_row`,
+    the plain version timed by `plain_timing`) is logged and returned."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.l2 import l2_topk
+
+    q, x, k, mode = calls[0]
+    check(all(c[1].shape == x.shape and c[2:] == (k, mode) for c in calls),
+          f"l2_topk captures of {extra}: the calls differ in shape")
+    got_d, got_i = l2_topk(q, x, k, mode=mode)
+    r = fused_topk_row(torch, q, x, mode, k, got_d, got_i,
+                       [(a, b) for a, b, _, _ in calls], **extra)
+    r.update(plain_timing(torch, [lambda: ref.l2_topk_ref(q, x, k, mode)],
+                          reps=5, warmup=1))
+    log(r)
+    return r
+
+
+@contextlib.contextmanager
+def capture_topk(sizes):
+    """Within the block, keeps the inputs of every unmasked call to
+    ``ops.l2_topk`` (the dispatch the exact scans call) whose query count
+    is in ``sizes``: yields ``calls``, where ``calls[Q]`` lists (queries,
+    corpus, k, mode).  The calls go on to the kernel as before and count as
+    launches; callers on other threads are kept too."""
+    from repro_torch.kernels import ops
+
+    calls = {nq: [] for nq in sizes}
+    orig = ops.l2_topk
+
+    def keep(q, x, k, *, mode, mask=None, **kw):
+        if mask is None and q.shape[0] in calls:
+            calls[q.shape[0]].append((q, x, k, mode))
+        return orig(q, x, k, mode=mode, mask=mask, **kw)
+
+    ops.l2_topk = keep
+    try:
+        yield calls
+    finally:
+        ops.l2_topk = orig
+
+
 def l2_kernel_checks(torch, sift_cos, sift_raw, fm, signs, log):
     """B5's two entries against their plain versions.
 
@@ -755,20 +867,8 @@ def l2_kernel_checks(torch, sift_cos, sift_raw, fm, signs, log):
         return lambda: ref.l2_topk_ref(q, x, K, mode)
 
     def topk_row(q, x, mode, got_d, got_i, sets, **extra):
-        nq, n, d = q.shape[0], x.shape[0], q.shape[1]
-        err = topk_vs_plain(torch, q, x, mode, K, got_d, got_i)
-        # inputs read once, the (Q, k) distances and ids written once
-        nbytes = (nq + n) * d * 4 + nq * K * 12
-        mm, other = 2 * nq * n * d, (2 * (nq + n) * d + 3 * nq * n
-                                     if mode == "l2" else nq * n)
-        b3, bf = bound_3xtf32(nbytes, mm, other), bound(nbytes, mm + other)
-        t = timing(torch, [lambda q=q, x=x: l2_topk(q, x, K, mode=mode)
-                           for q, x in sets])
-        rows.append({"name": "l2_topk", "mode": mode, "Q": nq, "N": n,
-                     "D": d, "k": K, "max_abs_err": err, **t,
-                     "bound_ms": b3[0], "bound_by": b3[1],
-                     "bound_fp32_ms": bf[0], "bound_held_to": "3xtf32",
-                     "share": b3[0] / t["ms"], "library_ms": None, **extra})
+        rows.append(fused_topk_row(torch, q, x, mode, K, got_d, got_i, sets,
+                                   **extra))
         return rows[-1]
 
     # (matrix mode, the fused entry's mode, corpus, Q, N): cosine is the
@@ -1224,31 +1324,11 @@ def query_batches(col, queries, **knobs):
 
 
 def single_queries(col, queries):
-    """Each query alone from SINGLE_THREADS threads (the batcher path);
-    returns (rows, per-query seconds, errors)."""
-    import numpy as np
-    rows = np.full((len(queries), K), -1, dtype=np.int64)
-    lat = [0.0] * len(queries)
-    errors = []
-
-    def worker(tid):
-        for i in range(tid, len(queries), SINGLE_THREADS):
-            t0 = time.perf_counter()
-            try:
-                hits = col.query(queries[i]).top_k(K).run()
-            except Exception as e:          # a failed batch fails the run
-                errors.append(repr(e))
-                continue
-            lat[i] = time.perf_counter() - t0
-            rows[i] = hit_rows([hits])[0]
-
-    threads = [threading.Thread(target=worker, args=(t,))
-               for t in range(SINGLE_THREADS)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    return rows, lat, errors
+    """Each query alone from SINGLE_THREADS threads (the batcher path,
+    `http_load.singles`); returns (rows, per-query seconds, errors)."""
+    import http_load
+    hits, lat, errors = http_load.singles(col, queries, K, SINGLE_THREADS)
+    return hit_rows(hits), lat, errors
 
 
 def run_api(torch, corpus, queries, gt, new_rows, phase_a, counters, log):
@@ -1440,6 +1520,440 @@ def run_api(torch, corpus, queries, gt, new_rows, phase_a, counters, log):
         check(res["launches"][kname] > 0,
               f"E: kernel {kname} never launched")
     log({"phase_result": res})
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase G: IVF on the card
+# ---------------------------------------------------------------------------
+
+def ivf_b1_row(torch, eng, queries, log):
+    """B1 where phase G runs it: the candidate distances over the probed
+    lists.  SETS batches of QUERY_BATCH queries run with B1's inputs kept
+    (queries, the (Q, nprobe * max_list) candidate ids with PAD, the prepped
+    corpus); the kernel is held to its plain version on the first
+    IVF_PLAIN_Q queries of the first batch (PAD slots read row 0 in both,
+    as JAX's gather clamps them), and timed at the full shape over the
+    batches as input sets.  Its bound is the larger of the bytes (the
+    unique rows a batch touches, its ids and queries read once, its output
+    written once) and the operations (3 a gathered element), which at this
+    shape are within 2 % of each other."""
+    from repro_torch.kernels import beam_gather as bg
+    from repro_torch.kernels import ops, ref
+
+    orig = ops.beam_gather_distances
+    calls = []
+
+    def keep(q, ids, corpus, **kw):
+        calls.append((q, ids, corpus))
+        return orig(q, ids, corpus, **kw)
+
+    ops.beam_gather_distances = keep
+    try:
+        for lo in range(0, SETS * QUERY_BATCH, QUERY_BATCH):
+            eng.search(queries[lo: lo + QUERY_BATCH], K)
+    finally:
+        ops.beam_gather_distances = orig
+    torch.cuda.synchronize()
+    check(len(calls) == SETS,
+          f"G: {len(calls)} beam_gather calls for {SETS} batches")
+    sets = [(q.float().contiguous(), ids.to(torch.int32).contiguous())
+            for q, ids, _ in calls]
+    corpus = calls[0][2]
+    q, ids = sets[0]
+    nq, length = ids.shape
+    d = corpus.shape[1]
+    sub_q, sub_ids = q[:IVF_PLAIN_Q].contiguous(), ids[:IVF_PLAIN_Q].contiguous()
+    got = bg.beam_gather(sub_q, sub_ids, corpus, mode="l2")
+    want = ref.beam_gather_l2_ref(sub_q, sub_ids.clamp_min(0), corpus)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    norms = corpus.norm(dim=1)[sub_ids.clamp_min(0).long()]
+    tol = RTOL * want.abs() + ATOL_PER_NORM * sub_q.norm(dim=1)[:, None] * norms
+    check(bool((err <= tol).all()),
+          f"G: beam_gather at IVF's shape: max err {float(err.max())}")
+    pad_share = float((ids < 0).float().mean())
+    uniq = sum(int(torch.unique(i.clamp_min(0)).numel()) for _, i in sets) \
+        / len(sets)
+    nbytes = uniq * d * 4 + nq * d * 4 + nq * length * 4 + nq * length * 4
+    b_ms, b_by = bound(nbytes, nq * length * d * 3)
+    r = {"name": "beam_gather", "inputs": "G search batches", "mode": "l2",
+         "Q": nq, "L": length, "D": d, "N": corpus.shape[0],
+         "pad_share": pad_share, "unique_rows": uniq,
+         "max_abs_err": float(err.max()), "checked_Q": IVF_PLAIN_Q,
+         **timing(torch, [lambda q=q, ids=ids: bg.beam_gather(
+             q, ids, corpus, mode="l2") for q, ids in sets], graph=False),
+         **timing(torch, [lambda q=q, ids=ids: bg.beam_gather(
+             q[:IVF_PLAIN_Q].contiguous(), ids[:IVF_PLAIN_Q].contiguous(),
+             corpus, mode="l2") for q, ids in sets], prefix="q64_"),
+         # the plain version gathers (64, C, D) rows, 1.5 GB, and keeps
+         # two temporaries as large: timed per call, never in a graph
+         "plain_ms": time_ms(torch, lambda: ref.beam_gather_l2_ref(
+             sub_q, sub_ids.clamp_min(0), corpus), reps=5, warmup=1),
+         "plain_timer": "call", "plain_Q": IVF_PLAIN_Q,
+         "bound_ms": b_ms, "bound_us": b_ms * 1e3, "bound_by": b_by,
+         "library_ms": None,
+         "row_bytes_read": nq * length * d * 4}
+    r["share"] = b_ms / r["ms"]
+    log(r)
+    del calls, sets, got, want, err, norms, tol
+    torch.cuda.empty_cache()
+    return r
+
+
+def run_ivf(torch, corpus, queries, gt, new_rows, counters, log):
+    """Phase G: an IVF engine over phase A's data on the card."""
+    import numpy as np
+
+    from repro_torch.core import (EngineConfig, IVFConfig, QuantixarEngine,
+                                  recall_at_k)
+
+    res = {"phase": "G", "n": int(len(corpus)), "dim": int(corpus.shape[1]),
+           "metric": "cosine", "index": "ivf", "nlist": IVF_NLIST,
+           "nprobe": IVF_NPROBE}
+    cfg = EngineConfig(dim=corpus.shape[1], metric="cosine", index="ivf",
+                       ivf=IVFConfig(nlist=IVF_NLIST, nprobe=IVF_NPROBE))
+    eng = QuantixarEngine(cfg)
+    eng.add(corpus)
+    marks = []
+
+    def progress(phase, done, total):
+        if done == total:
+            torch.cuda.synchronize()
+            marks.append((phase, time.perf_counter()))
+
+    counters.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng.build(progress=progress)
+    torch.cuda.synchronize()
+    res["build_s"] = time.perf_counter() - t0
+    res["build_peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    prev, phases = t0, {}
+    for phase, t in marks:
+        phases[phase] = t - prev
+        prev = t
+    res["build_phase_s"] = phases
+    st = eng.stats()
+    for key in ("ivf_lists", "ivf_mean_list", "ivf_max_list"):
+        res[key] = st[key]
+    res["max_list"] = int(eng._ivf.lists.shape[1])
+    res["candidates_per_query"] = IVF_NPROBE * res["max_list"]
+    res["full_lists"] = int((eng._ivf.list_sizes == res["max_list"]).sum())
+    check(int(eng._ivf.list_sizes.sum()) == len(corpus),
+          "G: the lists do not hold every row")
+    log({"build": res})
+
+    before = counters.read()
+    out = []
+    t0 = time.perf_counter()
+    for lo in range(0, len(queries), QUERY_BATCH):
+        out.append(eng.search(queries[lo: lo + QUERY_BATCH], K)[1])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    ids = np.concatenate(out)
+    check(ids.shape == (len(queries), K) and (ids >= 0).all(),
+          "G: search returned unfilled slots")
+    res["qps"] = len(queries) / secs
+    res["recall_at_10"] = recall_at_k(ids, gt)
+    res["search_launches"] = {k: v - before[k]
+                              for k, v in counters.read().items()}
+    log({"search": {"phase": "G", "qps": res["qps"],
+                    "recall_at_10": res["recall_at_10"]}})
+    check(res["recall_at_10"] >= IVF_RECALL_FLOOR,
+          f"G: recall@10 {res['recall_at_10']} under {IVF_RECALL_FLOOR}")
+
+    # persistence: the state loads on the card and answers the same
+    probe = queries[:QUERY_BATCH]
+    want = eng.search(probe, K)
+    t0 = time.perf_counter()
+    eng2 = QuantixarEngine.from_state_dict(cfg, eng.state_dict())
+    res["state_round_trip_s"] = time.perf_counter() - t0
+    got = eng2.search(probe, K)
+    check(np.array_equal(got[1], want[1]) and np.array_equal(got[0], want[0]),
+          "G: a state_dict round trip changed the hits")
+    del eng2
+
+    # delta rows: visible at once, each its own nearest neighbour
+    n0 = len(corpus)
+    eng.add(new_rows)
+    check(eng.delta_rows == len(new_rows) and eng.seals == 0,
+          "G: new rows did not stay in the delta segment")
+    hits = np.concatenate([eng.search(new_rows[lo: lo + QUERY_BATCH], K)[1]
+                           for lo in range(0, len(new_rows), QUERY_BATCH)])
+    res["delta_self_rank1"] = float(
+        (hits[:, 0] == n0 + np.arange(len(new_rows))).mean())
+    check(res["delta_self_rank1"] == 1.0,
+          f"G: delta self-hit rate {res['delta_self_rank1']}")
+
+    # masked searches: ~50 % (the probed lists) and ~5 % (the flat route)
+    rng = np.random.RandomState(7)
+    for sel in (0.5, 0.05):
+        mask = rng.random_sample(len(eng)) < sel
+        d, ids = eng.search(probe, K, mask=mask)
+        ok = ids >= 0
+        check(bool(ok.all()), f"G: masked search ({sel}) unfilled")
+        check(bool(mask[ids[ok]].all()),
+              f"G: masked search ({sel}) returned a masked-out row")
+        mask_gt = exact_topk(torch, eng.vectors, probe, "cosine", K,
+                             mask=mask)
+        res[f"mask_{sel}_recall_at_10"] = recall_at_k(ids, mask_gt)
+    check(res["mask_0.05_recall_at_10"] >= 0.999,
+          f"G: exact flat route recall {res['mask_0.05_recall_at_10']}")
+    res["launches"] = counters.read()
+    for kname in PHASE_KERNELS["G"]:
+        check(res["launches"][kname] > 0,
+              f"G: kernel {kname} never launched")
+    # after the launch count: these launches are measurements.  B5 where
+    # the coarse probe runs it: Q = 1,024 prepped queries against the
+    # (nlist, D) centroids at k = nprobe, past the fused entry's fast k
+    with capture_topk([QUERY_BATCH]) as calls:
+        for lo in range(0, SETS * QUERY_BATCH, QUERY_BATCH):
+            eng.search(queries[lo: lo + QUERY_BATCH], K)
+    probes = [c for c in calls[QUERY_BATCH] if c[1].shape[0] == IVF_NLIST]
+    check(len(probes) == SETS and all(c[2:] == (IVF_NPROBE, "l2")
+                                      for c in probes),
+          f"G: {len(probes)} coarse probes on l2_topk for {SETS} batches")
+    res["probe_row"] = captured_topk_row(torch, probes, log,
+                                         inputs="G coarse probe")
+    res["b1_row"] = ivf_b1_row(torch, eng, queries, log)
+    log({"phase_result": {k: v for k, v in res.items()
+                          if k not in ROW_KEYS}})
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase H: the sharded collection and the service plane on the card
+# ---------------------------------------------------------------------------
+
+def same_hits(got, want, tag):
+    """Batches of hit lists equal: ids in order and payloads, scores within
+    B5's tolerance, ids of a near-tie (scores within it) allowed to swap.
+    Returns the largest score difference."""
+    worst = 0.0
+    check(len(got) == len(want), f"{tag}: {len(got)} rows, {len(want)} wanted")
+    for g, w in zip(got, want):
+        check(len(g) == len(w), f"{tag}: a row of {len(g)} hits, {len(w)} "
+                                "wanted")
+        ws = [h.score for h in w]
+        for a, b in zip(g, w):
+            diff = abs(a.score - b.score)
+            worst = max(worst, diff)
+            # unit rows: B5's tolerance, rtol + 1e-5 * |q| |x|
+            check(diff <= RTOL * abs(b.score) + ATOL_PER_NORM,
+                  f"{tag}: score {a.score} vs {b.score}")
+            if a.id != b.id:
+                tied = {h.id for h, s in zip(w, ws)
+                        if abs(s - b.score)
+                        <= RTOL * abs(b.score) + ATOL_PER_NORM}
+                check(a.id in tied, f"{tag}: id {a.id} vs {b.id}")
+            else:
+                check(a.payload == b.payload, f"{tag}: payload of {a.id}")
+    return worst
+
+
+def http_singles(url, collection, queries):
+    """Each query alone over HTTP from SINGLE_THREADS threads of a client
+    process of its own (scripts/http_load.py), so that the latencies are
+    not paced by this process's interpreter, which the server runs in;
+    returns (hit lists, per-query seconds, wall seconds)."""
+    import types
+
+    import numpy as np
+
+    tmp = tempfile.mkdtemp(prefix="quantixar-load-")
+    try:
+        qpath, out = os.path.join(tmp, "q.npy"), os.path.join(tmp, "o.json")
+        np.save(qpath, np.asarray(queries, dtype=np.float32))
+        path = os.environ.get("PYTHONPATH")
+        env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")
+               + (os.pathsep + path if path else "")}
+        proc = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "scripts", "http_load.py"),
+             "--url", url, "--collection", collection, "--queries", qpath,
+             "--k", str(K), "--threads", str(SINGLE_THREADS), "--out", out],
+            env=env, capture_output=True, text=True, timeout=600)
+        check(os.path.exists(out), "H: the HTTP load client wrote nothing: "
+                                   f"{proc.stderr[-2000:]}")
+        with open(out) as f:
+            load = json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not load["errors"] and proc.returncode == 0,
+          f"H: HTTP single queries failed: {load['errors'][:3]} "
+          f"{proc.stderr[-2000:]}")
+    hits = [[types.SimpleNamespace(id=i, score=s, payload=p)
+             for i, s, p in row] for row in load["hits"]]
+    return hits, load["lat_s"], load["seconds"]
+
+
+def run_cluster(torch, corpus, queries, gt, counters, log):
+    """Phase H: a sharded, replicated exact collection on the card against
+    a single-engine one, embedded and over HTTP, then failover and
+    save / load."""
+    import numpy as np
+
+    from repro_torch.api import (BoolField, Database, KeywordField,
+                                 NumericField, QuantixarClient,
+                                 ShardedCollection, ShardUnavailable,
+                                 TextField, VectorField)
+    from repro_torch.core import recall_at_k
+    from repro_torch.serving.http import QuantixarHTTPServer
+    from repro_torch.serving.service import QuantixarService
+
+    n = len(corpus)
+    ids = [str(i) for i in range(n)]
+    # no cut: the full 1M rows at 4 x 2 finish well inside the time limit
+    res = {"phase": "H", "n": n, "dim": int(corpus.shape[1]),
+           "shards": SHARDS, "replicas": REPLICAS, "cuts": []}
+    payloads, _ = exact_payloads(n, seed=3)
+    fields = (KeywordField("category"), NumericField("price"),
+              BoolField("in_stock"), TextField("title"))
+    vector = VectorField(dim=128, metric="cosine", index="flat")
+    counters.reset()
+    db = Database()                                   # the card
+    sharded = db.create_collection(name="sharded", vector=vector,
+                                   fields=fields, shards=SHARDS,
+                                   replicas=REPLICAS)
+    single = db.create_collection(name="single", vector=vector,
+                                  fields=fields)
+    check(isinstance(sharded, ShardedCollection), "H: not sharded")
+    for name, col in (("sharded", sharded), ("single", single)):
+        t0 = time.perf_counter()
+        for lo in range(0, n, UPSERT_BATCH):
+            col.upsert(ids[lo: lo + UPSERT_BATCH],
+                       corpus[lo: lo + UPSERT_BATCH],
+                       payloads[lo: lo + UPSERT_BATCH])
+        res[f"{name}_upsert_rows_per_s"] = n / (time.perf_counter() - t0)
+    del payloads
+    check(len(sharded) == n and sum(
+        s["rows"] for s in sharded.shard_stats()) == n,
+        "H: the shards do not hold every row")
+    res["rows_per_shard"] = [s["rows"] for s in sharded.shard_stats()]
+    log({"cluster": "upsert", **res})
+
+    probe = queries[:QUERY_BATCH]
+    t0 = time.perf_counter()
+    want = single.query(probe).top_k(K).run()
+    res["single_batch_s"] = time.perf_counter() - t0
+    sharded.query(probe[:8]).top_k(K).run()           # warm the pool
+    # the shards' scans are kept: B5 is held on one shard's at the end
+    with capture_topk([QUERY_BATCH, SHARD_SMALL_Q]) as scans:
+        t0 = time.perf_counter()
+        emb = sharded.query(probe).top_k(K).run()
+        res["sharded_batch_s"] = time.perf_counter() - t0
+        small = sharded.query(probe[:SHARD_SMALL_Q]).top_k(K).run()
+    scans = {nq: c[:1] for nq, c in scans.items()}
+    check(all(scans.values()), "H: the shards' scans did not run l2_topk")
+    res["sharded_vs_single_max_score_diff"] = same_hits(
+        emb, want, "H: sharded vs single")
+    same_hits(small, emb[:SHARD_SMALL_Q], "H: a small batch vs the batch")
+    res["sharded_vs_single_ids_equal"] = \
+        [[h.id for h in r] for r in emb] == [[h.id for h in r] for r in want]
+
+    service = QuantixarService(db)
+    server = QuantixarHTTPServer(service, host="127.0.0.1", port=0).start()
+    try:
+        client = QuantixarClient(server.url, timeout=120)
+        remote = client.collection("sharded")
+        t0 = time.perf_counter()
+        wire = remote.query(probe).top_k(K).run()
+        res["http_batch_s"] = time.perf_counter() - t0
+        check([[(h.id, h.score, h.payload) for h in r] for r in wire]
+              == [[(h.id, h.score, h.payload) for h in r] for r in emb],
+              "H: HTTP hits differ from the embedded ones")
+        # single vectors over HTTP from 32 threads of a client process,
+        # coalesced by the sharded collection's batcher behind the server
+        single_q = queries[:SINGLE_QUERIES]
+        before = sharded.stats()
+        singles, lat, secs = http_singles(server.url, "sharded", single_q)
+        rows = hit_rows(singles)
+        check((rows >= 0).all(), "H: an HTTP single query came back short")
+        after = sharded.stats()
+        batches = after["serving_batches_served"] - \
+            before["serving_batches_served"]
+        served = after["serving_requests_served"] - \
+            before["serving_requests_served"]
+        res["http_single_qps"] = len(single_q) / secs
+        res["http_single_p50_ms"] = float(np.percentile(lat, 50) * 1e3)
+        res["http_single_p99_ms"] = float(np.percentile(lat, 99) * 1e3)
+        res["http_single_mean_batch"] = served / max(batches, 1)
+        res["http_single_client"] = "scripts/http_load.py, own process"
+        check(served == len(single_q),
+              f"H: the batcher served {served} of {len(single_q)} requests")
+        check(res["http_single_mean_batch"] > 1,
+              "H: the batcher never coalesced HTTP requests")
+        # each answer is its own query's: the batcher's batches take B5's
+        # small-Q path, with the hits of the 1,024-query batch, near-ties
+        # aside, and the exact recall of phase E's singles
+        res["http_single_recall_at_10"] = recall_at_k(
+            rows, gt[:SINGLE_QUERIES])
+        check(res["http_single_recall_at_10"] >= EXACT_RECALL_FLOOR,
+              f"H: HTTP single recall {res['http_single_recall_at_10']}")
+        m = min(len(rows), len(emb))
+        res["http_single_rows_equal_batch"] = float(np.mean(
+            (rows[:m] == hit_rows(emb)[:m]).all(axis=1)))
+        same_hits(singles[:m], emb[:m], "H: HTTP singles vs embedded batch")
+    finally:
+        server.shutdown(close_service=False)
+    log({"cluster": "http", **res})
+
+    # replica failover: the primary of shard 0 down, then the whole shard
+    sharded.set_replica_health(0, 0, False)
+    same_hits(sharded.query(probe).top_k(K).run(), emb, "H: failover")
+    sharded.set_replica_health(0, 1, False)
+    try:
+        sharded.query(probe[:4]).top_k(K).run()
+        dark = False
+    except ShardUnavailable:
+        dark = True
+    check(dark, "H: a dark shard did not raise ShardUnavailable")
+    sharded.set_replica_health(0, 0, True)
+    sharded.set_replica_health(0, 1, True)
+    same_hits(sharded.query(probe).top_k(K).run(), emb, "H: recovered")
+    res["failover"] = True
+
+    # persistence of the sharded database on the card
+    tmp = tempfile.mkdtemp(prefix="quantixar-smoke-")
+    try:
+        db.drop_collection("single")
+        t0 = time.perf_counter()
+        db.save(tmp)
+        res["save_s"] = time.perf_counter() - t0
+        db.close()
+        del db, sharded, single
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        loaded = Database.load(tmp)                   # the card
+        res["load_s"] = time.perf_counter() - t0
+        col = loaded.collection("sharded")
+        check(isinstance(col, ShardedCollection) and col.num_shards == SHARDS
+              and col.schema.replicas == REPLICAS and len(col) == n,
+              "H: the loaded collection lost its layout or rows")
+        got = col.query(probe).top_k(K).run()
+        check([[(h.id, h.score) for h in r] for r in got]
+              == [[(h.id, h.score) for h in r] for r in emb],
+              "H: hits differ after save and load")
+        res["checkpoint_gb"] = sum(
+            os.path.getsize(os.path.join(r, f))
+            for r, _, fs in os.walk(tmp) for f in fs) / 2**30
+        loaded.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["launches"] = counters.read()
+    for kname in PHASE_KERNELS["H"]:
+        check(res["launches"][kname] > 0,
+              f"H: kernel {kname} never launched")
+    log({"phase_result": res})
+    # after the launch count: B5 on one shard's unit rows, at the batch's
+    # Q = 1,024 and the batcher's largest bucket
+    res["shard_rows"] = [captured_topk_row(torch, scans[nq], log,
+                                           inputs="H shard scan")
+                         for nq in (QUERY_BATCH, SHARD_SMALL_Q)]
+    del scans
     torch.cuda.empty_cache()
     return res
 
@@ -1806,6 +2320,10 @@ def main(argv) -> int:
         rows.append(phase["D"]["fused_step"])
         phase["E"] = run_api(torch, sift, sift_q, gt_sift, sift_new,
                              phase["A"], counters, log)
+        phase["G"] = run_ivf(torch, sift, sift_q, gt_sift, sift_new,
+                             counters, log)
+        phase["H"] = run_cluster(torch, sift, sift_q, gt_sift, counters,
+                                 log)
         del sift, sift_q, sift_new, fm, fm_q, fm_new, gt_sift, gt_fm
         torch.cuda.empty_cache()
         phase["F"], slstm_rows = run_xlstm(torch, counters, log)
@@ -1815,6 +2333,11 @@ def main(argv) -> int:
         return 1
     finally:
         log_f.close()
+
+    def strip_row(r):
+        if isinstance(r, list):
+            return [strip_row(x) for x in r]
+        return {k: v for k, v in r.items() if k not in ("name", "inputs")}
 
     def pick(name, **shape):
         return next(r for r in rows if r["name"] == name
@@ -1847,10 +2370,16 @@ def main(argv) -> int:
     # kernel's launches in D, which all go through its fused entry:
     # launches_by_entry splits them); beam_gather_hamming_masked, its fused
     # entry, on four of D's own search steps (fused_step_row), with the
-    # kernel's device ms in one D batch (in_path_ms).
+    # kernel's device ms in one D batch (in_path_ms).  beam_gather's entry
+    # also carries its row at IVF's shape, from phase G's own candidates
+    # (at_ivf: Q=1024 x L=46,880, l2; the plain version on 64 queries);
+    # l2_topk's its rows on G's coarse probes (at_ivf_probe: Q=1024 x the
+    # 1,024 centroids, l2, k=nprobe=32) and on one of H's shards
+    # (at_shard: Q=1024 and 32 x ~250k unit rows, cosine, k=10).
     main_rows = {
         "beam_gather": (pick("beam_gather", mode="dot", D=128, L=256), "A",
-                        "beam_gather.py:98"),
+                        "beam_gather.py:98",
+                        {"at_ivf": phase["G"]["b1_row"]}),
         "pair_gather": (pick("pair_gather", mode="dot", D=128, C=60,
                              row0_frac=0.0), "A",
                         "bulk_prune.py:47"),
@@ -1867,11 +2396,13 @@ def main(argv) -> int:
                              N=FLAT_CHUNK), "E", "l2.py:62"),
         "l2_topk": (next(r for r in rows if r["name"] == "l2_topk"
                          and "route_ms" in r and r["Q"] == QUERY_BATCH),
-                    "E", "l2.py:62"),
+                    "E", "l2.py:62",
+                    {"at_ivf_probe": phase["G"]["probe_row"],
+                     "at_shard": phase["H"]["shard_rows"]}),
         "slstm": (pick("slstm", dtype="bfloat16", S=PREFILL_S), "F",
                   "slstm.py:90")}
     kernels = []
-    for name, (r, home, tpu) in main_rows.items():
+    for name, (r, home, tpu, *extra) in main_rows.items():
         entries = ENTRIES.get(name, (name,))
 
         def count(p, entries=entries):
@@ -1898,16 +2429,20 @@ def main(argv) -> int:
                if k in r},
             "at": {k: r[k] for k in ("mode", "dtype", "Q", "L", "B", "C",
                                      "D", "N", "m", "k", "W", "S", "d", "H")
-                   if k in r}})
+                   if k in r},
+            # the kernel again where G and H run it
+            **{key: strip_row(v) for key, v in
+               (extra[0].items() if extra else ())}})
     summary = {
         "seconds": time.perf_counter() - t_start,
         **{p["phase"]: {k: p.get(k) for k in (
             "build_s", "qps", "recall_at_10", "ef_sweep",
             "mask_0.5_recall_at_10", "mask_0.05_recall_at_10",
             "quantize_peak_gb", "build_peak_gb")}
-           for p in phase.values() if p["phase"] not in ("E", "F")},
-        **{p: {k: v for k, v in phase[p].items() if k != "launches"}
-           for p in ("E", "F")}}
+           for p in phase.values() if p["phase"] in "ABCD"},
+        **{p: {k: v for k, v in phase[p].items()
+               if k != "launches" and k not in ROW_KEYS}
+           for p in ("E", "F", "G", "H")}}
     print(json.dumps({"summary": summary}, default=float))
     print(card)
     print(json.dumps({"kernels": kernels}, default=float))

@@ -36,6 +36,21 @@ under a ~5 % mask (the flat route) it prints, as one JSON line each:
              are fresh, i.e. the rows the step uses, and
              launches_per_batch the fused entry's launches per batch.
 
+``--phase G`` builds and searches phase G's IVF engine instead (cosine,
+nlist 1,024, nprobe 32; the build spans are "kmeans" and "lists", the
+last span empty): the search span gives B1's ms over the probed lists
+against the coarse probe's ``l2_topk`` ms, the candidates' top-k
+(``topk_ms``) and the host's.
+
+``--phase H`` profiles phase H's sharded collection instead: the same
+corpus by string id in an exact cosine collection at 4 shards x 2
+replicas (every engine on the card) with a keyword and a numeric field,
+behind ``QuantixarService`` and the HTTP server on 127.0.0.1, after a
+warm-up: one embedded 1,024-query batch, the same batch through
+``QuantixarClient``, and 512 single-vector queries from 32 client threads
+(the collection's batcher coalesces them), each span with its wall,
+device and busy share.
+
 ``--phase E`` profiles the public API instead: an exact (flat) cosine
 collection of the same corpus through ``repro_torch.api.Database``, one
 warm-up batch, then one 1,024-query batch (k=10), which scans the whole
@@ -61,6 +76,8 @@ Run on a card from the repository root:
     python3 scripts/profile_torch.py --phase C    # PQ
     python3 scripts/profile_torch.py --phase E    # one exact API batch
     python3 scripts/profile_torch.py --phase F    # one xLSTM prefill
+    python3 scripts/profile_torch.py --phase G    # IVF build and search
+    python3 scripts/profile_torch.py --phase H    # sharded, over HTTP
     python3 scripts/profile_torch.py --n 20000    # a quick look
 
 ``--device cpu`` runs the same path with host events only (no device
@@ -84,7 +101,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 K, EF, WIDTH, QUERY_BATCH = 10, 64, 4, 1024
-QUANT = {"A": "none", "C": "pq", "D": "bq", "E": "none"}
+QUANT = {"A": "none", "C": "pq", "D": "bq", "E": "none", "G": "none"}
+# phase G's IVF setting (chip_smoke.py's IVF_NLIST, IVF_NPROBE)
+IVF_NLIST, IVF_NPROBE = 1024, 32
 # each kernel's device function, as the profiler names it (demangled), by
 # a part no other kernel's name contains
 KERNELS = {"beam_gather": "beam_gather_f32_kernel",
@@ -220,6 +239,79 @@ def profile_exact(args, x, q) -> int:
     return 0
 
 
+def profile_cluster(args, x, q) -> int:
+    """Phase H: a 4 x 2 sharded exact collection, embedded and over HTTP,
+    under the profiler."""
+    import threading
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.api import (Database, KeywordField, NumericField,
+                                 QuantixarClient, VectorField)
+    from repro_torch.serving.http import QuantixarHTTPServer
+    from repro_torch.serving.service import QuantixarService
+
+    on_card = args.device != "cpu"
+    db = Database(device=args.device)
+    col = db.create_collection(
+        name="sharded", vector=VectorField(dim=x.shape[1], metric="cosine",
+                                           index="flat"),
+        fields=(KeywordField("category"), NumericField("price")),
+        shards=4, replicas=2)
+    rng = np.random.RandomState(3)
+    cats, prices = rng.randint(0, 8, len(x)), rng.randint(0, 10_000, len(x))
+    for lo in range(0, len(x), 50_000):
+        hi = min(lo + 50_000, len(x))
+        col.upsert([str(i) for i in range(lo, hi)], x[lo:hi],
+                   [{"category": f"cat-{c}", "price": float(p) / 100}
+                    for c, p in zip(cats[lo:hi], prices[lo:hi])])
+    server = QuantixarHTTPServer(QuantixarService(db), port=0).start()
+    remote = QuantixarClient(server.url, timeout=120).collection("sharded")
+    batch, singles = q[:QUERY_BATCH], q[:512]
+
+    def fan_out():
+        def worker(t):
+            for i in range(t, len(singles), 32):
+                remote.query(singles[i]).top_k(K).run()
+        threads = [threading.Thread(target=worker, args=(t,))
+                   for t in range(32)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+
+    col.query(batch).top_k(K).run()           # warm-up: corpora to device
+    remote.query(batch[:64]).top_k(K).run()
+    fan_out()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card
+                                     else [])
+    t0 = time.perf_counter()
+    with profile(activities=acts) as prof:
+        for span, fn in (
+                ("embedded_batch", lambda: col.query(batch).top_k(K).run()),
+                ("http_batch", lambda: remote.query(batch).top_k(K).run()),
+                ("http_single_512", fan_out)):
+            with record_function(f"span::{span}"):
+                fn()
+                if on_card:
+                    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = col.stats()
+    server.shutdown()
+    dev, total_dev = span_rows(prof, {})
+    print(json.dumps({"phase": "H", "wall_s_profiled": wall,
+                      "device_events": len(dev), "device_ms": total_dev,
+                      "mean_batch": stats["serving_requests_served"]
+                      / max(1, stats["serving_batches_served"])}),
+          flush=True)
+    if on_card and not dev:
+        print("profile_torch: the profiler recorded no device events",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
 def profile_xlstm(args) -> int:
     """Phase F: one full-width xlstm-1.3b prefill of 8 x 2,048 tokens."""
     import torch
@@ -321,14 +413,15 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--queries", type=int, default=10_000)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--phase", choices=[*sorted(QUANT), "F"], default="A")
+    ap.add_argument("--phase", choices=[*sorted(QUANT), "F", "H"],
+                    default="A")
     args = ap.parse_args()
 
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from repro_torch.core import (BQConfig, EngineConfig, PQConfig,
-                                  QuantixarEngine)
+    from repro_torch.core import (BQConfig, EngineConfig, IVFConfig,
+                                  PQConfig, QuantixarEngine)
     from repro_torch.data.synthetic import sift_like
     from repro_torch.kernels import _build
 
@@ -341,10 +434,15 @@ def main() -> int:
     q = sift_like(10_000, seed=1)[: args.queries]
     if args.phase == "E":
         return profile_exact(args, x, q)
+    if args.phase == "H":
+        return profile_cluster(args, x, q)
     eng = QuantixarEngine(EngineConfig(
-        dim=x.shape[1], metric="cosine", index="hnsw",
+        dim=x.shape[1], metric="cosine",
+        index="ivf" if args.phase == "G" else "hnsw",
         quantization=QUANT[args.phase], pq=PQConfig(m=16, k=256),
-        bq=BQConfig(bits=256), builder="bulk"), device=args.device)
+        bq=BQConfig(bits=256), builder="bulk",
+        ivf=IVFConfig(nlist=IVF_NLIST, nprobe=IVF_NPROBE)),
+        device=args.device)
     eng.add(x)
 
     # one record_function span per build phase, closed at the phase's last
@@ -419,7 +517,7 @@ def main() -> int:
                       "device_ms": total_dev,
                       "analysis_s": time.perf_counter() - t1,
                       "build_stats": {k: v for k, v in eng.stats().items()
-                                      if k.startswith("build")}}),
+                                      if k.startswith(("build", "ivf"))}}),
           flush=True)
     if on_card and not dev:
         print("profile_torch: the profiler recorded no device events",

@@ -3,7 +3,9 @@
 
 Builds an HNSW collection with the bulk builder (``--quantization`` none,
 pq: m=16 k=256, or bq: 256 bits, the settings of ``chip_smoke.py``'s phases
-C and D) with one package and prints recall@10 and wall seconds at each ef,
+C and D), or with ``--index ivf`` an IVF collection (``--nlist``, each
+``--nprobe`` in turn; phase G is nlist 1,024, nprobe 32 at 1M), with one
+package and prints recall@10 and wall seconds at each ef or nprobe,
 against an exact top-k, over the corpus and queries of one of
 ``chip_smoke.py``'s phases at a smaller n; quantized collections also
 report the first pass alone (no exact rescore) at the first ef:
@@ -20,6 +22,8 @@ to each other on the same data:
     PYTHONPATH=src python3 scripts/recall_witness.py --package torch --n 200000
     PYTHONPATH=src python3 scripts/recall_witness.py --package jax \
         --quantization pq --n 20000
+    PYTHONPATH=src python3 scripts/recall_witness.py --package torch \
+        --index ivf --n 100000 --nlist 316 --nprobe 5 10 20
 
 Each run prints one JSON line.
 """
@@ -27,6 +31,7 @@ Each run prints one JSON line.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -45,18 +50,22 @@ def main() -> None:
     ap.add_argument("--ef", type=int, nargs="+", default=[64, 128, 256])
     ap.add_argument("--quantization", choices=("none", "pq", "bq"),
                     default="none")
+    ap.add_argument("--index", choices=("hnsw", "ivf"), default="hnsw")
+    ap.add_argument("--nlist", type=int, default=1024)
+    ap.add_argument("--nprobe", type=int, nargs="+", default=[32])
     args = ap.parse_args()
 
     if args.package == "jax":
         from repro.core import recall_at_k
         from repro.core.bq import BQConfig
         from repro.core.engine import EngineConfig, QuantixarEngine
+        from repro.core.ivf import IVFConfig
         from repro.core.pq import PQConfig
         from repro.data import synthetic
         kw = {}
     else:
-        from repro_torch.core import (BQConfig, EngineConfig, PQConfig,
-                                      QuantixarEngine, recall_at_k)
+        from repro_torch.core import (BQConfig, EngineConfig, IVFConfig,
+                                      PQConfig, QuantixarEngine, recall_at_k)
         from repro_torch.data import synthetic
         kw = {"device": "cpu"}
 
@@ -75,9 +84,10 @@ def main() -> None:
     gt = np.argsort(d, axis=1, kind="stable")[:, :K]
 
     eng = QuantixarEngine(EngineConfig(
-        dim=x.shape[1], metric=metric, index="hnsw",
+        dim=x.shape[1], metric=metric, index=args.index,
         quantization=args.quantization, pq=PQConfig(m=16, k=256),
-        bq=BQConfig(bits=256), builder="bulk"), **kw)
+        bq=BQConfig(bits=256), builder="bulk",
+        ivf=IVFConfig(nlist=args.nlist, nprobe=args.nprobe[0])), **kw)
     eng.add(x)
     t0 = time.perf_counter()
     eng.build()
@@ -85,7 +95,18 @@ def main() -> None:
            "queries": args.queries, "quantization": args.quantization,
            "build_s": time.perf_counter() - t0,
            "build": {k: v for k, v in eng.stats().items()
-                     if k.startswith("build") or k == "mean_deg0"}}
+                     if k.startswith(("build", "ivf")) or k == "mean_deg0"}}
+    if args.index == "ivf":
+        for nprobe in args.nprobe:
+            # the probe count is read at search time: one build serves all
+            eng._ivf.config = dataclasses.replace(eng._ivf.config,
+                                                  nprobe=nprobe)
+            t0 = time.perf_counter()
+            _, ids = eng.search(q, K)
+            res[f"nprobe{nprobe}"] = {"recall_at_10": recall_at_k(ids, gt),
+                                      "search_s": time.perf_counter() - t0}
+        print(json.dumps(res, default=float), flush=True)
+        return
     for ef in args.ef:
         t0 = time.perf_counter()
         _, ids = eng.search(q, K, ef=ef, expansion_width=WIDTH)

@@ -6,43 +6,52 @@ id/tombstone maps become namespaced arrays, and the declarative schemas ride
 in the manifest's `extra` JSON — so `Database.load(path)` reconstructs the
 full typed API surface (schemas included) from disk alone.
 
-Carried across from the JAX package's ``repro.api.database``, with two
-changes.  Every collection runs on one torch ``device``, the card unless the
-caller asks for the CPU (``Database(path, device=...)``,
-``Database.load(path, device=...)``).  The cluster layer is not ported yet
-(ROADMAP A10): a schema with ``shards > 1`` or ``replicas > 1`` raises
-`NotImplementedError`, at creation and at load.  The checkpoint layout is
-the JAX package's, so a database saved by either package loads in the
-other.
+`Database` is the embedded twin of `QuantixarClient`: both hand out
+collections whose reads (fluent `Query`, `count`, `recommend`, explicit
+`QueryPlan`s) run the same declarative plan pipeline — the client ships the
+compiled plan over the wire, a `Database` collection executes it in
+process — so scenarios move between the two backends without rewrites.
+
+Carried across from the JAX package's ``repro.api.database``; the one change
+is the torch ``device`` every collection runs on, every shard and replica
+engine of a sharded one included: the card unless the caller asks for the
+CPU (``Database(path, device=...)``, ``Database.load(path, device=...)``).
+The checkpoint layout is the JAX package's, so a database saved by either
+package, sharded collections included, loads in the other.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 from ..checkpoint.store import CheckpointStore
+from ..cluster.sharded import ShardedCollection
 from .collection import Collection
 from .schema import (BatcherConfig, CollectionSchema, MetadataField,
                      SchemaError, VectorField)
 
 _SEP = "/"          # namespaces collection arrays inside one checkpoint
 
+# a sharded collection quacks like a Collection everywhere the database
+# (and the serving plane above it) touches one
+AnyCollection = Union[Collection, ShardedCollection]
 
-def _single_engine(schema: CollectionSchema) -> None:
-    """Raise for a layout only the (unported) cluster layer can hold."""
+
+def _build_collection(schema: CollectionSchema,
+                      device="cuda") -> AnyCollection:
+    """Topology dispatch: `shards`/`replicas` in the schema pick the
+    engine shape; everything above sees one `Collection`-shaped object."""
     if schema.shards > 1 or schema.replicas > 1:
-        raise NotImplementedError(
-            f"collection {schema.name!r}: shards={schema.shards}, "
-            f"replicas={schema.replicas} needs the cluster layer, which is "
-            f"not ported to the PyTorch package yet (ROADMAP A10)")
+        return ShardedCollection(schema, device=device)
+    return Collection(schema, device=device)
 
 
 class Database:
     def __init__(self, path: Optional[str] = None, device="cuda"):
         self.path = path
         self.device = device
-        self._collections: Dict[str, Collection] = {}
+        self._collections: Dict[str, AnyCollection] = {}
         self._store = CheckpointStore(path) if path else None
 
     # ------------------------------------------------------------ management
@@ -53,11 +62,12 @@ class Database:
             vector: Optional[VectorField] = None,
             fields: Sequence[MetadataField] = (),
             batcher: Optional[BatcherConfig] = None,
-            shards: int = 1, replicas: int = 1) -> Collection:
+            shards: int = 1, replicas: int = 1) -> AnyCollection:
         """Create from a full `CollectionSchema`, or from name/vector/fields
         keyword parts; `batcher=` tunes the serving-batcher knobs
         (`BatcherConfig(max_batch=..., max_wait_ms=...)`).  `shards`/
-        `replicas` > 1 raise `NotImplementedError` (ROADMAP A10)."""
+        `replicas` > 1 build a hash-partitioned `ShardedCollection` behind
+        the same API."""
         if schema is None:
             if name is None or vector is None:
                 raise SchemaError(
@@ -73,12 +83,11 @@ class Database:
                                              replicas=replicas)
         if schema.name in self._collections:
             raise SchemaError(f"collection {schema.name!r} already exists")
-        _single_engine(schema)
-        col = Collection(schema, device=self.device)
+        col = _build_collection(schema, device=self.device)
         self._collections[schema.name] = col
         return col
 
-    def collection(self, name: str) -> Collection:
+    def collection(self, name: str) -> AnyCollection:
         if name not in self._collections:
             raise KeyError(f"no collection {name!r}; "
                            f"have {self.list_collections()}")
@@ -142,9 +151,12 @@ class Database:
             prefix = f"{name}{_SEP}"
             sub = {k[len(prefix):]: v for k, v in state.items()
                    if k.startswith(prefix)}
-            _single_engine(schema)
-            db._collections[name] = Collection.from_state_dict(
-                schema, sub, device=device)
+            if schema.shards > 1 or schema.replicas > 1:
+                db._collections[name] = ShardedCollection.from_state_dict(
+                    schema, sub, device=device)
+            else:
+                db._collections[name] = Collection.from_state_dict(
+                    schema, sub, device=device)
         return db
 
     def stats(self) -> Dict[str, Any]:

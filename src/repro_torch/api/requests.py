@@ -14,8 +14,7 @@ with `INVALID_ARGUMENT` rather than guessing.
 
 Carried across from the JAX package's ``repro.api.requests`` unchanged but
 for its imports: the port's requests and responses serialize to the same
-dicts.  The transports that speak them (``serving/service.py``,
-``serving/http.py``, ``api/client.py``) are not ported yet (ROADMAP A10).
+dicts, so the port's client and server speak to the JAX package's.
 """
 
 from __future__ import annotations

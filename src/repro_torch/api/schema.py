@@ -12,8 +12,7 @@ for its imports, which resolve in this package: the engine config, the
 HNSW / PQ / BQ / IVF configs, the metric registry (which holds the same
 names as the JAX one, ``hamming`` included) and the tokenizer config are
 the port's own, so both packages accept the same schemas and serialize
-them to the same dicts.  ``index="ivf"`` validates here and raises when the
-collection builds its engine (ROADMAP A8).
+them to the same dicts.
 """
 
 from __future__ import annotations
@@ -284,9 +283,8 @@ class CollectionSchema:
     batcher: Optional[BatcherConfig] = None
     # horizontal layout: rows hash-partition across `shards` engine shards,
     # each mirrored `replicas` times for read fan-out.  1/1 = the plain
-    # single-engine Collection; anything else needs the cluster layer
-    # (`cluster.ShardedCollection`), which this package does not have yet:
-    # `Database` raises NotImplementedError for it (ROADMAP A10)
+    # single-engine Collection; anything else materializes a
+    # `repro_torch.cluster.ShardedCollection` behind the same API
     shards: int = 1
     replicas: int = 1
 

@@ -1,6 +1,6 @@
-"""Quantixar core in PyTorch: the HNSW and flat engines, unquantized or with
-PQ / BQ codes (code-domain HNSW search, exact rescore, the quantized flat
-route), the bulk builder, the wide-beam search, the exact scans on the
+"""Quantixar core in PyTorch: the HNSW, flat and IVF engines, unquantized or
+with PQ / BQ codes (code-domain HNSW search, exact rescore, the quantized
+flat route), the bulk builder, the wide-beam search, the exact scans on the
 ``l2_distance`` kernel and the BM25 sparse index."""
 
 from .bq import BinaryQuantizer, BQConfig
@@ -13,7 +13,7 @@ from .flat import flat_search, merge_topk, topk_smallest
 from .hnsw_build import HNSWConfig, PackedHNSW, build, bulk_build, exact_knn
 from .hnsw_bulk import bulk_build_device
 from .hnsw_search import HNSWGraph, recall_at_k, search, to_device
-from .ivf import IVFConfig
+from .ivf import IVFConfig, IVFIndex
 from .metadata import And, Filter, MetadataStore, Not, Or, Predicate
 from .pq import PQConfig, ProductQuantizer
 from .segment import DeltaSegment, SealPolicy, merge_candidates
@@ -28,5 +28,6 @@ __all__ = [
     "HNSWGraph", "recall_at_k", "search", "to_device", "And", "Filter",
     "MetadataStore", "Not", "Or", "Predicate", "DeltaSegment", "SealPolicy",
     "merge_candidates", "PQConfig", "ProductQuantizer", "BQConfig",
-    "BinaryQuantizer", "IVFConfig", "SparseIndex", "TokenizerConfig",
+    "BinaryQuantizer", "IVFConfig", "IVFIndex", "SparseIndex",
+    "TokenizerConfig",
 ]

@@ -1,12 +1,11 @@
 """QuantixarEngine in PyTorch: entities in, similarity queries out.
 
 The port of the JAX package's ``repro.core.engine``: ``index`` ∈ {hnsw,
-flat} × ``quantization`` ∈ {none, pq, bq} × metric, the segmented write path
-(sealed index + exact-scanned delta segment, `SealPolicy` folds), MEVS masks
-with the low-selectivity flat route, the exact rescore of quantized
+flat, ivf} × ``quantization`` ∈ {none, pq, bq} × metric, the segmented write
+path (sealed index + exact-scanned delta segment, `SealPolicy` folds), MEVS
+masks with the low-selectivity flat route, the exact rescore of quantized
 candidates, and ``state_dict`` / ``from_state_dict`` in the JAX engine's key
-layout, so a state saved by either engine loads in the other.  IVF raises
-`NotImplementedError` naming its ROADMAP item.
+layout, so a state saved by either engine loads in the other.
 
 Quantized HNSW: the graph is built over the float proxy vectors (PQ
 reconstructions under l2, whose squared distance is the ADC distance; BQ ±1
@@ -17,11 +16,16 @@ scans all codes through ``pq_adc`` / ``hamming``.  The exact scans (the
 flat index, the unquantized flat route and every delta segment) run the
 ``l2_distance`` kernel through the metric registry.
 
+IVF probes B5's fused ``l2_topk`` over the centroids and scans the probed
+lists with ``beam_gather`` (`core/ivf.py`); as in the JAX package, IVF-PQ
+scans reconstructions and IVF+BQ raw vectors.
+
 The engine runs on one torch device, the card unless the caller asks for
 the CPU.  Raw vectors, codes, metadata and the packed graph stay on the
 host, as in the JAX package; the graph with its codes, the quantizers, the
-corpus and codes for the flat route and the rescore, and the delta's
-distance-space matrix live on the device.
+IVF centroids, lists and prepped sealed rows, the corpus and codes for the
+flat route and the rescore, and the delta's distance-space matrix live on
+the device.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ from .hnsw_build import (HNSWConfig, PackedHNSW, ProgressFn, build,
 from .hnsw_bulk import bulk_build_device
 from .hnsw_search import search as hnsw_search
 from .hnsw_search import to_device
-from .ivf import IVFConfig
+from .ivf import IVFConfig, IVFIndex
 from .metadata import Filter, MetadataStore
 from .segment import (ChunkedArray, DeltaSegment, SealPolicy,
                       merge_candidates)
@@ -62,21 +66,15 @@ torch.backends.cudnn.allow_tf32 = False
 FLAT_CHUNK = 65536
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP {item})")
-
-
 @dataclasses.dataclass
 class EngineConfig:
     dim: int
     metric: str = "cosine"               # default per paper §I
-    index: str = "hnsw"                  # "hnsw" | "flat"
+    index: str = "hnsw"                  # "hnsw" | "flat" | "ivf"
     quantization: str = "none"           # "none" | "pq" | "bq"
     pq: pq_mod.PQConfig = dataclasses.field(default_factory=pq_mod.PQConfig)
     bq: bq_mod.BQConfig = dataclasses.field(default_factory=bq_mod.BQConfig)
     hnsw: HNSWConfig = dataclasses.field(default_factory=HNSWConfig)
-    # carried for the schema; index="ivf" raises until A8 is ported
     ivf: IVFConfig = dataclasses.field(default_factory=IVFConfig)
     # "incremental" (faithful one-at-a-time inserts) | "bulk" (device-
     # parallel batched build, core/hnsw_bulk.py) | "bulk_ref" (the slow
@@ -93,9 +91,7 @@ class EngineConfig:
     seal: SealPolicy = dataclasses.field(default_factory=SealPolicy)
 
     def __post_init__(self):
-        if self.index == "ivf":
-            raise _not_ported("index='ivf'", "A8")
-        if self.index not in ("hnsw", "flat"):
+        if self.index not in ("hnsw", "flat", "ivf"):
             raise ValueError(f"index {self.index!r}")
         self.ivf = dataclasses.replace(self.ivf, metric=(
             "cosine" if self.metric == "cosine" else "l2"))
@@ -122,6 +118,8 @@ class QuantixarEngine:
         self._code_chunks = ChunkedArray()
         self._packed: Optional[PackedHNSW] = None
         self._device_graph = None                  # (HNSWGraph, max_level, metric)
+        self._ivf: Optional[IVFIndex] = None
+        self._ivf_corpus: Optional[torch.Tensor] = None  # prepped sealed rows
         self._dirty = True          # no usable sealed segment yet: build first
         self._sealed_n = 0          # rows covered by the sealed segment
         self._delta: Optional[DeltaSegment] = None  # exists once sealed
@@ -133,7 +131,7 @@ class QuantixarEngine:
         self.insert_seconds: float = 0.0
         # observability for the segmented write path: a post-build add() must
         # bump none of these; seal() bumps seal/index, never quantizer_trains
-        self.index_builds = 0
+        self.index_builds = 0       # HNSW-graph / IVF-list constructions
         self.quantizer_trains = 0   # PQ/BQ codebook (re)trainings
         self.seals = 0
 
@@ -206,13 +204,15 @@ class QuantixarEngine:
         """Train quantizers + build the index over everything inserted so
         far (the full O(N) path).  ``progress`` is an optional ``(phase,
         done, total)`` callback: ``("quantize", 1, 1)`` once the quantizer
-        is trained and the corpus encoded, then the graph builder's own."""
+        is trained and the corpus encoded, then the graph builder's own, or
+        IVF's ``("kmeans", 1, 1)`` and ``("lists", 1, 1)``."""
         t0 = time.perf_counter()
         cfg = self.config
         raw = self.vectors
         if len(raw) == 0:
             raise RuntimeError("nothing to build: add() vectors first")
         self._pq = self._bq = None
+        self._ivf = None                # a full build retrains the centroids
         if cfg.quantization == "pq":
             self._pq = pq_mod.ProductQuantizer(
                 dataclasses.replace(cfg.pq, metric=(
@@ -269,6 +269,26 @@ class QuantixarEngine:
                 eff, dataclasses.replace(cfg.hnsw, metric=eff_metric),
                 progress=progress)
             self._device_graph = self._to_device_graph()
+        elif cfg.index == "ivf":
+            # IVF-PQ scans probed lists over reconstructions (the ADC
+            # identity); BQ's ±1 signs live in code space (bits != dim), so
+            # IVF+BQ probes and scans raw vectors
+            pq = cfg.quantization == "pq"
+            raw_dev = self._to_dev(raw)      # one copy for every step
+            if self._ivf is None or not self._ivf.is_trained:
+                self._ivf = IVFIndex(dataclasses.replace(
+                    cfg.ivf, metric="l2" if pq or cfg.metric != "cosine"
+                    else "cosine"), device=self.device)
+                self._ivf.train(raw_dev, seed=seed)
+                if progress is not None:
+                    progress("kmeans", 1, 1)
+            self._ivf.build_lists(raw_dev)
+            self._ivf_corpus = None          # free the stale copy first
+            self._ivf_corpus = self._ivf.prep(
+                self._pq.decode(self._codes) if pq else raw_dev)
+            del raw_dev
+            if progress is not None:
+                progress("lists", 1, 1)
         else:
             self._packed = None
             self._device_graph = None
@@ -349,8 +369,11 @@ class QuantixarEngine:
             # their codes were appended at insert time)
             d, ids = self._flat_pass(queries, fetch, mask)
         else:
-            d, ids = self._hnsw_pass(queries, fetch, ef, mask,
-                                     expansion_width)
+            if cfg.index == "ivf":
+                d, ids = self._ivf_pass(queries, fetch, mask)
+            else:
+                d, ids = self._hnsw_pass(queries, fetch, ef, mask,
+                                         expansion_width)
             if self.delta_rows:
                 dd, dids = self._delta_pass(queries, fetch, mask)
                 d, ids = merge_candidates(d, ids, dd, dids, fetch)
@@ -475,6 +498,14 @@ class QuantixarEngine:
             raise ValueError(f"expansion_width must be >= 1, got {width}")
         return int(width)
 
+    def _ivf_pass(self, queries, k, mask):
+        """Probe the sealed IVF lists only (delta rows merge separately),
+        over the prepped sealed rows cached on the device."""
+        d, ids = self._ivf.search_prepped(self._ivf_corpus, queries, k)
+        d, ids = self._apply_mask(d.cpu().numpy(), ids.cpu().numpy(), mask,
+                                  self._sealed_n)
+        return d[:, :k], ids[:, :k]
+
     @staticmethod
     def _apply_mask(d, ids, mask, n_rows):
         """Demote masked-out candidates to +inf/-1 and re-sort.  `mask` is
@@ -495,13 +526,17 @@ class QuantixarEngine:
         """Exact scan of the delta segment in the *sealed pass's* distance
         space, so `merge_candidates` can interleave the two lists directly:
         preprocessed raw vectors under the device metric (none), squared L2
-        to reconstructions (pq, == ADC), -dot of ±1 signs (bq).  Returned
-        ids are global (delta start offset applied)."""
+        to reconstructions (pq, == ADC), -dot of ±1 signs (bq); for ivf,
+        squared L2 of `IVFIndex.prep`-ed rows, the space `_ivf_search`
+        scans the probed lists in.  Returned ids are global (delta start
+        offset applied)."""
         cfg = self.config
         delta = self._delta
         n_d = len(delta)
         eff_dev, metric = self._delta_effective()
-        if cfg.quantization == "pq":
+        if cfg.index == "ivf":
+            q = self._ivf.prep(queries)
+        elif cfg.quantization == "pq":
             q = preprocess_vectors(queries, "cosine") \
                 if cfg.metric == "cosine" else queries
         elif cfg.quantization == "bq":
@@ -528,7 +563,11 @@ class QuantixarEngine:
         if (cached is not None and cached[0] is delta
                 and cached[1] == delta.version):
             return cached[2], cached[3]
-        if cfg.quantization == "pq":
+        if cfg.index == "ivf":
+            eff = self._ivf.prep(self._pq.decode(delta.codes)
+                                 if cfg.quantization == "pq" else delta.raw)
+            metric = "l2"
+        elif cfg.quantization == "pq":
             eff, metric = self._pq.decode(delta.codes), "l2"
         elif cfg.quantization == "bq":
             eff = bq_mod.signs(self._to_dev(delta.codes), cfg.bq.bits)
@@ -576,7 +615,7 @@ class QuantixarEngine:
 
     def state_dict(self) -> Dict[str, Any]:
         """The JAX engine's layout: vectors, n, sealed_n, dirty, codes,
-        pq.* / bq.*, hnsw.*, meta.* (numpy arrays)."""
+        pq.* / bq.*, hnsw.*, ivf.*, meta.* (numpy arrays)."""
         state: Dict[str, Any] = {
             "vectors": self.vectors,
             "n": np.array([self._n], dtype=np.int64),
@@ -594,6 +633,9 @@ class QuantixarEngine:
         if self._packed is not None:
             state.update({f"hnsw.{k}": v
                           for k, v in self._packed.state_dict().items()})
+        if self._ivf is not None:
+            state.update({f"ivf.{k}": v
+                          for k, v in self._ivf.state_dict().items()})
         state.update({f"meta.{k}": v
                       for k, v in self.metadata.state_dict().items()})
         return state
@@ -602,10 +644,8 @@ class QuantixarEngine:
     def from_state_dict(cls, config: EngineConfig, state: Dict[str, Any],
                         device="cuda") -> "QuantixarEngine":
         """Rebuild an engine from a `state_dict` (the JAX engine's included):
-        the same quantizers, codes, sealed graph and delta split, on
-        ``device``."""
-        if any(k.startswith("ivf.") for k in state):
-            raise _not_ported("a state with 'ivf.' entries", "A8")
+        the same quantizers, codes, sealed graph or IVF lists and delta
+        split, on ``device``."""
         eng = cls(config, device=device)
         eng._vectors = ChunkedArray(
             [np.asarray(state["vectors"], dtype=np.float32)])
@@ -628,6 +668,24 @@ class QuantixarEngine:
             eng._bq = bq_mod.BinaryQuantizer(config.bq, device=eng.device)
             eng._bq.load_state_dict(bq_state)
         sealed_n = int(state["sealed_n"][0]) if "sealed_n" in state else eng._n
+        ivf_state = {k[4:]: v for k, v in state.items()
+                     if k.startswith("ivf.")}
+        if ivf_state:
+            # mirror _build_index: PQ probes reconstructions under L2 (the
+            # ADC identity), everything else raw vectors under the engine
+            # metric
+            if config.quantization == "pq":
+                eng._ivf = IVFIndex(dataclasses.replace(config.ivf,
+                                                        metric="l2"),
+                                    device=eng.device)
+                eff = eng._pq.decode(eng._codes[:sealed_n])
+            else:
+                eng._ivf = IVFIndex(config.ivf, device=eng.device)
+                eff = eng.vectors[:sealed_n]
+            eng._ivf.load_state_dict(ivf_state)
+            # lists cover sealed rows only
+            eng._ivf_corpus = eng._ivf.prep(eff)
+            eng._dirty = False
         hnsw_state = {k[5:]: v for k, v in state.items()
                       if k.startswith("hnsw.")}
         if hnsw_state:
@@ -669,6 +727,11 @@ class QuantixarEngine:
         if self._packed is not None:
             out.update(self._packed.degree_stats())
             out.update(self._packed.build_info)
+        if self._ivf is not None and self._ivf.list_sizes is not None:
+            sizes = np.asarray(self._ivf.list_sizes)
+            out["ivf_lists"] = int(sizes.shape[0])
+            out["ivf_mean_list"] = float(sizes.mean())
+            out["ivf_max_list"] = int(sizes.max())
         for quantizer in (self._pq, self._bq):
             if quantizer is not None:
                 out["compression"] = quantizer.compression_ratio(

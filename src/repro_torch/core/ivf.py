@@ -1,15 +1,59 @@
-"""IVF (inverted-file) index configuration.
+"""IVF (inverted-file) index in PyTorch: the port of the JAX package's
+``repro.core.ivf``.
 
-Only `IVFConfig` is carried across from the JAX package's
-``repro.core.ivf``, unchanged: the collection schema serializes it and the
-engine config holds it, so the two packages' schemas and checkpoints agree.
-The index itself (`IVFIndex`: k-means coarse quantizer, padded inverted
-lists, probing) is not ported yet (ROADMAP A8), and ``index="ivf"`` raises.
+k-means coarse quantizer → per-centroid inverted lists padded to a fixed
+``max_list`` (PAD slots score +inf) → probe the ``nprobe`` nearest lists.
+Search cost drops from O(N) to O(nprobe·N/nlist) with a smooth recall knob.
+Composes with PQ: the engine scans reconstructions (IVF-PQ).
+
+k-means seeds from a ``torch.Generator`` (the PQ quantizer's
+`_fit_one_subspace`), so trained centroids differ from the JAX package's
+``jax.random`` ones: parity is held by loading the JAX centroids
+(`IVFIndex.load_state_dict`), the port's own training by recall.
+
+`IVFIndex.build_lists` gives exactly the reference's lists, overflow
+included.  The reference places rows in index order, each into the first
+list of its (stable) preference order that is not yet full.  Here every row
+first takes its nearest list (ties to the lower index); then, round by
+round, the earliest row at which a list reaches ``max_list`` closes that
+list, and every later row that chose it moves to its nearest list still
+open.  Rows before that point are placed as the reference places them, so
+each round fixes one more closing: at most ``nlist`` rounds of O(N) work.
+
+`_ivf_search` on the CPU follows the reference step by step (norm-expansion
+distances, tie-stable top-k).  On the card the coarse probe is the exact
+scan ``flat_search`` over the centroids (one launch of B5's fused
+``l2_topk`` up to ``FUSED_MAX_K`` probes) and the candidates' distances
+are B1 ``beam_gather`` (diff-square-sum) over the probed lists, so ids match
+the CPU's except at near-ties and distances within B1's tolerance.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..kernels import ops
+from ..kernels.ref import topk_smallest
+from .distances import normalize
+from .flat import flat_search
+from .pq import _fit_one_subspace, _sq_dists
+
+PAD = -1
+
+#: bytes of one query chunk's candidate block: the (Q, C) distances on the
+#: card, the (Q, C, D) gathered rows of the plain form
+IVF_BLOCK_BYTES = 1 << 28
+#: rows per block of build_lists' first assignment: bounds the (rows,
+#: nlist) distance block
+ASSIGN_CHUNK = 1 << 16
+#: B1 launches a block per 8 candidates of a query on a grid axis that
+#: holds at most 65,535 blocks (csrc/beam_gather.cu)
+MAX_CANDIDATES = 8 * 65535
 
 
 @dataclasses.dataclass(frozen=True)
@@ -20,3 +64,159 @@ class IVFConfig:
     kmeans_iters: int = 20
     list_slack: float = 1.5   # max_list = slack * N/nlist (overflow drops
     #                           to the next-nearest list, never silently)
+
+
+class IVFIndex:
+    """Coarse-quantized inverted-file index; centroids and lists live on
+    ``device``."""
+
+    def __init__(self, config: IVFConfig, device="cuda"):
+        self.config = config
+        self.device = resolve_device(device)
+        self.centroids: Optional[torch.Tensor] = None   # (nlist, D) float32
+        self.lists: Optional[torch.Tensor] = None       # (nlist, max_list) int32
+        self.list_sizes: Optional[np.ndarray] = None
+
+    @property
+    def is_trained(self) -> bool:
+        return self.centroids is not None
+
+    def prep(self, x) -> torch.Tensor:
+        """Rows on the device in the index's space: unit rows for cosine,
+        float32 otherwise."""
+        x = torch.as_tensor(x).to(self.device)
+        return normalize(x) if self.config.metric == "cosine" else x.float()
+
+    # ------------------------------------------------------------- build
+    def train(self, vectors, seed: int = 0) -> None:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        self.centroids = _fit_one_subspace(gen, self.prep(vectors),
+                                           self.config.nlist,
+                                           self.config.kmeans_iters)
+
+    def build_lists(self, vectors) -> None:
+        """Assign every vector to its nearest centroid with room; pad lists.
+        The same lists as the reference's loop (see the module doc)."""
+        cfg = self.config
+        x = self.prep(vectors)
+        n, nlist = x.shape[0], cfg.nlist
+        max_list = int(cfg.list_slack * n / nlist) + 1
+        rows = torch.arange(n, device=self.device)
+        assign = torch.cat([_sq_dists(x[lo: lo + ASSIGN_CHUNK],
+                                      self.centroids).argmin(1)
+                            for lo in range(0, n, ASSIGN_CHUNK)]) \
+            if n else rows.clone()
+        closed = torch.zeros(nlist, dtype=torch.bool, device=self.device)
+        while True:
+            placed = assign >= 0
+            counts = torch.bincount(assign[placed], minlength=nlist)
+            full = (counts >= max_list) & ~closed
+            if not bool(full.any()):
+                break
+            # rows grouped by list in row order (dropped rows, -1, first):
+            # a list's max_list-th member is the row that fills it
+            order = torch.sort(assign, stable=True).indices
+            start = (n - int(placed.sum())) + torch.cumsum(counts, 0) - counts
+            lists_full = full.nonzero()[:, 0]
+            fill = order[start[lists_full] + max_list - 1]
+            j = int(fill.argmin())
+            c, t = lists_full[j], fill[j]
+            closed[c] = True
+            # every list closed so far closed at or before row t, so a
+            # later row's open lists are the unclosed ones
+            movers = ((assign == c) & (rows > t)).nonzero()[:, 0]
+            if len(movers):
+                d = _sq_dists(x[movers], self.centroids)
+                d = d.masked_fill(closed[None, :], float("inf"))
+                best = d.argmin(1)
+                # a row that finds every list full is dropped, as in the
+                # reference's loop
+                assign[movers] = torch.where(closed.all(), -1, best)
+        out = torch.full((nlist, max_list), PAD, dtype=torch.int32,
+                         device=self.device)
+        order = torch.sort(assign, stable=True).indices
+        order = order[assign[order] >= 0]
+        lst = assign[order]
+        start = torch.cumsum(counts, 0) - counts
+        out[lst, rows[: len(order)] - start[lst]] = order.to(torch.int32)
+        self.lists = out
+        self.list_sizes = counts.cpu().numpy()
+
+    # ------------------------------------------------------------ search
+    def search(self, corpus, queries, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Exact distances within the probed lists.  corpus: the raw (N, D)
+        vectors (or reconstructions for IVF-PQ); `search_prepped` takes
+        rows already in the index's space (the engine caches them)."""
+        return self.search_prepped(self.prep(corpus), queries, k)
+
+    def search_prepped(self, corpus: torch.Tensor, queries, k: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return _ivf_search(corpus, self.prep(queries), self.centroids,
+                           self.lists, k, self.config.nprobe)
+
+    def state_dict(self):
+        return {"centroids": self.centroids.cpu().numpy(),
+                "lists": self.lists.cpu().numpy()}
+
+    def load_state_dict(self, state):
+        self.centroids = torch.as_tensor(
+            np.array(state["centroids"], dtype=np.float32)).to(self.device)
+        lists = np.array(state["lists"], dtype=np.int32)
+        self.lists = torch.as_tensor(lists).to(self.device)
+        # list_sizes is derived state and is not serialized
+        self.list_sizes = (lists != PAD).sum(axis=1)
+
+
+def _ivf_search(corpus: torch.Tensor, queries: torch.Tensor,
+                centroids: torch.Tensor, lists: torch.Tensor, k: int,
+                nprobe: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(distances (Q, min(k, C)) ascending, int32 ids; -1 where +inf) of
+    each query over the candidates of its ``nprobe`` nearest lists, C =
+    nprobe·max_list.  All tensors on one device; the card takes the
+    kernels, the CPU the reference's arithmetic."""
+    q = queries
+    nq = q.shape[0]
+    card = corpus.device.type == "cuda"
+    # 1. nearest nprobe centroids per query, ties to the lower index: the
+    # card's exact scan, the CPU the reference's unclamped norm expansion
+    if card:
+        _, probe = flat_search(q, centroids, nprobe, metric="l2")
+    else:
+        dc = ((q * q).sum(1)[:, None] + (centroids * centroids).sum(1)[None, :]
+              - 2.0 * (q @ centroids.T))
+        _, probe = topk_smallest(dc, nprobe)
+    # 2. candidate ids: (Q, nprobe * max_list)
+    cand = lists[probe].reshape(nq, -1)
+    c = cand.shape[1]
+    kk = min(k, c)
+    if card and c > MAX_CANDIDATES:
+        raise ValueError(
+            f"IVF search: {c} candidates a query (nprobe {nprobe} x "
+            f"max_list {lists.shape[1]}) exceed beam_gather's "
+            f"{MAX_CANDIDATES}; lower nprobe or raise nlist")
+    # 3. exact distances to the candidates, a chunk of queries at a time
+    row_bytes = c * 4 * (1 if card else corpus.shape[1])
+    step = max(1, min(IVF_BLOCK_BYTES // max(row_bytes, 1),
+                      (2 ** 31 - 1) // max(c, 1)))
+    out_d, out_i = [], []
+    for lo in range(0, nq, step):
+        qc, cc = q[lo: lo + step], cand[lo: lo + step]
+        if card:
+            # B1 clamps PAD (-1) to row 0; those slots are masked below
+            d = ops.beam_gather_distances(qc, cc, corpus, mode="l2")
+        else:
+            vecs = corpus[cc.clamp_min(0).long()]            # (q, C, D)
+            d = ((qc * qc).sum(1)[:, None] + (vecs * vecs).sum(-1)
+                 - 2.0 * torch.einsum("qd,qcd->qc", qc, vecs))
+        d = torch.where(cc != PAD, d, float("inf"))
+        dk, idx = topk_smallest(d, kk)
+        ids = cc.gather(1, idx)
+        out_d.append(dk)
+        out_i.append(torch.where(torch.isfinite(dk), ids,
+                                 torch.full_like(ids, -1)))
+    if not out_d:
+        return (q.new_zeros((0, kk)),
+                torch.zeros((0, kk), dtype=torch.int32, device=q.device))
+    return torch.cat(out_d), torch.cat(out_i)

@@ -4,15 +4,21 @@ Each wrapper takes CUDA tensors only (a CPU tensor goes to the plain version
 in ``ops.py``, never here), contiguous, of the dtypes its kernel reads.  The
 C entry point returns ``cudaGetLastError()`` after the launch; a non-zero
 code raises here, so a launch the card refused is never mistaken for a
-result.
+result.  Each wrapper bumps its launch counters under `count_lock`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Callable, Sequence
 
 import torch
+
+#: guards every wrapper's launch counters: a sharded collection's fan-out
+#: threads launch the same kernel at once, and ``n += 1`` on a module global
+#: is not atomic
+count_lock = threading.Lock()
 
 
 def c_fn(lib: ctypes.CDLL, symbol: str, n_ptrs: int, n_ints: int) -> Callable:

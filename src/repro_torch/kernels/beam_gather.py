@@ -48,5 +48,6 @@ def beam_gather(q: torch.Tensor, ids: torch.Tensor, corpus: torch.Tensor, *,
     _launch.launch("beam_gather", _fn(), corpus.device, q.data_ptr(),
                    ids.data_ptr(), corpus.data_ptr(), out.data_ptr(), nq, l,
                    d, n, MODES[mode])
-    launches += 1
+    with _launch.count_lock:
+        launches += 1
     return out

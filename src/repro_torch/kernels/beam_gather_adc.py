@@ -45,5 +45,6 @@ def beam_gather_adc(lut: torch.Tensor, ids: torch.Tensor,
     _launch.launch(name, _fn(), lut.device, lut.data_ptr(), ids.data_ptr(),
                    codes.data_ptr(), out.data_ptr(), nq, length, m, k, n,
                    codes.element_size())
-    launches += 1
+    with _launch.count_lock:
+        launches += 1
     return out

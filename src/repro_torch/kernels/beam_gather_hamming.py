@@ -61,7 +61,8 @@ def beam_gather_hamming(q: torch.Tensor, ids: torch.Tensor,
         return out
     _launch.launch(name, _fn(), q.device, q.data_ptr(), ids.data_ptr(),
                    codes.data_ptr(), out.data_ptr(), nq, length, w, n)
-    launches += 1
+    with _launch.count_lock:
+        launches += 1
     return out
 
 
@@ -89,5 +90,6 @@ def beam_gather_hamming_masked(q: torch.Tensor, ids: torch.Tensor,
     _launch.launch(name, _masked_fn(), q.device, q.data_ptr(), ids.data_ptr(),
                    fresh.data_ptr(), codes.data_ptr(), out.data_ptr(), nq,
                    length, w, n)
-    masked_launches += 1
+    with _launch.count_lock:
+        masked_launches += 1
     return out

@@ -48,5 +48,6 @@ def pair_gather(ids: torch.Tensor, corpus: torch.Tensor, *,
         return out
     _launch.launch("pair_gather", _fn(), corpus.device, ids.data_ptr(),
                    corpus.data_ptr(), out.data_ptr(), b, c, d, n, MODES[mode])
-    launches += 1
+    with _launch.count_lock:
+        launches += 1
     return out

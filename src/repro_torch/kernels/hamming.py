@@ -40,5 +40,6 @@ def hamming(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return out
     _launch.launch(name, _fn(), q.device, q.data_ptr(), x.data_ptr(),
                    out.data_ptr(), nq, n, w)
-    launches += 1
+    with _launch.count_lock:
+        launches += 1
     return out

@@ -88,7 +88,8 @@ def l2_distance(q: torch.Tensor, x: torch.Tensor, *,
     _launch.launch(name, _fns()[0], q.device, q.data_ptr(), x.data_ptr(),
                    out.data_ptr(), nq, n, d, _MODES[mode],
                    splits(nq, n, q.device))
-    launches += 1
+    with _launch.count_lock:
+        launches += 1
     return out
 
 
@@ -132,7 +133,8 @@ def l2_topk(q: torch.Tensor, x: torch.Tensor, k: int, *, mode: str = "l2",
     _launch.launch(name, _fns()[1], q.device, q.data_ptr(), x.data_ptr(),
                    mask_ptr, cand.data_ptr(), nq, n, d, _TOPK_MODES[mode], k,
                    s)
-    topk_launches += 1
+    with _launch.count_lock:
+        topk_launches += 1
     keys = cand.view(nq, s * k)
     if s > 1:
         # the splits' lists are in column order: one more selection on

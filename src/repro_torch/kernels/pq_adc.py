@@ -58,6 +58,7 @@ def pq_adc(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
                    out.data_ptr(), None if scratch is None
                    else scratch.data_ptr(), ctypes.addressof(info), nq, n, m,
                    k, codes.element_size())
-    launches += 1
-    path_launches["query_lanes" if info[0] else "row_lanes"] += 1
+    with _launch.count_lock:
+        launches += 1
+        path_launches["query_lanes" if info[0] else "row_lanes"] += 1
     return out

@@ -84,9 +84,10 @@ def slstm_sequence(gates_x: torch.Tensor, r: torch.Tensor, b: torch.Tensor,
                    gates_x.data_ptr(), r.data_ptr(), b.data_ptr(),
                    out.data_ptr(), scratch.data_ptr(), ctypes.addressof(info),
                    bsz, s, d, n_heads)
-    launches += 1
     last_launch = _layout(info)
-    path_launches[last_launch["path"]] += 1
+    with _launch.count_lock:
+        launches += 1
+        path_launches[last_launch["path"]] += 1
     return out
 
 

@@ -1,13 +1,15 @@
-"""Request batching for serving.
+"""Request batching + straggler-tolerant fan-out for serving.
 
-The paper's Query Processing module, production-shaped: `RequestBatcher`
-collects single queries into padded batches (deadline-bounded, so tail
-latency is capped even at low QPS).
+The paper's Query Processing module, production-shaped:
+  * `RequestBatcher` — collects single queries into fixed-size padded batches
+    (deadline-bounded, so tail latency is capped even at low QPS)
+  * `QuorumFanout` — sends a search to every corpus shard and merges what
+    returns within the deadline; slow shards degrade recall instead of
+    blocking the query (degraded-read straggler mitigation).
 
 Carried across from the JAX package's ``repro.serving.batcher`` unchanged
-but for the padding comment, which speaks of the card.  Its `QuorumFanout`
-(the shard fan-out) is left for the cluster slice (ROADMAP A10): nothing
-on the embedded path calls it.
+but for the padding comment, which speaks of the card.  `QuorumFanout`'s
+daemon threads launch their shards' kernels on the device's current stream.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import dataclasses
 import queue
 import threading
 import time
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -218,3 +220,43 @@ class RequestBatcher:
                 self.requests_served += len(batch)
             for i, r in enumerate(batch):
                 r.future.set((d[i, : r.k], ids[i, : r.k]))
+
+
+class QuorumFanout:
+    """Fan a query out to per-shard searchers; merge whatever answers within
+    the deadline (min_quorum shards required, else TimeoutError)."""
+
+    def __init__(self, shard_search_fns: Sequence[Callable],
+                 deadline_ms: float = 50.0, min_quorum: int = 1):
+        self.fns = list(shard_search_fns)
+        self.deadline = deadline_ms / 1e3
+        self.min_quorum = min_quorum
+        self.last_responders = 0
+
+    def search(self, queries: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        results: List[Optional[Tuple]] = [None] * len(self.fns)
+
+        def run(i):
+            try:
+                results[i] = self.fns[i](queries, k)
+            except Exception:
+                results[i] = None
+
+        threads = [threading.Thread(target=run, args=(i,), daemon=True)
+                   for i in range(len(self.fns))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            left = self.deadline - (time.perf_counter() - t0)
+            t.join(max(left, 0))
+        got = [r for r in results if r is not None]
+        self.last_responders = len(got)
+        if len(got) < self.min_quorum:
+            raise TimeoutError(
+                f"only {len(got)}/{len(self.fns)} shards answered")
+        all_d = np.concatenate([np.asarray(d) for d, _ in got], axis=1)
+        all_i = np.concatenate([np.asarray(i) for _, i in got], axis=1)
+        order = np.argsort(all_d, axis=1, kind="stable")[:, :k]
+        return (np.take_along_axis(all_d, order, axis=1),
+                np.take_along_axis(all_i, order, axis=1))

@@ -5,8 +5,8 @@ The same numpy inputs, made from a seed, go through both packages (the port
 with ``device="cpu"``, so every kernel takes its plain version): schemas,
 compiled plans and wire requests serialize to equal dicts; exact
 collections return equal hits; checkpoints written by either package load
-in the other with equal hits; the batcher path equals the direct one; and
-what the port does not have yet (the cluster layer) raises.
+in the other with equal hits; the batcher path equals the direct one;
+sharded and IVF collections build and load.
 """
 
 import threading
@@ -329,17 +329,44 @@ def test_concurrent_single_queries_equal_direct(data, index):
 
 
 def test_sharded_layout_raises(tmp_path):
+    """Sharded layouts (ROADMAP A10) no longer raise: the port creates
+    shards > 1 and replicas > 1 collections with the exact hits of one
+    engine, and loads a sharded database the JAX package saved, hit for hit
+    (tests/test_torch_service.py holds the cluster layer in full).  Named
+    for the raise it held before A10, kept so that runs before and after the
+    port compare test by test."""
+    x, q = _small()
     db = tapi.Database(device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        db.create_collection(_schema("torch"), shards=2)
-    with pytest.raises(NotImplementedError, match="A10"):
-        db.create_collection(_schema("torch", name="r"), replicas=2)
+    one = db.create_collection(_schema("torch", name="one", fields=False,
+                                       index="flat"))
+    one.upsert([f"id-{i}" for i in range(len(x))], x)
+    want = _hits(one.query(q).top_k(5).run())
+    for name, kw in (("s", dict(shards=2)), ("r", dict(replicas=2))):
+        col = db.create_collection(_schema("torch", name=name, fields=False,
+                                           index="flat"), **kw)
+        assert isinstance(col, tapi.ShardedCollection)
+        col.upsert([f"id-{i}" for i in range(len(x))], x)
+        _assert_same_hits(_hits(col.query(q).top_k(5).run()), want)
     jdb = japi.Database()
-    jdb.create_collection(_schema("jax", index="flat"), shards=2)
+    jcol = jdb.create_collection(_schema("jax", fields=False, index="flat"),
+                                 shards=2)
+    jcol.upsert([f"id-{i}" for i in range(len(x))], x)
+    jwant = _hits(jcol.query(q).top_k(5).run())
     jdb.save(str(tmp_path))
     jdb.close()
-    with pytest.raises(NotImplementedError, match="A10"):
-        tapi.Database.load(str(tmp_path), device="cpu")
+    loaded = tapi.Database.load(str(tmp_path), device="cpu")
+    col = loaded.collection("items")
+    assert isinstance(col, tapi.ShardedCollection) and col.num_shards == 2
+    _assert_same_hits(_hits(col.query(q).top_k(5).run()), jwant)
+    _assert_same_hits(jwant, want)
+    loaded.close()
+    db.close()
+
+
+def _small():
+    rng = np.random.RandomState(4)
+    return (rng.randn(120, DIM).astype(np.float32),
+            rng.randn(3, DIM).astype(np.float32))
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
@@ -348,8 +375,15 @@ def test_entry_points_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tapi.Database().create_collection(_schema("torch"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tapi.Database().create_collection(_schema("torch"), shards=2)
     col = tapi.Database(device="cpu").create_collection(_schema("torch"))
     assert col.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        tapi.Database(device="cpu").create_collection(
-            _schema("torch", index="ivf"))
+    # an IVF collection (ROADMAP A8, which raised before) on the CPU
+    x, q = _small()
+    col = tapi.Database(device="cpu").create_collection(
+        _schema("torch", name="ivf", fields=False, index="ivf"))
+    col.upsert([f"id-{i}" for i in range(len(x))], x)
+    hits = col.query(x[:3]).top_k(2).run()
+    assert [h[0].id for h in hits] == ["id-0", "id-1", "id-2"]
+    assert col.stats()["ivf_lists"] == 64

@@ -817,3 +817,152 @@ def test_xlstm_forward_on_card_matches_plain(cuda, dtype):
     else:
         assert (got - want).abs().max().item() <= 0.15
         assert (got.argmax(-1) == want.argmax(-1)).float().mean() >= 0.9
+
+
+# ---------------------------------------------------------------------------
+# IVF and the sharded collection on the card
+# ---------------------------------------------------------------------------
+
+def _near_tie_ids(got_d, got_i, want_d, want_i, atol):
+    """ids equal wherever the CPU's neighbouring distances are not within
+    ``atol`` of each other; distances within ``atol``."""
+    np.testing.assert_allclose(got_d, want_d, rtol=2e-4, atol=atol)
+    for r, c in zip(*np.nonzero(got_i != want_i)):
+        near = np.abs(want_d[r] - want_d[r, c]) <= 2e-4 * abs(
+            want_d[r, c]) + atol
+        assert got_i[r, c] in set(want_i[r][near].tolist()), (r, c)
+
+
+@pytest.mark.parametrize("quant", ["none", "pq", "bq"])
+@pytest.mark.parametrize("metric", ["cosine", "l2"])
+def test_ivf_engine_on_card_matches_cpu(cuda, quant, metric):
+    """An IVF engine built on the CPU and loaded on the card (the same
+    centroids and lists) returns the CPU hits: the coarse probe on B5's
+    fused entry, the probed lists on B1 (diff-square-sum where the CPU
+    takes the norm expansion: ids equal up to near-ties, distances within
+    B1's tolerance), the delta scan and the ~5 % flat route."""
+    from repro_torch.core import BQConfig, IVFConfig, PQConfig
+    x = gaussian_mixture(3000, 32, n_clusters=15, scale=0.3, seed=1)
+    q = gaussian_mixture(64, 32, n_clusters=15, scale=0.3, seed=2)
+    cfg = EngineConfig(dim=32, metric=metric, index="ivf",
+                       quantization=quant, pq=PQConfig(m=8, k=64),
+                       bq=BQConfig(bits=64),
+                       ivf=IVFConfig(nlist=32, nprobe=6))
+    cpu = QuantixarEngine(cfg, device="cpu")
+    cpu.add(x[:2900])
+    cpu.build()
+    cpu.add(x[2900:])
+    card = QuantixarEngine.from_state_dict(cfg, cpu.state_dict(),
+                                           device="cuda")
+    bg0, tk0 = bg_mod.launches, l2_mod.topk_launches
+    mask = np.random.RandomState(0).rand(3000) < 0.05
+    norms = np.linalg.norm(x, axis=1).max() * np.linalg.norm(q, axis=1).max()
+    for queries, kw in ((q, {}), (x[2900:2950], {}), (q, {"mask": mask}),
+                        (q, {"rescore": False})):
+        (gd, gi), (wd, wi) = (card.search(queries, 10, **kw),
+                              cpu.search(queries, 10, **kw))
+        _near_tie_ids(gd, gi, wd, wi, atol=1e-5 * norms)
+    assert bg_mod.launches > bg0 and l2_mod.topk_launches > tk0
+
+
+@pytest.mark.parametrize("slack", [1.5, 1.02, 0.5])
+def test_ivf_build_lists_on_card_equal_cpu(cuda, slack):
+    """build_lists on the card gives the CPU's lists bit for bit from the
+    same centroids, overflow and dropped rows included.  Integer rows and
+    centroids keep every distance exact on both devices, so the lists
+    differ only if the assignment rule does (exact ties go to the lower
+    centroid on both)."""
+    from repro_torch.core import IVFConfig, IVFIndex
+    rng = np.random.RandomState(4)
+    x = rng.randint(-4, 5, (20000, 24)).astype(np.float32)
+    cent = torch.as_tensor(x[rng.choice(20000, 64, replace=False)])
+    cfg = IVFConfig(nlist=64, metric="l2", list_slack=slack)
+    cpu = IVFIndex(cfg, device="cpu")
+    card = IVFIndex(cfg, device="cuda")
+    cpu.centroids, card.centroids = cent, cent.to(cuda)
+    cpu.build_lists(x)
+    card.build_lists(x)
+    assert torch.equal(card.lists.cpu(), cpu.lists)
+    np.testing.assert_array_equal(card.list_sizes, cpu.list_sizes)
+    assert (cpu.list_sizes == cpu.lists.shape[1]).sum() > 1
+
+
+def test_beam_gather_at_an_ivf_shape_with_pad(cuda):
+    """B1 at an IVF shape: thousands of candidates a query, PAD (-1) slots
+    that read row 0 (clamped, as JAX's gather does) and are masked by the
+    caller; its plain version on the clamped ids."""
+    rng = np.random.RandomState(8)
+    corpus = rng.randn(20000, 128).astype(np.float32)
+    q = rng.randn(48, 128).astype(np.float32)
+    ids = rng.randint(0, 20000, (48, 8 * 1465)).astype(np.int32)
+    ids[:, 1400:1465] = -1
+    ids[:, -300:] = -1
+    args = [torch.as_tensor(a, device=cuda) for a in (q, ids, corpus)]
+    before = bg_mod.launches
+    got = ops.beam_gather_distances(*args, mode="l2")
+    assert bg_mod.launches == before + 1
+    want = ops.beam_gather_distances(args[0], args[1].clamp_min(0), args[2],
+                                     mode="l2", force_ref=True)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4 * 128)
+
+
+def test_ivf_search_refuses_too_many_candidates(cuda):
+    from repro_torch.core.ivf import MAX_CANDIDATES, _ivf_search
+    lists = torch.zeros((2, MAX_CANDIDATES), dtype=torch.int32, device=cuda)
+    x = torch.randn(4, 8, device=cuda)
+    with pytest.raises(ValueError, match="beam_gather"):
+        _ivf_search(x, x[:1], x[:2], lists, 5, 2)
+
+
+def test_sharded_collection_on_card_equals_single(cuda):
+    """A sharded, replicated exact collection with every engine on the card
+    returns a single collection's hits, through the fan-out threads and
+    the collection-level batcher, and launches B5's fused entry."""
+    from repro_torch.api import Database, KeywordField, VectorField
+    x = gaussian_mixture(4000, 32, n_clusters=15, scale=0.3, seed=1)
+    q = gaussian_mixture(40, 32, n_clusters=15, scale=0.3, seed=2)
+    db = Database(device="cuda")
+    cols = [db.create_collection(
+        name=name, vector=VectorField(dim=32, index="flat"),
+        fields=(KeywordField("tag"),), shards=s, replicas=r)
+        for name, s, r in (("sharded", 4, 2), ("single", 1, 1))]
+    for col in cols:
+        col.upsert([f"id-{i}" for i in range(len(x))], x,
+                   [{"tag": f"t{i % 5}"} for i in range(len(x))])
+    before = l2_mod.topk_launches
+    got, want = (c.query(q).top_k(10).run() for c in cols)
+    assert [[h.id for h in r] for r in got] == \
+        [[h.id for h in r] for r in want]
+    singles = [cols[0].query(v).top_k(10).filter(tag="t1").run() for v in q]
+    ref_f = [cols[1].query(v).top_k(10).filter(tag="t1").run() for v in q]
+    assert [[h.id for h in r] for r in singles] == \
+        [[h.id for h in r] for r in ref_f]
+    assert l2_mod.topk_launches > before
+    assert cols[0]._views[0].replicas[0].device.type == "cuda"
+    db.close()
+
+
+def test_launch_counters_count_every_thread(cuda):
+    """A sharded collection's fan-out threads launch one kernel at once:
+    every launch is counted (the counters' lock), none lost, with more
+    threads than cores and a short switch interval."""
+    import sys
+    import threading
+    corpus, q, ids = _inputs(3, 4, 64, 32, 8)
+    args = [torch.as_tensor(a, device=cuda) for a in (q, ids, corpus)]
+    threads, per = 32, 40
+    before = bg_mod.launches
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        workers = [threading.Thread(target=lambda: [
+            ops.beam_gather_distances(*args) for _ in range(per)])
+            for _ in range(threads)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(w.is_alive() for w in workers)
+    assert bg_mod.launches == before + threads * per

@@ -5,9 +5,11 @@ loads into the port's engine, which then returns the JAX engine's hits —
 plain, under a ~50 % mask (HNSW), under a ~5 % mask (the flat route), and for
 delta rows — at widths {1, 4}; the port's state_dict loads back into the
 JAX engine with the same hits.  Also the port's own end-to-end path on the
-CPU, the flat index, the device rule and the not-yet-ported options.
+CPU, the flat index, the device rule and IVF construction and state
+loading (the IVF parity tests are tests/test_torch_ivf.py).
 """
 
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -194,21 +196,55 @@ class TestConfig:
         (dict(quantization="bq", index="ivf"), "A8"),
         (dict(index="ivf"), "A8")])
     def test_unported_options_raise(self, kw, item):
-        """IVF is the one option not ported yet, with or without codes;
-        PQ and BQ are (tests/test_torch_quant_engine.py)."""
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            EngineConfig(dim=8, **kw)
-        for quant in ("pq", "bq"):
-            assert EngineConfig(dim=8, quantization=quant).quantization == quant
+        """IVF (ROADMAP A8), the last option that raised, now constructs
+        and builds, with or without codes: the config follows the JAX
+        engine's IVF metric rule, and a tiny engine on the CPU answers with
+        its own rows (tests/test_torch_ivf.py holds it to the JAX hits).
+        The name and ``item`` (each case's ROADMAP item, the message of
+        its config check) are those it had while these options raised,
+        kept so that runs before and after the port compare test by
+        test."""
+        from repro.core import bq as jbq
+        from repro.core import pq as jpq
+        from repro_torch.core import BQConfig
+        for metric in ("cosine", "l2", "dot"):
+            cfg = EngineConfig(dim=8, metric=metric, **kw)
+            assert cfg.index == "ivf"
+            want = JEngineConfig(dim=8, metric=metric, **kw).ivf
+            assert dataclasses.asdict(cfg.ivf) == dataclasses.asdict(want), \
+                item
+        x = gaussian_mixture(300, 8, n_clusters=4, scale=0.3, seed=1)
+        cfg = EngineConfig(dim=8, pq=PQConfig(m=2, k=16, iters=4),
+                           bq=BQConfig(bits=32), **kw)
+        eng = QuantixarEngine(cfg, device="cpu")
+        eng.add(x)
+        _, ids = eng.search(x[:5], 3, rescore=True)
+        assert (ids[:, 0] == np.arange(5)).all()
+        assert eng.stats()["ivf_lists"] == cfg.ivf.nlist
+        jcfg = JEngineConfig(dim=8, pq=jpq.PQConfig(m=2, k=16, iters=4),
+                             bq=jbq.BQConfig(bits=32), **kw)
+        assert QuantixarEngine.from_state_dict(
+            cfg, eng.state_dict(), device="cpu").stats()["ivf_max_list"] \
+            == JEngine.from_state_dict(
+                jcfg, eng.state_dict()).stats()["ivf_max_list"]
 
     def test_quantized_state_raises(self):
-        """A state with IVF lists raises; one with PQ codebooks and codes
-        (the JAX layout) loads."""
-        state = {"vectors": np.zeros((2, 8), np.float32),
-                 "n": np.array([2]), "ivf.centroids": np.zeros((1, 8))}
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            QuantixarEngine.from_state_dict(EngineConfig(dim=8), state,
-                                            device="cpu")
+        """A state with IVF lists (a JAX engine's) now loads and answers as
+        the JAX engine does; one with PQ codebooks and codes (the JAX
+        layout) loads as before.  Named for the raise it held before IVF
+        states loaded, kept so that runs before and after the port compare
+        test by test."""
+        x = gaussian_mixture(300, 8, n_clusters=4, scale=0.3, seed=1)
+        jeng = JEngine(JEngineConfig(dim=8, index="ivf"))
+        jeng.add(x)
+        jeng.build()
+        state = jeng.state_dict()
+        assert any(k.startswith("ivf.") for k in state)
+        eng = QuantixarEngine.from_state_dict(EngineConfig(dim=8, index="ivf"),
+                                              state, device="cpu")
+        got, want = eng.search(x[:6], 4), jeng.search(x[:6], 4)
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-5)
         state = {"vectors": np.zeros((2, 8), np.float32), "n": np.array([2]),
                  "dirty": np.array([True]), "meta.__n__": np.array([2]),
                  "codes": np.zeros((2, 2), np.uint8),
