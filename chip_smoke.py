@@ -55,9 +55,13 @@ them sharded, behind the HTTP server) and the xLSTM language model through
            batches of 1,024 at k=10 held to recall@10, delta rows, masked
            searches at ~50 % (the probed lists) and ~5 % (the flat route),
            and ``state_dict`` / ``from_state_dict`` on the card; the coarse
-           probe runs B5's fused entry, the probed lists B1, and each is
-           held to its plain version and timed on the phase's own inputs
-           (the probes' queries and centroids, the lists' candidates);
+           probe runs B5's matrix entry and its top-k (k = nprobe is past
+           the fused entry's fast k on 1,024 centroids), the probed lists
+           B1's list-major entry (``beam_gather_lists``), and each is held
+           to its plain version and timed on the phase's own inputs (the
+           probes' queries and centroids, the probes and lists), the
+           list-major entry bit for bit against B1's gather entry over the
+           same candidates, which it replaced;
   phase H  phase E's exact collection schema at ``shards=4, replicas=2``
            over phase A's corpus by string id (eight engines on the card),
            held hit for hit to a single-engine collection over the same
@@ -74,8 +78,9 @@ Every phase must pass and every kernel of its path must have launched, or
 the script exits non-zero.  The exact scans of phases A-E (delta segment,
 flat route, flat index) run B5's fused entry (``l2_topk``: distances and
 their top-k in one launch over the whole corpus), and phase E's k = 1,000
-query its matrix entry (``l2_distance``); every sLSTM layer of phase F's
-prefill runs the ``slstm`` kernel.  Before the last
+query, C and D's delta scans (k = 40 over 8,192 rows) and G's coarse probe
+its matrix entry (``l2_distance``) and ``topk_smallest``; every sLSTM
+layer of phase F's prefill runs the ``slstm`` kernel.  Before the last
 line it prints the card's name and power limit and one JSON line with each
 kernel's launches, error, time, plain-version time, bound and library-call
 time; the last line is the device JSON.  A kernel's ``ms`` is its device
@@ -159,28 +164,33 @@ RECALL_FLOORS = {"A": {64: 0.60, 256: 0.82},
 FIRST_PASS_FLOORS = {"C": 0.18, "D": 0.12}
 QUANT = {"A": "none", "B": "none", "C": "pq", "D": "bq"}
 # the kernels each phase's path runs; each must launch in its phase
-# (l2_topk, B5's fused entry: every exact scan, the delta scan and, in A, B
-# and E, the exact flat route and the flat index; l2_distance, its matrix
-# entry: E's k = 1,000 query, past the fused entry's k)
+# (l2_topk, B5's fused entry: the exact scans at k up to its fast k, the
+# delta scan and, in A, B and E, the exact flat route and the flat index;
+# l2_distance, its matrix entry: E's k = 1,000 query, past FUSED_MAX_K,
+# and scans of at most MATRIX_MAX_N rows past the fast k: C and D's delta
+# scans at k = 40 (the rescore's fetch), G's coarse probe at k = 32)
 PHASE_KERNELS = {
     "A": ("beam_gather", "pair_gather", "l2_topk"),
     "B": ("beam_gather", "pair_gather", "l2_topk"),
     "C": ("beam_gather", "pair_gather", "beam_gather_adc", "pq_adc",
-          "l2_topk"),
+          "l2_distance"),
     "D": ("beam_gather", "pair_gather", "beam_gather_hamming_masked",
-          "hamming", "l2_topk"),
+          "hamming", "l2_distance"),
     "E": ("beam_gather", "pair_gather", "l2_topk", "l2_distance"),
     "F": ("slstm",),
-    "G": ("beam_gather", "l2_topk"),
+    "G": ("beam_gather_lists", "l2_distance", "l2_topk"),
     "H": ("l2_topk",)}
 # kernels whose source file is named otherwise: B5's two entries share one,
 # and B4's
 SOURCES = {"l2_topk": "l2_distance",
-           "beam_gather_hamming_masked": "beam_gather_hamming"}
+           "beam_gather_hamming_masked": "beam_gather_hamming",
+           "beam_gather_lists": "beam_gather"}
 # a kernel row's launches: the counters of every entry of its source that
-# ran it (B4's kernel runs in phase D through its fused entry only)
+# ran it (B4's kernel runs in phase D through its fused entry only, B1's in
+# phase G through its list-major entry only)
 ENTRIES = {"beam_gather_hamming": ("beam_gather_hamming",
-                                   "beam_gather_hamming_masked")}
+                                   "beam_gather_hamming_masked"),
+           "beam_gather": ("beam_gather", "beam_gather_lists")}
 # B4's fused entry in phase 1: PAD on this share of the slots (never
 # fresh) and fresh on this share of the rest, at L > 1 (L = 1, the entry
 # point's call, is all fresh)
@@ -212,6 +222,17 @@ IVF_RECALL_FLOOR = 0.80
 # B1 at IVF's shape: its plain version would gather (Q, C, D) rows (24.6 GB
 # at Q = 1,024), so it is held on this many of the batch's queries
 IVF_PLAIN_Q = 64
+# B5's two routes on a small corpus (small_topk_sweep): (Q, N, mode,
+# corpus, ks): G's coarse probe (1,024 centroids), C and D's delta scans (5,000
+# rows padded to 8,192: reconstructions in l2, BQ signs in dot), one
+# 65,536-row chunk (the flat route's, past MATRIX_MAX_N), and the batcher's
+# largest bucket
+SMALL_SWEEP = ((1024, 1024, "l2", "raw", (16, 17, 32, 64, 100)),
+               (1024, 8192, "l2", "raw", (16, 17, 40, 64)),
+               (1024, 8192, "dot", "signs", (16, 17, 40)),
+               (1024, 65536, "cosine", "unit", (16, 17, 32, 64, 100)),
+               (32, 1024, "l2", "raw", (64, 65, 100)),
+               (32, 65536, "cosine", "unit", (64, 65, 100)))
 # phase H: the sharded layout: 4 shards, the corpus split of the
 # reference's distributed search tests (a data axis of 4,
 # tests/test_distributed.py) and its sharded checkpoints
@@ -220,7 +241,7 @@ SHARDS, REPLICAS = 4, 2
 # the batcher's largest bucket: B5 is held on a shard's scan at this Q too
 SHARD_SMALL_Q = 32
 # a phase's kernel rows, which its summary leaves to the kernels line
-ROW_KEYS = ("b1_row", "probe_row", "shard_rows")
+ROW_KEYS = ("b1_row", "lists_row", "probe_row", "shard_rows")
 
 
 class SmokeFailure(Exception):
@@ -979,6 +1000,55 @@ def l2_kernel_checks(torch, sift_cos, sift_raw, fm, signs, log):
     return rows
 
 
+def small_topk_sweep(torch, corpora, log):
+    """B5's fused entry against the matrix route (one matrix entry launch
+    and ``topk_smallest``) on the small corpora of SMALL_SWEEP, where
+    ``flat_search`` takes the route past the fused entry's fast k
+    (``MATRIX_MAX_N``, ``fused_fast_k``): the two must agree bit for bit,
+    and each row gives both device times and the one ``dispatch`` picks.
+    ``corpora``: name -> an (N', D) tensor whose first N rows are the
+    corpus and the queries are perturbed rows of it."""
+    from repro_torch.core.flat import fused_fast_k, takes_fused
+    from repro_torch.kernels.l2 import fast_k, l2_distance, l2_topk
+    from repro_torch.kernels.ref import topk_smallest
+
+    for nq in (1, 32, 33, 1024):
+        check(fused_fast_k(nq) == fast_k(nq),
+              f"fused_fast_k({nq}) = {fused_fast_k(nq)}, the kernel's "
+              f"{fast_k(nq)}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    for nq, n, mode, src, ks in SMALL_SWEEP:
+        x = corpora[src][:n].contiguous()
+        sets = []
+        for _ in range(SETS):
+            q = x[torch.randint(0, n, (nq,), generator=gen, device="cuda")]
+            sets.append(q + 0.01 * q.abs().mean() * torch.randn(
+                q.shape, generator=gen, device="cuda"))
+        mat = "l2" if mode == "l2" else "dot"
+        for k in ks:
+            def route(q):
+                d = l2_distance(q, x, mode=mat)
+                return topk_smallest(1.0 + d if mode == "cosine" else d, k)
+
+            fd, fi = l2_topk(sets[0], x, k, mode=mode)
+            rd, ri = route(sets[0])
+            check(torch.equal(fi, ri) and torch.equal(
+                fd.view(torch.int32), rd.view(torch.int32)),
+                f"l2_topk {mode} Q={nq} N={n} k={k}: differs from the "
+                f"matrix route")
+            del fd, fi, rd, ri
+            log({"topk_sweep": "l2_topk vs matrix route", "Q": nq, "N": n,
+                 "D": x.shape[1], "mode": mode, "k": k,
+                 **timing(torch, [lambda q=q: l2_topk(q, x, k, mode=mode)
+                                  for q in sets]),
+                 **timing(torch, [lambda q=q: route(q) for q in sets],
+                          prefix="route_"),
+                 "dispatch": "fused" if takes_fused(mode, nq, n, k)
+                 else "route"})
+        torch.cuda.empty_cache()
+
+
 def topk_k_sweep(torch, sift_cos, sift_raw, log):
     """The fused entry against the chunked route it replaced (the matrix
     entry over 65,536-row chunks, ``topk_smallest``, ``merge_topk``) over
@@ -1528,77 +1598,191 @@ def run_api(torch, corpus, queries, gt, new_rows, phase_a, counters, log):
 # phase G: IVF on the card
 # ---------------------------------------------------------------------------
 
-def ivf_b1_row(torch, eng, queries, log):
-    """B1 where phase G runs it: the candidate distances over the probed
-    lists.  SETS batches of QUERY_BATCH queries run with B1's inputs kept
-    (queries, the (Q, nprobe * max_list) candidate ids with PAD, the prepped
-    corpus); the kernel is held to its plain version on the first
-    IVF_PLAIN_Q queries of the first batch (PAD slots read row 0 in both,
-    as JAX's gather clamps them), and timed at the full shape over the
-    batches as input sets.  Its bound is the larger of the bytes (the
-    unique rows a batch touches, its ids and queries read once, its output
-    written once) and the operations (3 a gathered element), which at this
-    shape are within 2 % of each other."""
+def ivf_lists_rows(torch, eng, queries, log):
+    """B1's list-major entry where phase G runs it, and B1's gather entry
+    on the same candidates, which it replaced (the yardstick).  SETS
+    batches of QUERY_BATCH queries run with the entry's inputs kept
+    (queries, the (Q, nprobe) probes, the lists, their live lengths, the
+    prepped corpus).  On the first batch the entry must equal B1's gather
+    entry over the candidate block lists[probe] (PAD clamped to row 0, as
+    B1 reads it) bit for bit on every live slot and be +inf on every PAD
+    slot; on its first IVF_PLAIN_Q queries both are held to their plain
+    versions.  Both are timed at their device time over the batches as
+    input sets, in this call.  Each row's bound_ms counts what its own
+    function needs: B1's the unique rows a batch touches, its ids and
+    queries read once and its output written once, or 3 operations a
+    candidate element, PAD slots included; the entry's the same rows,
+    queries and output with the probe and the lists (and their lengths)
+    in place of the ids, or 3 operations a live slot's element only, for
+    it computes nothing on PAD.  The entry's row also carries B1's bound
+    at this shape (bound_b1_ms, share_b1), the yardstick both rows meet.
+    Returns (the entry's row, B1's row)."""
+    from repro_torch.core.ivf import PAD
     from repro_torch.kernels import beam_gather as bg
     from repro_torch.kernels import ops, ref
 
-    orig = ops.beam_gather_distances
+    orig = ops.beam_gather_lists_distances
     calls = []
 
-    def keep(q, ids, corpus, **kw):
-        calls.append((q, ids, corpus))
-        return orig(q, ids, corpus, **kw)
+    def keep(q, probe, lists, list_len, corpus, **kw):
+        calls.append((q, probe, lists, list_len, corpus))
+        return orig(q, probe, lists, list_len, corpus, **kw)
 
-    ops.beam_gather_distances = keep
+    ops.beam_gather_lists_distances = keep
     try:
         for lo in range(0, SETS * QUERY_BATCH, QUERY_BATCH):
             eng.search(queries[lo: lo + QUERY_BATCH], K)
     finally:
-        ops.beam_gather_distances = orig
+        ops.beam_gather_lists_distances = orig
     torch.cuda.synchronize()
     check(len(calls) == SETS,
-          f"G: {len(calls)} beam_gather calls for {SETS} batches")
-    sets = [(q.float().contiguous(), ids.to(torch.int32).contiguous())
-            for q, ids, _ in calls]
-    corpus = calls[0][2]
-    q, ids = sets[0]
-    nq, length = ids.shape
-    d = corpus.shape[1]
-    sub_q, sub_ids = q[:IVF_PLAIN_Q].contiguous(), ids[:IVF_PLAIN_Q].contiguous()
-    got = bg.beam_gather(sub_q, sub_ids, corpus, mode="l2")
-    want = ref.beam_gather_l2_ref(sub_q, sub_ids.clamp_min(0), corpus)
+          f"G: {len(calls)} beam_gather_lists calls for {SETS} batches")
+    _, _, lists, list_len, corpus = calls[0]
+    sets = [(q.float().contiguous(), p.to(torch.int32).contiguous())
+            for q, p, *_ in calls]
+    # the candidate block the card path no longer builds, for B1
+    cands = [lists[p.long()].reshape(p.shape[0], -1) for _, p in sets]
+    b1_sets = [(q, c.clamp_min(0).contiguous()) for (q, _), c in
+               zip(sets, cands)]
+    q, probe = sets[0]
+    nq, nprobe = probe.shape
+    nlist, m = lists.shape
+    length, d = nprobe * m, corpus.shape[1]
+    got = bg.beam_gather_lists(q, probe, lists, list_len, corpus)
+    b1 = bg.beam_gather(q, b1_sets[0][1], corpus, mode="l2")
     torch.cuda.synchronize()
-    err = (got - want).abs()
-    norms = corpus.norm(dim=1)[sub_ids.clamp_min(0).long()]
-    tol = RTOL * want.abs() + ATOL_PER_NORM * sub_q.norm(dim=1)[:, None] * norms
-    check(bool((err <= tol).all()),
+    live = cands[0] != PAD
+    check(torch.equal(got[live].view(torch.int32), b1[live].view(torch.int32)),
+          f"G: beam_gather_lists differs from beam_gather on "
+          f"{int((got[live] != b1[live]).sum())} live slots")
+    check(bool(torch.isinf(got[~live]).all()),
+          "G: beam_gather_lists is finite on a PAD slot")
+    digest = output_digest(got)
+    del b1
+    # both held to their plain versions on the first IVF_PLAIN_Q queries
+    sub_q, sub_p = q[:IVF_PLAIN_Q].contiguous(), probe[:IVF_PLAIN_Q].contiguous()
+    sub_ids = b1_sets[0][1][:IVF_PLAIN_Q].contiguous()
+    sub_live = live[:IVF_PLAIN_Q]
+    norms = corpus.norm(dim=1)[sub_ids.long()]
+    atol = ATOL_PER_NORM * sub_q.norm(dim=1)[:, None] * norms
+    want = ref.beam_gather_lists_ref(sub_q, sub_p, lists, list_len, corpus)
+    err = (got[:IVF_PLAIN_Q] - want)[sub_live].abs()
+    check(bool((err <= RTOL * want[sub_live].abs() + atol[sub_live]).all())
+          and torch.equal(torch.isinf(got[:IVF_PLAIN_Q]), torch.isinf(want)),
+          f"G: beam_gather_lists at IVF's shape: max err {float(err.max())}")
+    lists_err = float(err.max())
+    del want, err
+    b1_sub = bg.beam_gather(sub_q, sub_ids, corpus, mode="l2")
+    want = ref.beam_gather_l2_ref(sub_q, sub_ids, corpus)
+    torch.cuda.synchronize()
+    err = (b1_sub - want).abs()
+    check(bool((err <= RTOL * want.abs() + atol).all()),
           f"G: beam_gather at IVF's shape: max err {float(err.max())}")
-    pad_share = float((ids < 0).float().mean())
-    uniq = sum(int(torch.unique(i.clamp_min(0)).numel()) for _, i in sets) \
-        / len(sets)
+    b1_err = float(err.max())
+    del want, err, b1_sub, norms, atol, got
+
+    # the schedule: tiles a batch and the rows they read
+    tq = bg.tile_q(d)
+    lst, _, count = bg.tile_of_block(
+        *bg.list_tiles(probe, nlist, tq)[1:], tq,
+        bg.list_blocks(probe.numel(), nlist, tq))
+    tiles = lst < nlist
+    tile_rows = int(list_len.long()[lst[tiles]].sum())
+    pad_share = float((~live).float().mean())
+    n_live = sum(int((c != PAD).sum()) for c in cands) / len(cands)
+    uniq = sum(int(torch.unique(c.clamp_min(0)).numel()) for c in cands) \
+        / len(cands)
+    del cands, live
     nbytes = uniq * d * 4 + nq * d * 4 + nq * length * 4 + nq * length * 4
     b_ms, b_by = bound(nbytes, nq * length * d * 3)
-    r = {"name": "beam_gather", "inputs": "G search batches", "mode": "l2",
-         "Q": nq, "L": length, "D": d, "N": corpus.shape[0],
-         "pad_share": pad_share, "unique_rows": uniq,
-         "max_abs_err": float(err.max()), "checked_Q": IVF_PLAIN_Q,
-         **timing(torch, [lambda q=q, ids=ids: bg.beam_gather(
-             q, ids, corpus, mode="l2") for q, ids in sets], graph=False),
-         **timing(torch, [lambda q=q, ids=ids: bg.beam_gather(
-             q[:IVF_PLAIN_Q].contiguous(), ids[:IVF_PLAIN_Q].contiguous(),
-             corpus, mode="l2") for q, ids in sets], prefix="q64_"),
-         # the plain version gathers (64, C, D) rows, 1.5 GB, and keeps
-         # two temporaries as large: timed per call, never in a graph
-         "plain_ms": time_ms(torch, lambda: ref.beam_gather_l2_ref(
-             sub_q, sub_ids.clamp_min(0), corpus), reps=5, warmup=1),
-         "plain_timer": "call", "plain_Q": IVF_PLAIN_Q,
-         "bound_ms": b_ms, "bound_us": b_ms * 1e3, "bound_by": b_by,
-         "library_ms": None,
-         "row_bytes_read": nq * length * d * 4}
-    r["share"] = b_ms / r["ms"]
-    log(r)
-    del calls, sets, got, want, err, norms, tol
+    live_ms, live_by = bound(uniq * d * 4 + nq * d * 4 + nq * nprobe * 4
+                             + nlist * (m + 1) * 4 + nq * length * 4,
+                             n_live * d * 3)
+    shape = {"inputs": "G search batches", "mode": "l2", "Q": nq,
+             "L": length, "P": nprobe, "M": m, "nlist": nlist, "D": d,
+             "N": corpus.shape[0], "pad_share": pad_share,
+             "unique_rows": uniq, "live_slots": n_live,
+             "checked_Q": IVF_PLAIN_Q, "library_ms": None}
+    t_lists = timing(torch, [lambda q=q, p=p: bg.beam_gather_lists(
+        q, p, lists, list_len, corpus) for q, p in sets])
+    t_b1 = timing(torch, [lambda q=q, c=c: bg.beam_gather(
+        q, c, corpus, mode="l2") for q, c in b1_sets])
+    lists_row = {
+        "name": "beam_gather_lists", **shape, "bound_ms": live_ms,
+        "bound_us": live_ms * 1e3, "bound_by": live_by,
+        "bound_b1_ms": b_ms, "max_abs_err": lists_err, "digest": digest, "bit_equal_to_beam_gather": True, **t_lists,
+        "b1_ms": t_b1["ms"], "b1_call_ms": t_b1["call_ms"],
+        "plain_ms": time_ms(torch, lambda: ref.beam_gather_lists_ref(
+            sub_q, sub_p, lists, list_len, corpus), reps=5, warmup=1),
+        "plain_timer": "call", "plain_Q": IVF_PLAIN_Q,
+        "tile_q": tq, "tiles": int(tiles.sum()),
+        "tile_fill": float(count[tiles].float().mean()) / tq,
+        "row_bytes_read": tile_rows * d * 4}
+    lists_row["share"] = live_ms / lists_row["ms"]
+    lists_row["share_b1"] = b_ms / lists_row["ms"]
+    log(lists_row)
+    b1_row = {
+        "name": "beam_gather", **shape, "bound_ms": b_ms,
+        "bound_us": b_ms * 1e3, "bound_by": b_by, "max_abs_err": b1_err,
+        **t_b1,
+        # the plain version gathers (64, C, D) rows, 1.5 GB, and keeps
+        # two temporaries as large: timed per call, never in a graph
+        "plain_ms": time_ms(torch, lambda: ref.beam_gather_l2_ref(
+            sub_q, sub_ids, corpus), reps=5, warmup=1),
+        "plain_timer": "call", "plain_Q": IVF_PLAIN_Q,
+        "row_bytes_read": nq * length * d * 4}
+    b1_row["share"] = b_ms / b1_row["ms"]
+    log(b1_row)
+    del calls, sets, b1_sets
     torch.cuda.empty_cache()
+    return lists_row, b1_row
+
+
+@contextlib.contextmanager
+def capture_probes():
+    """Within the block, keeps the (queries, centroids, k, metric) of every
+    coarse probe ``_ivf_search`` runs (its ``flat_search`` call); yields
+    the list.  The calls go on as before."""
+    from repro_torch.core import ivf as ivf_mod
+
+    calls = []
+    orig = ivf_mod.flat_search
+
+    def keep(q, x, k, metric="cosine", **kw):
+        calls.append((q, x, k, metric))
+        return orig(q, x, k, metric=metric, **kw)
+
+    ivf_mod.flat_search = keep
+    try:
+        yield calls
+    finally:
+        ivf_mod.flat_search = orig
+
+
+def ivf_probe_row(torch, probes, log):
+    """G's coarse probe, Q = 1,024 prepped queries x the 1,024 centroids,
+    l2, k = nprobe = 32: the route ``flat_search`` takes there (B5's matrix
+    entry and ``topk_smallest``, `takes_fused` False) against B5's fused
+    entry on the same inputs, which it must equal bit for bit; the fused
+    entry's row (`captured_topk_row`: held to its plain version, timed)
+    with the route's device and call times beside it (``route_ms``)."""
+    from repro_torch.core.flat import flat_search, takes_fused
+    from repro_torch.kernels.l2 import l2_topk
+
+    q, x, k, metric = probes[0]
+    check(metric == "l2" and not takes_fused(metric, q.shape[0],
+                                             x.shape[0], k),
+          f"G: the coarse probe takes the fused entry ({q.shape}, k {k})")
+    rd, ri = flat_search(q, x, k, metric=metric)
+    fd, fi = l2_topk(q, x, k, mode=metric)
+    check(torch.equal(ri, fi.int()) and torch.equal(
+        rd.view(torch.int32), fd.view(torch.int32)),
+        "G: the probe's route differs from the fused entry")
+    r = captured_topk_row(torch, probes, log, inputs="G coarse probe",
+                          dispatch="route")
+    r.update(timing(torch, [lambda a=a, b=b: flat_search(a, b, k, metric=metric)
+                            for a, b, _, _ in probes], prefix="route_"))
+    log(r)
     return r
 
 
@@ -1659,6 +1843,11 @@ def run_ivf(torch, corpus, queries, gt, new_rows, counters, log):
     res["recall_at_10"] = recall_at_k(ids, gt)
     res["search_launches"] = {k: v - before[k]
                               for k, v in counters.read().items()}
+    check(res["search_launches"]["beam_gather_lists"] > 0
+          and res["search_launches"]["beam_gather"] == 0,
+          f"G: the search ran B1's gather entry "
+          f"{res['search_launches']['beam_gather']} times, its list-major "
+          f"entry {res['search_launches']['beam_gather_lists']}")
     log({"search": {"phase": "G", "qps": res["qps"],
                     "recall_at_10": res["recall_at_10"]}})
     check(res["recall_at_10"] >= IVF_RECALL_FLOOR,
@@ -1708,16 +1897,16 @@ def run_ivf(torch, corpus, queries, gt, new_rows, counters, log):
     # after the launch count: these launches are measurements.  B5 where
     # the coarse probe runs it: Q = 1,024 prepped queries against the
     # (nlist, D) centroids at k = nprobe, past the fused entry's fast k
-    with capture_topk([QUERY_BATCH]) as calls:
+    with capture_probes() as probes:
         for lo in range(0, SETS * QUERY_BATCH, QUERY_BATCH):
             eng.search(queries[lo: lo + QUERY_BATCH], K)
-    probes = [c for c in calls[QUERY_BATCH] if c[1].shape[0] == IVF_NLIST]
-    check(len(probes) == SETS and all(c[2:] == (IVF_NPROBE, "l2")
-                                      for c in probes),
-          f"G: {len(probes)} coarse probes on l2_topk for {SETS} batches")
-    res["probe_row"] = captured_topk_row(torch, probes, log,
-                                         inputs="G coarse probe")
-    res["b1_row"] = ivf_b1_row(torch, eng, queries, log)
+    check(len(probes) == SETS and all(
+        c[0].shape[0] == QUERY_BATCH and c[1].shape[0] == IVF_NLIST
+        and c[2:] == (IVF_NPROBE, "l2") for c in probes),
+          f"G: {len(probes)} coarse probes for {SETS} batches")
+    res["probe_row"] = ivf_probe_row(torch, probes, log)
+    res["lists_row"], res["b1_row"] = ivf_lists_rows(torch, eng, queries,
+                                                     log)
     log({"phase_result": {k: v for k, v in res.items()
                           if k not in ROW_KEYS}})
     del eng
@@ -2191,6 +2380,7 @@ class Counters:
                      "hamming": (hamming, "launches"),
                      "l2_distance": (l2, "launches"),
                      "l2_topk": (l2, "topk_launches"),
+                     "beam_gather_lists": (beam_gather, "lists_launches"),
                      "slstm": (slstm, "launches")}
 
     def reset(self):
@@ -2299,6 +2489,8 @@ def main(argv) -> int:
             print(card)
             return 0
         topk_k_sweep(torch, sift_cos, sift_raw, log)
+        small_topk_sweep(torch, {"raw": sift_raw, "unit": sift_cos,
+                                 "signs": signs}, log)
         del sift_raw, sift_cos, fm_dev, pq, bq, codes, lut, words, q_words
         del signs, q_dev
         torch.cuda.empty_cache()
@@ -2371,15 +2563,22 @@ def main(argv) -> int:
     # launches_by_entry splits them); beam_gather_hamming_masked, its fused
     # entry, on four of D's own search steps (fused_step_row), with the
     # kernel's device ms in one D batch (in_path_ms).  beam_gather's entry
-    # also carries its row at IVF's shape, from phase G's own candidates
-    # (at_ivf: Q=1024 x L=46,880, l2; the plain version on 64 queries);
-    # l2_topk's its rows on G's coarse probes (at_ivf_probe: Q=1024 x the
-    # 1,024 centroids, l2, k=nprobe=32) and on one of H's shards
-    # (at_shard: Q=1024 and 32 x ~250k unit rows, cosine, k=10).
+    # also carries its rows at IVF's shape, from phase G's own candidates
+    # (at_ivf: Q=1024 x L=46,880, l2; the plain version on 64 queries) and
+    # its list-major entry's on the same batches (at_ivf_lists, also its
+    # own row, beam_gather_lists, with B1's b1_ms beside it: G runs B1
+    # through that entry only; its bound_ms counts the live slots only,
+    # bound_b1_ms is B1's at the same shape); l2_topk's its rows on G's coarse probes
+    # (at_ivf_probe: Q=1024 x the 1,024 centroids, l2, k=nprobe=32, with
+    # route_ms, the matrix route flat_search takes there) and on one of H's
+    # shards (at_shard: Q=1024 and 32 x ~250k unit rows, cosine, k=10).
     main_rows = {
         "beam_gather": (pick("beam_gather", mode="dot", D=128, L=256), "A",
                         "beam_gather.py:98",
-                        {"at_ivf": phase["G"]["b1_row"]}),
+                        {"at_ivf": phase["G"]["b1_row"],
+                         "at_ivf_lists": phase["G"]["lists_row"]}),
+        "beam_gather_lists": (phase["G"]["lists_row"], "G",
+                              "beam_gather.py:98"),
         "pair_gather": (pick("pair_gather", mode="dot", D=128, C=60,
                              row0_frac=0.0), "A",
                         "bulk_prune.py:47"),
@@ -2423,7 +2622,9 @@ def main(argv) -> int:
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
             **{k: r[k] for k in ("call_ms", "plain_call_ms",
                                  "library_call_ms", "bound_fp32_ms",
-                                 "route_ms", "path", "floor_ms", "digest",
+                                 "bound_b1_ms", "share_b1", "b1_ms",
+                                 "route_ms",
+                                 "path", "floor_ms", "digest",
                                  "in_path_ms", "in_path_launches",
                                  "fresh_share", "share")
                if k in r},

@@ -14,7 +14,8 @@ under a ~5 % mask (the flat route) it prints, as one JSON line each:
   device_ms  summed duration of every device event (kernels, copies, sets)
              that starts in the span, and busy = device_ms / wall_ms (one
              stream, so the events do not overlap);
-  <kernel>_ms  each of the port's CUDA kernels' share (beam_gather,
+  <kernel>_ms  each of the port's CUDA kernels' share (beam_gather and
+             beam_gather_lists: B1's gather and list-major entries,
              pair_gather, beam_gather_adc, beam_gather_hamming (both of
              B4's entries), pq_adc, hamming, l2_distance, l2_topk: B5's
              matrix and fused entries), and <kernel>_launches its count;
@@ -38,9 +39,10 @@ under a ~5 % mask (the flat route) it prints, as one JSON line each:
 
 ``--phase G`` builds and searches phase G's IVF engine instead (cosine,
 nlist 1,024, nprobe 32; the build spans are "kmeans" and "lists", the
-last span empty): the search span gives B1's ms over the probed lists
-against the coarse probe's ``l2_topk`` ms, the candidates' top-k
-(``topk_ms``) and the host's.
+last span empty): the search span gives B1's list-major entry's ms over
+the probed lists (``beam_gather_lists``) against the coarse probe's
+(``l2_distance``: the matrix route, k = nprobe past the fused entry's fast
+k), the candidates' top-k (``topk_ms``) and the host's.
 
 ``--phase H`` profiles phase H's sharded collection instead: the same
 corpus by string id in an exact cosine collection at 4 shards x 2
@@ -107,6 +109,7 @@ IVF_NLIST, IVF_NPROBE = 1024, 32
 # each kernel's device function, as the profiler names it (demangled), by
 # a part no other kernel's name contains
 KERNELS = {"beam_gather": "beam_gather_f32_kernel",
+           "beam_gather_lists": "beam_gather_lists_kernel",
            "pair_gather": "pair_gather_f32_kernel",
            "beam_gather_adc": "beam_gather_adc_kernel",
            "beam_gather_hamming": "beam_gather_hamming_kernel",

@@ -19,12 +19,15 @@ k <= `FUSED_MAX_K` (100), it is one launch of B5's fused entry
 on the tensor cores and a per-block top-k on the same 64-bit key, so the
 (Q, N) matrix is never written and no chunk loop runs; it returns what the
 chunked scan over B5's matrix entry returns, bit for bit.  On the CPU, for
-other metrics and for larger k it is `scan_topk` over the metric registry
-(on the card, the matrix entry ``l2_distance``), where a larger k is
-faster: the fused entry takes k <= 256, but past ~100 its lists' insertions
-cost more than the matrix and the chunked top-k.  Cosine normalizes the
-rows, the corpus once per call or not at all where the caller passes its
-cached unit rows (``unit_corpus``).
+other metrics, for larger k, and on the card for a corpus of at most
+`MATRIX_MAX_N` (8,192) rows at a k past the fused entry's fast k
+(`fused_fast_k`), it is `scan_topk` over the metric registry (on the card,
+the matrix entry ``l2_distance``), where those are faster: the fused entry
+takes k <= 256, but past its fast k its lists' insertions cost more than
+the matrix and the chunked top-k, at any N past k ~100 and on a small
+corpus past the fast k.  Both routes return the same bits.  Cosine normalizes the rows, the
+corpus once per call or not at all where the caller passes its cached unit
+rows (``unit_corpus``).
 """
 
 from __future__ import annotations
@@ -46,6 +49,32 @@ _FUSED = ("l2", "dot", "cosine")
 #: chunked matrix route 62-64 throughout; at Q = 32, 0.74 / 3.5 / 9.1 / 42
 #: ms against 7.5-11.5 (chip_smoke.py's topk_k_sweep).  Past it, the route.
 FUSED_MAX_K = 100
+#: the largest corpus that takes the route (one matrix and its top-k)
+#: rather than the fused entry at a k past `fused_fast_k`.  On an H100
+#: (chip_smoke.py's small_topk_sweep, device ms) at Q = 1,024 the route
+#: takes 0.14-0.16 ms over 1,024 rows and 0.58-0.61 over 8,192 at any k,
+#: the fused entry 0.82-8.0 and 1.27-7.7 from k = 17 to 100; over 65,536
+#: rows the route's top-k alone costs more (3.8 ms) and the fused entry
+#: wins at k = 17 (2.1), so the crossover lies above 8,192 rows.
+MATRIX_MAX_N = 8192
+
+
+def fused_fast_k(nq: int) -> int:
+    """The largest k whose lists the fused entry keeps in shared memory:
+    64 for Q <= 32 (one block takes every query), 16 above.  A copy of
+    ``csrc/l2_distance.cu``'s limit (``kernels.l2.fast_k`` reads it from
+    the library), kept here so that the dispatch needs no library; the two
+    must change together (a ``cuda`` test and chip_smoke.py hold them
+    equal)."""
+    return 64 if nq <= 32 else 16
+
+
+def takes_fused(metric: str, nq: int, n: int, k: int) -> bool:
+    """Whether an exact scan of nq queries over n rows for their k nearest
+    takes the fused entry on the card (else the matrix route)."""
+    kk = min(k, n)
+    return (metric in _FUSED and 0 < kk <= FUSED_MAX_K
+            and not (n <= MATRIX_MAX_N and kk > fused_fast_k(nq)))
 
 
 def merge_topk(d_a: torch.Tensor, i_a: torch.Tensor, d_b: torch.Tensor,
@@ -117,14 +146,13 @@ def flat_search(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     Returns:
       (distances (Q,k) ascending, indices (Q,k) int32).
     """
-    if (corpus.device.type == "cuda" and metric in _FUSED
-            and corpus.shape[0] > 0
-            and min(k, corpus.shape[0]) <= FUSED_MAX_K):
+    kk = min(k, corpus.shape[0])
+    if corpus.device.type == "cuda" and takes_fused(
+            metric, queries.shape[0], corpus.shape[0], k):
         if metric == "cosine":
             queries = normalize(queries)
             corpus = corpus if unit_corpus else normalize(corpus)
-        d, idx = ops.l2_topk(queries, corpus, min(k, corpus.shape[0]),
-                             mode=metric, mask=mask)
+        d, idx = ops.l2_topk(queries, corpus, kk, mode=metric, mask=mask)
         return d, _empty_slots(d, (idx + base_index).to(torch.int32),
                                chunk, corpus.shape[0])
     pair = get_metric(metric)

@@ -22,10 +22,14 @@ each round fixes one more closing: at most ``nlist`` rounds of O(N) work.
 
 `_ivf_search` on the CPU follows the reference step by step (norm-expansion
 distances, tie-stable top-k).  On the card the coarse probe is the exact
-scan ``flat_search`` over the centroids (one launch of B5's fused
-``l2_topk`` up to ``FUSED_MAX_K`` probes) and the candidates' distances
-are B1 ``beam_gather`` (diff-square-sum) over the probed lists, so ids match
-the CPU's except at near-ties and distances within B1's tolerance.
+scan ``flat_search`` over the centroids, and the candidates' distances are
+B1's list-major entry ``beam_gather_lists`` (diff-square-sum, bit for bit
+B1 ``beam_gather`` over ``lists[probe]``), which reads each probed list once
+a tile of the queries that probe it and takes the lists' live lengths
+(``IVFIndex.list_len``) in place of the (Q, nprobe·max_list) block of
+candidate ids; a kept slot's id is read back from the probe and the lists.
+So ids match the CPU's except at near-ties and distances within B1's
+tolerance.
 """
 
 from __future__ import annotations
@@ -38,12 +42,11 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import ops
-from ..kernels.ref import topk_smallest
+from ..kernels.beam_gather import MAX_LIST_SLOTS
+from ..kernels.ref import PAD, topk_smallest
 from .distances import normalize
 from .flat import flat_search
 from .pq import _fit_one_subspace, _sq_dists
-
-PAD = -1
 
 #: bytes of one query chunk's candidate block: the (Q, C) distances on the
 #: card, the (Q, C, D) gathered rows of the plain form
@@ -51,9 +54,6 @@ IVF_BLOCK_BYTES = 1 << 28
 #: rows per block of build_lists' first assignment: bounds the (rows,
 #: nlist) distance block
 ASSIGN_CHUNK = 1 << 16
-#: B1 launches a block per 8 candidates of a query on a grid axis that
-#: holds at most 65,535 blocks (csrc/beam_gather.cu)
-MAX_CANDIDATES = 8 * 65535
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +75,7 @@ class IVFIndex:
         self.device = resolve_device(device)
         self.centroids: Optional[torch.Tensor] = None   # (nlist, D) float32
         self.lists: Optional[torch.Tensor] = None       # (nlist, max_list) int32
+        self.list_len: Optional[torch.Tensor] = None    # (nlist,) int32
         self.list_sizes: Optional[np.ndarray] = None
 
     @property
@@ -141,6 +142,7 @@ class IVFIndex:
         start = torch.cumsum(counts, 0) - counts
         out[lst, rows[: len(order)] - start[lst]] = order.to(torch.int32)
         self.lists = out
+        self.list_len = live_lengths(out)
         self.list_sizes = counts.cpu().numpy()
 
     # ------------------------------------------------------------ search
@@ -154,7 +156,7 @@ class IVFIndex:
     def search_prepped(self, corpus: torch.Tensor, queries, k: int
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         return _ivf_search(corpus, self.prep(queries), self.centroids,
-                           self.lists, k, self.config.nprobe)
+                           self.lists, k, self.config.nprobe, self.list_len)
 
     def state_dict(self):
         return {"centroids": self.centroids.cpu().numpy(),
@@ -165,17 +167,38 @@ class IVFIndex:
             np.array(state["centroids"], dtype=np.float32)).to(self.device)
         lists = np.array(state["lists"], dtype=np.int32)
         self.lists = torch.as_tensor(lists).to(self.device)
-        # list_sizes is derived state and is not serialized
+        # list_len and list_sizes are derived state and are not serialized
+        self.list_len = live_lengths(self.lists)
         self.list_sizes = (lists != PAD).sum(axis=1)
+
+
+def live_lengths(lists: torch.Tensor) -> torch.Tensor:
+    """(nlist,) int32 on the lists' device: one past each list's last
+    non-PAD slot (its size, for the packed lists `build_lists` makes).  The
+    list-major kernel reads no slot at or past it."""
+    pos = torch.arange(1, lists.shape[1] + 1, dtype=torch.int32,
+                       device=lists.device)
+    return torch.where(lists != PAD, pos, 0).amax(1)
+
+
+def _slot_ids(lists: torch.Tensor, probe: torch.Tensor,
+              idx: torch.Tensor) -> torch.Tensor:
+    """The ids at columns ``idx`` (Q, k) of the (Q, nprobe·max_list)
+    candidate block ``lists[probe].reshape(Q, -1)``, without the block:
+    lists[probe[q, idx // max_list], idx % max_list]."""
+    m = lists.shape[1]
+    return lists[probe.gather(1, idx // m).long(), idx % m]
 
 
 def _ivf_search(corpus: torch.Tensor, queries: torch.Tensor,
                 centroids: torch.Tensor, lists: torch.Tensor, k: int,
-                nprobe: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                nprobe: int, list_len: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(distances (Q, min(k, C)) ascending, int32 ids; -1 where +inf) of
     each query over the candidates of its ``nprobe`` nearest lists, C =
     nprobe·max_list.  All tensors on one device; the card takes the
-    kernels, the CPU the reference's arithmetic."""
+    kernels, the CPU the reference's arithmetic.  ``list_len``: the lists'
+    `live_lengths` (derived here when None)."""
     q = queries
     nq = q.shape[0]
     card = corpus.device.type == "cuda"
@@ -187,32 +210,43 @@ def _ivf_search(corpus: torch.Tensor, queries: torch.Tensor,
         dc = ((q * q).sum(1)[:, None] + (centroids * centroids).sum(1)[None, :]
               - 2.0 * (q @ centroids.T))
         _, probe = topk_smallest(dc, nprobe)
-    # 2. candidate ids: (Q, nprobe * max_list)
-    cand = lists[probe].reshape(nq, -1)
-    c = cand.shape[1]
+    # 2. candidates: (Q, nprobe * max_list) slots, their ids built as a
+    # block on the CPU only
+    c = nprobe * lists.shape[1]
     kk = min(k, c)
-    if card and c > MAX_CANDIDATES:
-        raise ValueError(
-            f"IVF search: {c} candidates a query (nprobe {nprobe} x "
-            f"max_list {lists.shape[1]}) exceed beam_gather's "
-            f"{MAX_CANDIDATES}; lower nprobe or raise nlist")
+    if card:
+        if c > MAX_LIST_SLOTS:
+            raise ValueError(
+                f"IVF search: {c} candidates a query (nprobe {nprobe} x "
+                f"max_list {lists.shape[1]}) exceed beam_gather_lists's "
+                f"int32 offsets ({MAX_LIST_SLOTS}); lower nprobe or raise "
+                f"nlist")
+        if list_len is None:
+            list_len = live_lengths(lists)
+    else:
+        cand = lists[probe].reshape(nq, -1)
     # 3. exact distances to the candidates, a chunk of queries at a time
     row_bytes = c * 4 * (1 if card else corpus.shape[1])
     step = max(1, min(IVF_BLOCK_BYTES // max(row_bytes, 1),
-                      (2 ** 31 - 1) // max(c, 1)))
+                      MAX_LIST_SLOTS // max(c, 1)))
     out_d, out_i = [], []
     for lo in range(0, nq, step):
-        qc, cc = q[lo: lo + step], cand[lo: lo + step]
+        qc = q[lo: lo + step]
         if card:
-            # B1 clamps PAD (-1) to row 0; those slots are masked below
-            d = ops.beam_gather_distances(qc, cc, corpus, mode="l2")
+            pc = probe[lo: lo + step]
+            # +inf on PAD slots and past each list's live length
+            d = ops.beam_gather_lists_distances(qc, pc, lists, list_len,
+                                                corpus)
+            dk, idx = topk_smallest(d, kk)
+            ids = _slot_ids(lists, pc, idx)
         else:
+            cc = cand[lo: lo + step]
             vecs = corpus[cc.clamp_min(0).long()]            # (q, C, D)
             d = ((qc * qc).sum(1)[:, None] + (vecs * vecs).sum(-1)
                  - 2.0 * torch.einsum("qd,qcd->qc", qc, vecs))
-        d = torch.where(cc != PAD, d, float("inf"))
-        dk, idx = topk_smallest(d, kk)
-        ids = cc.gather(1, idx)
+            d = torch.where(cc != PAD, d, float("inf"))
+            dk, idx = topk_smallest(d, kk)
+            ids = cc.gather(1, idx)
         out_d.append(dk)
         out_i.append(torch.where(torch.isfinite(dk), ids,
                                  torch.full_like(ids, -1)))

@@ -883,6 +883,13 @@ extern "C" int l2_distance_f32(const float* q, const float* x, float* out,
   return run<false>(a, q, x, Q, N, D, static_cast<cudaStream_t>(stream));
 }
 
+// the largest k whose top-k lists the fused entry keeps in shared memory
+// at Q queries (past it they live in cand, slower); core/flat.py's
+// fused_fast_k, which dispatches without the library, must agree
+extern "C" int l2_topk_fast_k(int Q) {
+  return kListBytes / ((Q <= kSwapQ ? kSwapQ : kTile) * 8);
+}
+
 // the fused entry: cand (Q, splits, k) int64, each (query, split) row the
 // ascending k smallest keys of the split's corpus rows (mask == 0 rows as
 // +inf; mask may be null); mode 0 = l2, 1 = dot, 2 = cosine

@@ -1,28 +1,94 @@
 """Fused gather-distance for wide-beam HNSW traversal: the CUDA kernel's
-wrapper (``csrc/beam_gather.cu``, replacing the JAX package's Pallas
+wrappers (``csrc/beam_gather.cu``, replacing the JAX package's Pallas
 ``beam_gather_kernel``).
 
-``launches`` counts the kernel's launches in this process; it is bumped at
-the launch and nowhere else, so a run can show it went through the kernel.
+Two entries: `beam_gather`, the TPU kernel's function over a (Q, L) block
+of ids, and `beam_gather_lists`, its l2 mode where the IVF index runs it,
+list-major: the probe's (query, rank) entries grouped by list
+(`list_tiles`), one block a list and a tile of its queries, each probed
+list's rows read once a tile.  ``launches`` and ``lists_launches`` count
+each entry's launches in this process; each is bumped at its launch and
+nowhere else, so a run can show it went through the kernel.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
 from . import _build, _launch
 
 MODES = {"l2": 0, "dot": 1}
+#: the list-major entry writes its (Q, P * M) output at int32 offsets
+MAX_LIST_SLOTS = 2 ** 31 - 1
 
 launches = 0
+lists_launches = 0
 
 
 @functools.cache
 def _fn():
     return _launch.c_fn(_build.load("beam_gather"), "beam_gather_f32",
                         n_ptrs=4, n_ints=5)
+
+
+@functools.cache
+def _lists_fn():
+    return _launch.c_fn(_build.load("beam_gather"), "beam_gather_lists_f32",
+                        n_ptrs=8, n_ints=6)
+
+
+@functools.cache
+def tile_q(d: int) -> int:
+    """Queries of one list a block of the list-major entry takes at width
+    ``d`` (32, or 8 where the wide tile's ring does not fit in shared
+    memory): the kernel's own choice."""
+    fn = _build.load("beam_gather").beam_gather_lists_tile_q
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return int(fn(d))
+
+
+def list_tiles(probe: torch.Tensor, nlist: int, tq: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The list-major entry's schedule, on the probe's device with no host
+    sync: (entries, starts, tile_end), int32.  ``entries`` are the flat
+    (query, rank) entries q * P + j of probe (Q, P), sorted stably by list;
+    list l's entries are entries[starts[l]: starts[l + 1]], cut into
+    ceil(count / tq) tiles, and tile_end is the inclusive prefix sum of
+    those tile counts.  Probe ids must lie in [0, nlist)."""
+    keys, entries = torch.sort(probe.reshape(-1), stable=True)
+    bounds = torch.arange(nlist + 1, dtype=keys.dtype, device=keys.device)
+    starts = torch.searchsorted(keys, bounds, out_int32=True)
+    tiles = (starts[1:] - starts[:-1] + tq - 1) // tq
+    return (entries.to(torch.int32), starts,
+            torch.cumsum(tiles, 0, dtype=torch.int32))
+
+
+def list_blocks(n_entries: int, nlist: int, tq: int) -> int:
+    """The list-major entry's grid: an upper bound on the tiles of any
+    probe with ``n_entries`` entries over ``nlist`` lists."""
+    return -(-n_entries // tq) + nlist
+
+
+def tile_of_block(starts: torch.Tensor, tile_end: torch.Tensor, tq: int,
+                  n_blocks: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What each block of the grid takes, as the kernel finds it (the first
+    list whose tile_end exceeds the block's index): (list, first entry,
+    entry count) a block, int64, list = nlist and count 0 past the last
+    tile."""
+    nlist = tile_end.shape[0]
+    blk = torch.arange(n_blocks, device=tile_end.device)
+    lst = torch.searchsorted(tile_end.long(), blk, right=True)
+    live = lst < nlist
+    safe = lst.clamp_max(nlist - 1)
+    first, count = starts[safe].long(), (starts[safe + 1] - starts[safe]).long()
+    t = blk - (tile_end[safe].long() - (count + tq - 1) // tq)
+    n = torch.minimum(torch.full_like(count, tq), count - t * tq)
+    return lst, first + t * tq, torch.where(live, n, 0)
 
 
 def beam_gather(q: torch.Tensor, ids: torch.Tensor, corpus: torch.Tensor, *,
@@ -50,4 +116,48 @@ def beam_gather(q: torch.Tensor, ids: torch.Tensor, corpus: torch.Tensor, *,
                    d, n, MODES[mode])
     with _launch.count_lock:
         launches += 1
+    return out
+
+
+def beam_gather_lists(q: torch.Tensor, probe: torch.Tensor,
+                      lists: torch.Tensor, list_len: torch.Tensor,
+                      corpus: torch.Tensor) -> torch.Tensor:
+    """q (Q, D) f32 × probe (Q, P) i32 list ids × lists (nlist, M) i32 (PAD
+    -1) × list_len (nlist,) i32 × corpus (N, D) f32 -> (Q, P * M) f32 on the
+    card: out[q, j * M + r] is `beam_gather`'s l2 value (bit for bit) of q
+    and corpus[lists[probe[q, j], r]], +inf where r >= list_len[probe[q,
+    j]] or the slot is PAD.  Probe ids must lie in [0, nlist), other ids
+    in [0, N)."""
+    global lists_launches
+    name = "beam_gather_lists"
+    _launch.check_tensors(name, q=q, probe=probe, lists=lists,
+                          list_len=list_len, corpus=corpus)
+    _launch.check_dtypes(name, q=(q, torch.float32),
+                         probe=(probe, torch.int32),
+                         lists=(lists, torch.int32),
+                         list_len=(list_len, torch.int32),
+                         corpus=(corpus, torch.float32))
+    if q.dim() != 2 or probe.dim() != 2 or lists.dim() != 2 \
+            or corpus.dim() != 2 or probe.shape[0] != q.shape[0] \
+            or q.shape[1] != corpus.shape[1] \
+            or tuple(list_len.shape) != (lists.shape[0],):
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, probe "
+                         f"{tuple(probe.shape)}, lists {tuple(lists.shape)}, "
+                         f"list_len {tuple(list_len.shape)}, corpus "
+                         f"{tuple(corpus.shape)}")
+    (nq, d), p, (nlist, m) = q.shape, probe.shape[1], lists.shape
+    if nq * p * m > MAX_LIST_SLOTS:
+        raise ValueError(f"{name}: {nq} x {p} x {m} output slots exceed the "
+                         f"kernel's int32 offsets ({MAX_LIST_SLOTS})")
+    out = torch.empty((nq, p * m), dtype=torch.float32, device=q.device)
+    if nq == 0 or p == 0 or m == 0:
+        return out
+    tq = tile_q(d)
+    entries, starts, tile_end = list_tiles(probe, nlist, tq)
+    _launch.launch(name, _lists_fn(), q.device, q.data_ptr(),
+                   entries.data_ptr(), starts.data_ptr(), tile_end.data_ptr(),
+                   lists.data_ptr(), list_len.data_ptr(), corpus.data_ptr(),
+                   out.data_ptr(), nq, p, m, d, corpus.shape[0], nlist)
+    with _launch.count_lock:
+        lists_launches += 1
     return out

@@ -24,6 +24,7 @@ this process; each is bumped at its launch and nowhere else.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional, Tuple
 
@@ -47,6 +48,15 @@ def _fns():
     lib = _build.load("l2_distance")
     return (_launch.c_fn(lib, "l2_distance_f32", n_ptrs=3, n_ints=5),
             _launch.c_fn(lib, "l2_topk_f32", n_ptrs=4, n_ints=6))
+
+
+def fast_k(nq: int) -> int:
+    """The largest k whose top-k lists the fused entry keeps in shared
+    memory at ``nq`` queries (past it they live in global memory, slower):
+    the kernel's own limit, read from the library."""
+    fn = _build.load("l2_distance").l2_topk_fast_k
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return int(fn(nq))
 
 
 @functools.cache

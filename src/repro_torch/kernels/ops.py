@@ -14,6 +14,7 @@ import torch
 
 from . import ref
 from .beam_gather import beam_gather
+from .beam_gather import beam_gather_lists as _beam_gather_lists
 from .beam_gather_adc import beam_gather_adc as _beam_gather_adc
 from .beam_gather_hamming import beam_gather_hamming as _beam_gather_hamming
 from .beam_gather_hamming import \
@@ -41,6 +42,21 @@ def beam_gather_distances(q: torch.Tensor, ids: torch.Tensor,
         return ref.beam_gather_dot_ref(q, ids, corpus)
     return beam_gather(q.float().contiguous(),
                        ids.to(torch.int32).contiguous(), corpus, mode=mode)
+
+
+def beam_gather_lists_distances(q: torch.Tensor, probe: torch.Tensor,
+                                lists: torch.Tensor, list_len: torch.Tensor,
+                                corpus: torch.Tensor, *,
+                                force_ref: bool = False) -> torch.Tensor:
+    """q (Q, D) × probe (Q, P) list ids × lists (nlist, M) with PAD ×
+    list_len (nlist,) × corpus (N, D) -> (Q, P * M) float32 squared L2
+    (diff-square-sum), +inf on PAD slots and past each list's length: the
+    IVF search's candidate distances, list-major."""
+    if _plain(corpus, force_ref):
+        return ref.beam_gather_lists_ref(q, probe, lists, list_len, corpus)
+    return _beam_gather_lists(q.float().contiguous(),
+                              probe.to(torch.int32).contiguous(), lists,
+                              list_len, corpus)
 
 
 def pair_gather_distances(ids: torch.Tensor, corpus: torch.Tensor, *,

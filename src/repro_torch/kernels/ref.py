@@ -18,6 +18,9 @@ from typing import Optional, Tuple
 
 import torch
 
+#: an empty slot of an IVF list (``core/ivf.py``)
+PAD = -1
+
 
 def l2_distance_ref(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
     """(Q, D) × (N, D) -> (Q, N) squared L2, float32 accumulation:
@@ -91,6 +94,24 @@ def beam_gather_l2_ref(q: torch.Tensor, ids: torch.Tensor,
     single-pop traversal, so width 1 reproduces it.
     """
     return gathered_dists(q, corpus[ids.long()], "l2")
+
+
+def beam_gather_lists_ref(q: torch.Tensor, probe: torch.Tensor,
+                          lists: torch.Tensor, list_len: torch.Tensor,
+                          corpus: torch.Tensor) -> torch.Tensor:
+    """q (Q, D) × probe (Q, P) list ids × lists (nlist, M) × list_len
+    (nlist,) × corpus (N, D) -> (Q, P * M): `beam_gather_l2_ref` over the
+    candidates ``lists[probe]`` (ids clamped to [0, N) as B1 clamps them),
+    +inf where the slot is PAD or lies at or past its list's ``list_len``."""
+    nq, p = probe.shape
+    m = lists.shape[1]
+    pr = probe.long()
+    cand = lists[pr]                                          # (Q, P, M)
+    live = (cand != PAD) & (torch.arange(m, device=lists.device)
+                            < list_len[pr][..., None])
+    cand, live = cand.reshape(nq, p * m), live.reshape(nq, p * m)
+    d = beam_gather_l2_ref(q, cand.clamp(0, corpus.shape[0] - 1), corpus)
+    return torch.where(live, d, float("inf"))
 
 
 def beam_gather_dot_ref(q: torch.Tensor, ids: torch.Tensor,

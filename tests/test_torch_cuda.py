@@ -11,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import EngineConfig, HNSWConfig, QuantixarEngine
+from repro_torch.core import (EngineConfig, HNSWConfig, IVFConfig, IVFIndex,
+                              QuantixarEngine)
 from repro_torch.core.flat import FUSED_MAX_K, flat_search, topk_smallest
 from repro_torch.data.synthetic import gaussian_mixture
 from repro_torch.kernels import beam_gather as bg_mod
@@ -580,25 +581,39 @@ def test_flat_search_on_card_runs_the_fused_entry(cuda, metric):
     """flat_search on the card: one fused launch over the whole corpus,
     equal bit for bit to the chunked scan over the matrix entry (what it
     ran before), mask and base_index included; k past FUSED_MAX_K (101,
-    256, and 257, past the fused entry's own limit) takes the matrix entry
-    and the chunked scan explicitly."""
+    256, and 257, past the fused entry's own limit), and on a corpus of at
+    most MATRIX_MAX_N rows k past the fused entry's fast k (17 and 100 at
+    Q = 40 over 3,000 rows; over 9,000 they stay fused), takes the matrix
+    entry and the chunked scan explicitly."""
     from repro_torch.core.distances import get_metric
-    from repro_torch.core.flat import scan_topk
-    rng = np.random.RandomState(8)
-    q, x = _tied(rng, 40, 3000, 32, cuda)
-    mask = torch.as_tensor(rng.rand(3000) < 0.3, device=cuda)
+    from repro_torch.core.flat import MATRIX_MAX_N, scan_topk, takes_fused
     pair = get_metric(metric)
-    for k in (10, FUSED_MAX_K, FUSED_MAX_K + 1, 256, 257):
-        before = (l2_mod.launches, l2_mod.topk_launches)
-        d, i = flat_search(q, x, k, metric=metric, chunk=1024, mask=mask,
-                           base_index=7)
-        fused = k <= FUSED_MAX_K
-        assert (l2_mod.launches > before[0]) != fused
-        assert l2_mod.topk_launches == before[1] + int(fused)
-        wd, wi = scan_topk(lambda lo, hi: pair(q, x[lo:hi]), 3000, k,
-                           chunk=1024, mask=mask, base_index=7)
-        assert torch.equal(i, wi)
-        assert torch.equal(d.view(torch.int32), wd.view(torch.int32))
+    for n in (3000, 9000):
+        rng = np.random.RandomState(8)
+        q, x = _tied(rng, 40, n, 32, cuda)
+        mask = torch.as_tensor(rng.rand(n) < 0.3, device=cuda)
+        for k in (10, 17, FUSED_MAX_K, FUSED_MAX_K + 1, 256, 257):
+            before = (l2_mod.launches, l2_mod.topk_launches)
+            d, i = flat_search(q, x, k, metric=metric, chunk=1024, mask=mask,
+                               base_index=7)
+            fused = takes_fused(metric, 40, n, k)
+            assert fused == (k <= (16 if n <= MATRIX_MAX_N
+                                   else FUSED_MAX_K))
+            assert (l2_mod.launches > before[0]) != fused
+            assert l2_mod.topk_launches == before[1] + int(fused)
+            wd, wi = scan_topk(lambda lo, hi: pair(q, x[lo:hi]), n, k,
+                               chunk=1024, mask=mask, base_index=7)
+            assert torch.equal(i, wi)
+            assert torch.equal(d.view(torch.int32), wd.view(torch.int32))
+
+
+@pytest.mark.parametrize("nq", [1, 32, 33, 1024])
+def test_fused_fast_k_is_the_kernels(cuda, nq):
+    """The dispatch's copy of the fused entry's fast k (`fused_fast_k`,
+    kept in Python so that the CPU needs no library) equals the limit the
+    kernel itself uses (`l2_topk_fast_k`)."""
+    from repro_torch.core.flat import fused_fast_k
+    assert fused_fast_k(nq) == l2_mod.fast_k(nq)
 
 
 @pytest.mark.parametrize("metric", ["l2", "dot", "cosine"])
@@ -838,9 +853,10 @@ def _near_tie_ids(got_d, got_i, want_d, want_i, atol):
 def test_ivf_engine_on_card_matches_cpu(cuda, quant, metric):
     """An IVF engine built on the CPU and loaded on the card (the same
     centroids and lists) returns the CPU hits: the coarse probe on B5's
-    fused entry, the probed lists on B1 (diff-square-sum where the CPU
-    takes the norm expansion: ids equal up to near-ties, distances within
-    B1's tolerance), the delta scan and the ~5 % flat route."""
+    fused entry, the probed lists on B1's list-major entry (diff-square-sum
+    where the CPU takes the norm expansion: ids equal up to near-ties,
+    distances within B1's tolerance), the delta scan and the ~5 % flat
+    route."""
     from repro_torch.core import BQConfig, IVFConfig, PQConfig
     x = gaussian_mixture(3000, 32, n_clusters=15, scale=0.3, seed=1)
     q = gaussian_mixture(64, 32, n_clusters=15, scale=0.3, seed=2)
@@ -854,7 +870,7 @@ def test_ivf_engine_on_card_matches_cpu(cuda, quant, metric):
     cpu.add(x[2900:])
     card = QuantixarEngine.from_state_dict(cfg, cpu.state_dict(),
                                            device="cuda")
-    bg0, tk0 = bg_mod.launches, l2_mod.topk_launches
+    bg0, tk0 = bg_mod.lists_launches, l2_mod.topk_launches
     mask = np.random.RandomState(0).rand(3000) < 0.05
     norms = np.linalg.norm(x, axis=1).max() * np.linalg.norm(q, axis=1).max()
     for queries, kw in ((q, {}), (x[2900:2950], {}), (q, {"mask": mask}),
@@ -862,7 +878,7 @@ def test_ivf_engine_on_card_matches_cpu(cuda, quant, metric):
         (gd, gi), (wd, wi) = (card.search(queries, 10, **kw),
                               cpu.search(queries, 10, **kw))
         _near_tie_ids(gd, gi, wd, wi, atol=1e-5 * norms)
-    assert bg_mod.launches > bg0 and l2_mod.topk_launches > tk0
+    assert bg_mod.lists_launches > bg0 and l2_mod.topk_launches > tk0
 
 
 @pytest.mark.parametrize("slack", [1.5, 1.02, 0.5])
@@ -907,11 +923,149 @@ def test_beam_gather_at_an_ivf_shape_with_pad(cuda):
 
 
 def test_ivf_search_refuses_too_many_candidates(cuda):
-    from repro_torch.core.ivf import MAX_CANDIDATES, _ivf_search
-    lists = torch.zeros((2, MAX_CANDIDATES), dtype=torch.int32, device=cuda)
+    """One query's nprobe x max_list slots past the list-major entry's
+    int32 output offsets: refused before any launch (the lists are a
+    zero-memory view, never read)."""
+    from repro_torch.core.ivf import _ivf_search
+    from repro_torch.kernels.beam_gather import MAX_LIST_SLOTS
+    lists = torch.zeros(1, dtype=torch.int32, device=cuda).expand(
+        2, MAX_LIST_SLOTS // 2 + 1)
     x = torch.randn(4, 8, device=cuda)
-    with pytest.raises(ValueError, match="beam_gather"):
+    before = bg_mod.lists_launches
+    with pytest.raises(ValueError, match="beam_gather_lists"):
         _ivf_search(x, x[:1], x[:2], lists, 5, 2)
+    assert bg_mod.lists_launches == before
+
+
+def _lists_case(seed, nq, nprobe, nlist, m, n, d, skew, empty=()):
+    """Seeded inputs of the list-major entry: packed lists (``empty`` ones
+    hold nothing, list 1 a PAD inside its live length), distinct lists a
+    query, with ``skew`` every query's first probe on list 0 (several tiles
+    of one list), the last two lists probed by none where nprobe leaves
+    room."""
+    rng = np.random.RandomState(seed)
+    corpus = rng.randn(n, d).astype(np.float32)
+    q = rng.randn(nq, d).astype(np.float32)
+    lists = np.full((nlist, m), -1, dtype=np.int32)
+    for lst in range(nlist):
+        size = 0 if lst in empty else rng.randint(3, m + 1)
+        lists[lst, :size] = rng.randint(0, n, size)
+    lists[1, 1] = -1
+    pool = nlist if nprobe > nlist - 2 else nlist - 2
+    probe = np.empty((nq, nprobe), dtype=np.int32)
+    for i in range(nq):
+        perm = rng.permutation(pool)
+        if skew:
+            perm = np.concatenate([[0], perm[perm != 0]])
+        probe[i] = perm[:nprobe]
+    return q, probe, lists, corpus
+
+
+@pytest.mark.parametrize("case", [
+    (70, 3, 9, 200, 3000, 128, True, ()),         # skewed: 3 tiles, list 0
+    (40, 2, 12, 150, 2000, 128, False, (3, 5)),   # unprobed, empty lists
+    (9, 6, 6, 77, 500, 128, False, (2,)),         # nprobe = nlist
+    (1, 4, 7, 300, 900, 128, False, ()),          # one query
+    (20, 3, 6, 90, 400, 784, True, (2,)),         # the narrow tile
+    (25, 3, 6, 90, 400, 130, True, (4,)),         # the 4-byte path
+    (6, 2, 4, 40, 300, 1000, False, ()),          # too wide to stage
+    (5, 2, 4, 40, 300, 16, True, ()),             # fewer float4s than lanes
+])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_beam_gather_lists_bit_equal_to_b1(cuda, case, aligned):
+    """B1's list-major entry equals B1's gather entry over the candidate
+    block lists[probe] bit for bit on every live slot (B1's float4 path
+    where D % 4 == 0 and the corpus is 16-byte aligned, its 4-byte path
+    otherwise; unaligned cases also take queries 4 bytes off a 16-byte
+    boundary, which the wide-D path reads from global memory), is +inf on
+    every PAD slot and past each list's length, and holds its plain
+    version; its counter moves by one, B1's not at all."""
+    from repro_torch.core.ivf import live_lengths
+    q, probe, lists, corpus = _lists_case(sum(case[:6]), *case)
+    d = corpus.shape[1]
+    x, qt = ((torch.as_tensor(corpus, device=cuda),
+              torch.as_tensor(q, device=cuda)) if aligned
+             else (_unaligned(corpus, cuda), _unaligned(q, cuda)))
+    pt, lt = (torch.as_tensor(a, device=cuda) for a in (probe, lists))
+    ll = live_lengths(lt)
+    b0, l0 = bg_mod.launches, bg_mod.lists_launches
+    got = ops.beam_gather_lists_distances(qt, pt, lt, ll, x)
+    torch.cuda.synchronize()
+    assert (bg_mod.launches, bg_mod.lists_launches) == (b0, l0 + 1)
+    cand = lt[pt.long()].reshape(len(q), -1)
+    b1 = ops.beam_gather_distances(qt, cand.clamp_min(0).contiguous(), x,
+                                   mode="l2")
+    live = cand != -1
+    assert torch.equal(got[live].view(torch.int32),
+                       b1[live].view(torch.int32))
+    assert bool(torch.isinf(got[~live]).all())
+    want = ops.beam_gather_lists_distances(qt, pt, lt, ll, x, force_ref=True)
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    torch.testing.assert_close(got[live], want[live], rtol=2e-4,
+                               atol=2e-4 * d)
+
+
+def test_ivf_search_on_card_equals_the_b1_route(cuda):
+    """``_ivf_search`` on the card (B1's list-major entry, ids read back
+    from the probe and the lists) returns the route it replaced bit for
+    bit: the candidate block lists[probe], B1's gather entry, +inf on PAD,
+    the tie-stable top-k and the block's ids; one query chunk or many."""
+    from repro_torch.core import ivf as ivf_mod
+    rng = np.random.RandomState(11)
+    x = rng.randn(6000, 64).astype(np.float32)
+    cfg = IVFConfig(nlist=40, nprobe=7, metric="l2")
+    idx = IVFIndex(cfg, device="cuda")
+    idx.train(x)
+    idx.build_lists(x)
+    corpus = torch.as_tensor(x, device=cuda)
+    q = corpus[:300] + 0.05 * torch.randn(300, 64, device=cuda)
+    b0 = bg_mod.lists_launches
+    for k in (10, 50):
+        got_d, got_i = ivf_mod._ivf_search(corpus, q, idx.centroids,
+                                           idx.lists, k, cfg.nprobe,
+                                           idx.list_len)
+        _, probe = flat_search(q, idx.centroids, cfg.nprobe, metric="l2")
+        cand = idx.lists[probe.long()].reshape(len(q), -1)
+        d = ops.beam_gather_distances(q, cand.clamp_min(0).contiguous(),
+                                      corpus, mode="l2")
+        d = torch.where(cand != -1, d, float("inf"))
+        want_d, sel = topk_smallest(d, k)
+        want_i = cand.gather(1, sel)
+        want_i = torch.where(torch.isfinite(want_d), want_i,
+                             torch.full_like(want_i, -1))
+        assert torch.equal(got_d.view(torch.int32),
+                           want_d.view(torch.int32))
+        assert torch.equal(got_i, want_i)
+    assert bg_mod.lists_launches == b0 + 2
+    whole = ivf_mod._ivf_search(corpus, q, idx.centroids, idx.lists, 10,
+                                cfg.nprobe)
+    saved, ivf_mod.IVF_BLOCK_BYTES = ivf_mod.IVF_BLOCK_BYTES, 1
+    try:
+        parts = ivf_mod._ivf_search(corpus, q, idx.centroids, idx.lists, 10,
+                                    cfg.nprobe, idx.list_len)
+    finally:
+        ivf_mod.IVF_BLOCK_BYTES = saved
+    for a, b in zip(whole, parts):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("nq,n,k", [(1024, 1024, 32), (32, 1024, 65),
+                                    (1024, 8192, 40)])
+def test_small_corpus_route_equals_fused_entry(cuda, nq, n, k):
+    """Where ``flat_search`` takes the matrix route on a small corpus past
+    the fused entry's fast k (IVF's coarse probe: Q 1,024 x 1,024
+    centroids, k = nprobe = 32), it returns the fused entry's bits."""
+    from repro_torch.core.flat import takes_fused
+    assert not takes_fused("l2", nq, n, k)
+    rng = np.random.RandomState(n + k)
+    x = torch.as_tensor(rng.randn(n, 128).astype(np.float32), device=cuda)
+    q = torch.as_tensor(rng.randn(nq, 128).astype(np.float32), device=cuda)
+    t0, m0 = l2_mod.topk_launches, l2_mod.launches
+    got_d, got_i = flat_search(q, x, k, metric="l2")
+    assert (l2_mod.topk_launches, l2_mod.launches) == (t0, m0 + 1)
+    want_d, want_i = ops.l2_topk(q, x, k, mode="l2")
+    assert torch.equal(got_d.view(torch.int32), want_d.view(torch.int32))
+    assert torch.equal(got_i, want_i.to(torch.int32))
 
 
 def test_sharded_collection_on_card_equals_single(cuda):
