@@ -12,7 +12,8 @@ It builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 against its plain PyTorch version on the card at the main paths' shapes, and
 then drives five collections end to end through
 ``repro_torch.core.QuantixarEngine``, three through the public API (one of
-them sharded, behind the HTTP server) and the xLSTM language model through
+them sharded, behind the HTTP server), the distributed search through
+``repro_torch.distributed`` and the xLSTM language model through
 ``repro_torch.models``:
 
   phase A  cosine, HNSW, no quantization, bulk builder, over a SIFT-like
@@ -73,6 +74,16 @@ them sharded, behind the HTTP server) and the xLSTM language model through
            replica failover, and save / load of the sharded database; B5
            is held to its plain version on one shard's scans at Q = 1,024
            and 32.
+  phase I  the distributed search (``repro_torch.distributed``) under
+           ``quantixar-db``'s settings (k=100, batches of 1,024) over phase
+           A's corpus and queries: flat cosine (-q.x on unit rows), flat
+           l2, PQ and BQ (phase C and D's quantizers, by ``state_dict``),
+           at world 1 on NCCL in "rows" and "dims" mode, the query batches
+           through ``device_put_batches``: QPS, the flat ids held to the
+           plain exact top-k (recall@100) and PQ / BQ to the quantizers'
+           exact scans; then one process plays the ranks of 4 row shards
+           (bit-equal to world 1) and of 2 row x 2 model shards (equal up
+           to ties and tolerance) through the module's per-rank functions.
 
 Every phase must pass and every kernel of its path must have launched, or
 the script exits non-zero.  The exact scans of phases A-E (delta segment,
@@ -168,7 +179,9 @@ QUANT = {"A": "none", "B": "none", "C": "pq", "D": "bq"}
 # delta scan and, in A, B and E, the exact flat route and the flat index;
 # l2_distance, its matrix entry: E's k = 1,000 query, past FUSED_MAX_K,
 # and scans of at most MATRIX_MAX_N rows past the fast k: C and D's delta
-# scans at k = 40 (the rescore's fetch), G's coarse probe at k = 32)
+# scans at k = 40 (the rescore's fetch), G's coarse probe at k = 32 and
+# the partial distances of I's "dims" ranks; pq_adc and hamming in I, the
+# PQ and BQ scans of every rank)
 PHASE_KERNELS = {
     "A": ("beam_gather", "pair_gather", "l2_topk"),
     "B": ("beam_gather", "pair_gather", "l2_topk"),
@@ -179,7 +192,8 @@ PHASE_KERNELS = {
     "E": ("beam_gather", "pair_gather", "l2_topk", "l2_distance"),
     "F": ("slstm",),
     "G": ("beam_gather_lists", "l2_distance", "l2_topk"),
-    "H": ("l2_topk",)}
+    "H": ("l2_topk",),
+    "I": ("l2_topk", "l2_distance", "pq_adc", "hamming")}
 # kernels whose source file is named otherwise: B5's two entries share one,
 # and B4's
 SOURCES = {"l2_topk": "l2_distance",
@@ -240,8 +254,26 @@ SMALL_SWEEP = ((1024, 1024, "l2", "raw", (16, 17, 32, 64, 100)),
 SHARDS, REPLICAS = 4, 2
 # the batcher's largest bucket: B5 is held on a shard's scan at this Q too
 SHARD_SMALL_Q = 32
+# phase I: the distributed search at quantixar-db's settings
+# (src/repro_torch/configs/quantixar_db.py: k 100, query batches of 1,024,
+# cosine, PQ m 16 / k 256, BQ 256 bits) at world 1 on NCCL, and one process
+# playing the ranks of 4 row shards ("rows", 250,000 rows each) and of 2
+# row x 2 model shards ("dims": D 64, m 8, W 4 a rank)
+DIST_ROWS = {"data": 4, "model": 1}
+DIST_DIMS = {"data": 2, "model": 2}
+DIST_REDUCED = ("n: quantixar-db's 100M corpus is its 256-chip production "
+                "cell, 390,625 rows a chip; one card at world 1 holds phase "
+                "A's 1M, 2.56x a chip's share")
+# flat recall@100 of the world-1 search against torch.topk over the plain
+# distances (the two differ only in ties and rounding)
+DIST_RECALL_FLOOR = 0.999
+# the "dims" emulation's PQ distances against world 1's: two sums of 8
+# LUT entries added, against one sum of 16 in order (the JAX package's ADC
+# tolerance)
+PQ_DIMS_RTOL = 1e-5
 # a phase's kernel rows, which its summary leaves to the kernels line
-ROW_KEYS = ("b1_row", "lists_row", "probe_row", "shard_rows")
+ROW_KEYS = ("b1_row", "lists_row", "probe_row", "shard_rows",
+            "pq_row", "hamming_row", "l2_rows")
 
 
 class SmokeFailure(Exception):
@@ -529,6 +561,117 @@ def hamming_stage_rows(torch, lib, q_words, words, ids_sets, log):
     return rows
 
 
+def kernel_row(torch, log, name, err, fns, plains, b, libraries=None,
+               **shape):
+    """A kernel's row: its error, device time over the input sets ``fns``,
+    its plain version's (``plains``), its bound ``b`` and, where one
+    PyTorch call computes the same function, that call's time
+    (``libraries``); logged and returned."""
+    r = {"name": name, **shape, "max_abs_err": err,
+         **timing(torch, fns), **plain_timing(torch, plains),
+         "bound_ms": b[0], "bound_us": b[0] * 1e3, "bound_by": b[1],
+         "library_ms": None}
+    if libraries:
+        r.update(timing(torch, libraries, prefix="library_"))
+    r["share"] = b[0] / r["ms"]
+    log(r)
+    return r
+
+
+def pq_adc_row(torch, lut_q, chunks, log, **extra):
+    """B6 on ``lut_q`` (Q, m, k) against each of ``chunks`` ((N, m) code
+    blocks of one shape, the input sets) and its plain version: both of its
+    paths (the C entry takes the row-lane path when it is given no scratch)
+    must give the plain version's bits.  library_ms is
+    ``embedding_bag(codes + i * k, lut.T, mode="sum")`` over the flattened
+    LUTs, the offsets and the transposed LUTs made outside the timed call;
+    it adds in its own order (rtol 1e-5)."""
+    import ctypes
+
+    import torch.nn.functional as F
+    from repro_torch.kernels import _launch, ref
+    from repro_torch.kernels import pq_adc as adc_mod
+    from repro_torch.kernels.pq_adc import pq_adc
+
+    q_n, m, k = lut_q.shape
+    cw = chunks[0]
+    rows_n = cw.shape[0]
+    before = dict(adc_mod.path_launches)
+    got = pq_adc(lut_q, cw)
+    path = next(p for p, v in adc_mod.path_launches.items()
+                if v != before[p])
+    want = ref.pq_adc_ref(lut_q, cw)
+    rows_out = torch.empty_like(got)
+    info = (ctypes.c_int * 1)()
+    _launch.launch("pq_adc", adc_mod._fn(), lut_q.device, lut_q.data_ptr(),
+                   cw.data_ptr(), rows_out.data_ptr(), None,
+                   ctypes.addressof(info), q_n, rows_n, m, k, 1)
+    offs = torch.arange(m, device="cuda") * k
+    idxs = [c.long() + offs for c in chunks]
+    lut_t = lut_q.reshape(q_n, m * k).T.contiguous()
+    lib = F.embedding_bag(idxs[0], lut_t, mode="sum").T
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    digest = output_digest(got)
+    digests = {"plain": output_digest(want),
+               "row_lanes": output_digest(rows_out)}
+    check(info[0] == 0, "pq_adc without scratch took the query lanes")
+    check(all(v == digest for v in digests.values()),
+          f"pq_adc Q={q_n} N={rows_n} m={m}: digest {digest} vs {digests}")
+    check(bool(((lib - want).abs() <= 1e-5 * want.abs()).all()),
+          f"embedding_bag Q={q_n} N={rows_n} disagrees with pq_adc_ref")
+    del got, want, lib, rows_out
+    r = kernel_row(
+        torch, log, "pq_adc", float(err.max()),
+        [lambda c=c: pq_adc(lut_q, c) for c in chunks],
+        [lambda c=c: ref.pq_adc_ref(lut_q, c) for c in chunks],
+        bound(rows_n * m + q_n * m * k * 4 + q_n * rows_n * 4,
+              q_n * rows_n * m),
+        [lambda i=i: F.embedding_bag(i, lut_t, mode="sum") for i in idxs],
+        Q=q_n, N=rows_n, m=m, k=k, path=path, digest=digest,
+        digest_plain=digests["plain"],
+        digest_row_lanes=digests["row_lanes"], **extra)
+    del idxs, lut_t
+    torch.cuda.empty_cache()
+    return r
+
+
+def hamming_row(torch, qw, chunks, log, **extra):
+    """B7 on the query words ``qw`` (Q, W) against each of ``chunks`` ((N,
+    W) word blocks of one shape, the input sets), exact against its plain
+    version.  library_ms is ``cdist(p=0)`` (the count of differing
+    coordinates) over the unpacked bits, exact in fp32 up to 2**24, the
+    bits unpacked outside the timed call."""
+    from repro_torch.core.bq import unpack_bits
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.hamming import hamming
+
+    q_n, w = qw.shape
+    xw = chunks[0]
+    rows_n = xw.shape[0]
+    got = hamming(qw, xw)
+    want = ref.hamming_ref(qw, xw)
+    q_bits = unpack_bits(qw, w * 32).float()
+    x_bits = [unpack_bits(c, w * 32).float() for c in chunks]
+    lib = torch.cdist(q_bits, x_bits[0], p=0)
+    torch.cuda.synchronize()
+    err = int((got - want).abs().max())
+    check(err == 0, f"hamming Q={q_n} N={rows_n} W={w}: max err {err}")
+    check(torch.equal(lib.int(), want),
+          f"cdist(p=0) Q={q_n} N={rows_n} disagrees with hamming_ref")
+    del got, want, lib
+    r = kernel_row(
+        torch, log, "hamming", err, [lambda c=c: hamming(qw, c) for c in chunks],
+        [lambda c=c: ref.hamming_ref(qw, c) for c in chunks],
+        bound(rows_n * w * 4 + q_n * w * 4 + q_n * rows_n * 4,
+              q_n * rows_n * w, POPC_PER_S),
+        [lambda x=x: torch.cdist(q_bits, x, p=0) for x in x_bits],
+        Q=q_n, N=rows_n, W=w, **extra)
+    del q_bits, x_bits
+    torch.cuda.empty_cache()
+    return r
+
+
 def quant_kernel_checks(torch, codes, lut, words, q_words, log,
                         stage_lib=None):
     """The PQ and BQ kernels against their plain versions on the corpus's
@@ -547,17 +690,10 @@ def quant_kernel_checks(torch, codes, lut, words, q_words, log,
     The two gathers have none: the gather of code rows by ids is part of
     their function, and no one call both gathers and LUT-sums or counts.
     """
-    import ctypes
-
-    import torch.nn.functional as F
-    from repro_torch.core.bq import unpack_bits
-    from repro_torch.kernels import _launch, ref
-    from repro_torch.kernels import pq_adc as adc_mod
+    from repro_torch.kernels import ref
     from repro_torch.kernels.beam_gather_adc import beam_gather_adc
     from repro_torch.kernels.beam_gather_hamming import (
         beam_gather_hamming, beam_gather_hamming_masked)
-    from repro_torch.kernels.hamming import hamming
-    from repro_torch.kernels.pq_adc import pq_adc
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
@@ -567,15 +703,8 @@ def quant_kernel_checks(torch, codes, lut, words, q_words, log,
     rows = []
 
     def row(name, err, fns, plains, b, libraries=None, **shape):
-        r = {"name": name, **shape, "max_abs_err": err,
-             **timing(torch, fns), **plain_timing(torch, plains),
-             "bound_ms": b[0], "bound_us": b[0] * 1e3, "bound_by": b[1],
-             "library_ms": None}
-        if libraries:
-            r.update(timing(torch, libraries, prefix="library_"))
-        r["share"] = b[0] / r["ms"]
-        rows.append(r)
-        log(r)
+        rows.append(kernel_row(torch, log, name, err, fns, plains, b,
+                               libraries, **shape))
 
     for length in (1, 128, 256):
         sets = [torch.randint(0, n, (nq, length), generator=gen,
@@ -656,80 +785,15 @@ def quant_kernel_checks(torch, codes, lut, words, q_words, log,
     # are consecutive chunks, as the route scans them), a small batch
     # against the whole corpus, and the batcher's small batches against one
     # chunk (Q = 1 takes the row-lane path, 32 and 33 the query-lane path)
-    pq_fn = adc_mod._fn()
     for q_n, rows_n in ((nq, FLAT_CHUNK), (64, n), (1, FLAT_CHUNK),
                         (32, FLAT_CHUNK), (33, FLAT_CHUNK)):
-        lut_q = lut[:q_n]
-        chunks = [codes[i * rows_n:(i + 1) * rows_n]
-                  for i in range(max(1, min(SETS, n // rows_n)))]
-        cw = chunks[0]
-        before = dict(adc_mod.path_launches)
-        got = pq_adc(lut_q, cw)
-        path = next(p for p, v in adc_mod.path_launches.items()
-                    if v != before[p])
-        want = ref.pq_adc_ref(lut_q, cw)
-        # the row-lane path on the same inputs (the C entry takes it when
-        # it is given no scratch): both paths must give these bits
-        rows_out = torch.empty_like(got)
-        info = (ctypes.c_int * 1)()
-        _launch.launch("pq_adc", pq_fn, lut_q.device, lut_q.data_ptr(),
-                       cw.data_ptr(), rows_out.data_ptr(), None,
-                       ctypes.addressof(info), q_n, rows_n, m, k, 1)
-        # the library call: row n's bag holds its m codes offset into the
-        # flattened (m * k, Q) LUTs; it adds in its own order (rtol 1e-5)
-        offs = torch.arange(m, device="cuda") * k
-        idxs = [c.long() + offs for c in chunks]
-        lut_t = lut_q.reshape(q_n, m * k).T.contiguous()
-        lib = F.embedding_bag(idxs[0], lut_t, mode="sum").T
-        torch.cuda.synchronize()
-        err = (got - want).abs()
-        digest = output_digest(got)
-        digests = {"plain": output_digest(want),
-                   "row_lanes": output_digest(rows_out)}
-        check(info[0] == 0, "pq_adc without scratch took the query lanes")
-        check(all(v == digest for v in digests.values()),
-              f"pq_adc Q={q_n} N={rows_n}: digest {digest} vs {digests}")
-        check(bool(((lib - want).abs() <= 1e-5 * want.abs()).all()),
-              f"embedding_bag Q={q_n} N={rows_n} disagrees with pq_adc_ref")
-        del got, want, lib, rows_out
-        row("pq_adc", float(err.max()),
-            [lambda c=c: pq_adc(lut_q, c) for c in chunks],
-            [lambda c=c: ref.pq_adc_ref(lut_q, c) for c in chunks],
-            bound(rows_n * m + q_n * m * k * 4 + q_n * rows_n * 4,
-                  q_n * rows_n * m),
-            [lambda i=i: F.embedding_bag(i, lut_t, mode="sum")
-             for i in idxs],
-            Q=q_n, N=rows_n, m=m, k=k, path=path, digest=digest,
-            digest_plain=digests["plain"],
-            digest_row_lanes=digests["row_lanes"])
-        del idxs, lut_t
-        torch.cuda.empty_cache()
+        rows.append(pq_adc_row(torch, lut[:q_n], [
+            codes[i * rows_n:(i + 1) * rows_n]
+            for i in range(max(1, min(SETS, n // rows_n)))], log))
     for q_n, rows_n in ((nq, FLAT_CHUNK), (64, n)):
-        qw = q_words[:q_n]
-        chunks = [words[i * rows_n:(i + 1) * rows_n]
-                  for i in range(max(1, min(SETS, n // rows_n)))]
-        xw = chunks[0]
-        got = hamming(qw, xw)
-        want = ref.hamming_ref(qw, xw)
-        # the library call: the count of differing coordinates of the
-        # unpacked bits, exact in fp32 up to 2**24
-        q_bits = unpack_bits(qw, w * 32).float()
-        x_bits = [unpack_bits(c, w * 32).float() for c in chunks]
-        lib = torch.cdist(q_bits, x_bits[0], p=0)
-        torch.cuda.synchronize()
-        err = int((got - want).abs().max())
-        check(err == 0, f"hamming Q={q_n} N={rows_n}: max err {err}")
-        check(torch.equal(lib.int(), want),
-              f"cdist(p=0) Q={q_n} N={rows_n} disagrees with hamming_ref")
-        del got, want, lib
-        row("hamming", err, [lambda c=c: hamming(qw, c) for c in chunks],
-            [lambda c=c: ref.hamming_ref(qw, c) for c in chunks],
-            bound(rows_n * w * 4 + q_n * w * 4 + q_n * rows_n * 4,
-                  q_n * rows_n * w, POPC_PER_S),
-            [lambda x=x: torch.cdist(q_bits, x, p=0) for x in x_bits],
-            Q=q_n, N=rows_n, W=w)
-        del q_bits, x_bits
-        torch.cuda.empty_cache()
+        rows.append(hamming_row(torch, q_words[:q_n], [
+            words[i * rows_n:(i + 1) * rows_n]
+            for i in range(max(1, min(SETS, n // rows_n)))], log))
     return rows
 
 
@@ -848,6 +912,64 @@ def capture_topk(sizes):
         ops.l2_topk = orig
 
 
+def l2_distance_row(torch, mode, sets, log, **extra):
+    """B5's matrix entry in ``mode`` over the input sets ``sets`` ((q, x)
+    pairs of one shape): held to its plain version on the first at RTOL +
+    ATOL_PER_NORM * |q| |x|, then timed, beside its plain version and one
+    PyTorch call on the same inputs, TF32 off (cuBLAS SGEMM): ``addmm(out,
+    q, x.T, beta=0, alpha=-1)`` for dot and ``cdist(q, x,
+    compute_mode="use_mm_for_euclid_dist")`` for l2, whose square root is
+    ignored.  bound_ms is the 3xTF32 bound the kernel is held to
+    (`bound_3xtf32`), bound_fp32_ms the CUDA-core fp32 bound of the same
+    work.  The row is logged and returned."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.l2 import l2_distance
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, x = sets[0]
+    (nq, d), n = q.shape, x.shape[0]
+    plain = ref.l2_distance_ref if mode == "l2" else ref.dot_distance_ref
+    got = l2_distance(q, x, mode=mode)
+    want = plain(q, x)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    tol = RTOL * want.abs() \
+        + ATOL_PER_NORM * q.norm(dim=1)[:, None] * x.norm(dim=1)
+    max_err = float(err.max())
+    check(bool((err <= tol).all()),
+          f"l2_distance {mode} Q={nq} N={n} D={d}: max err "
+          f"{max_err} over tolerance")
+    del got, want, err, tol
+    out = torch.empty((nq, n), device="cuda")
+    if mode == "dot":
+        library = [lambda a=a, b=b: torch.addmm(out, a, b.T, beta=0,
+                                                alpha=-1)
+                   for a, b in sets]
+    else:
+        library = [lambda a=a, b=b: torch.cdist(
+            a, b, compute_mode="use_mm_for_euclid_dist") for a, b in sets]
+    # each input read once, the output written once; 2 flops per
+    # product term, plus for l2 the norms and a 3-op epilogue
+    nbytes = (nq + n) * d * 4 + nq * n * 4
+    mm, other = 2 * nq * n * d, (2 * (nq + n) * d + 3 * nq * n
+                                 if mode == "l2" else nq * n)
+    b3, bf = bound_3xtf32(nbytes, mm, other), bound(nbytes, mm + other)
+    t = timing(torch, [lambda a=a, b=b: l2_distance(a, b, mode=mode)
+                       for a, b in sets])
+    r = {"name": "l2_distance", "mode": mode, "Q": nq, "N": n,
+         "D": d, "max_abs_err": max_err, **t,
+         **plain_timing(torch, [lambda a=a, b=b: plain(a, b)
+                                for a, b in sets]),
+         "bound_ms": b3[0], "bound_us": b3[0] * 1e3,
+         "bound_by": b3[1], "bound_fp32_ms": bf[0],
+         "bound_held_to": "3xtf32", "share": b3[0] / t["ms"],
+         **timing(torch, library, prefix="library_"), **extra}
+    log(r)
+    del out, library
+    torch.cuda.empty_cache()
+    return r
+
+
 def l2_kernel_checks(torch, sift_cos, sift_raw, fm, signs, log):
     """B5's two entries against their plain versions.
 
@@ -869,12 +991,10 @@ def l2_kernel_checks(torch, sift_cos, sift_raw, fm, signs, log):
     must equal bit for bit.
 
     bound_ms: the 3xTF32 bound the kernel is held to (`bound_3xtf32`),
-    bound_fp32_ms the CUDA-core fp32 bound of the same work.  library_ms,
-    matrix entry only: one PyTorch call on the same inputs, TF32 off (cuBLAS
-    SGEMM): ``addmm(out, q, x.T, beta=0, alpha=-1)`` for dot and
-    ``cdist(q, x, compute_mode="use_mm_for_euclid_dist")`` for l2, whose
-    square root is ignored; the port never calls either.  The fused entry
-    has none: no one PyTorch call computes distances and their top-k."""
+    bound_fp32_ms the CUDA-core fp32 bound of the same work.  library_ms:
+    the matrix entry's as `l2_distance_row` says (the port never calls
+    either call); the fused entry has none: no one PyTorch call computes
+    distances and their top-k."""
     from repro_torch.core.flat import scan_topk, topk_smallest
     from repro_torch.kernels import ref
     from repro_torch.kernels.l2 import l2_distance, l2_topk
@@ -914,21 +1034,11 @@ def l2_kernel_checks(torch, sift_cos, sift_raw, fm, signs, log):
             q = q + 0.01 * q.abs().mean() * torch.randn(
                 q.shape, generator=gen, device="cuda")
             sets.append((q, x))
+        rows.append(l2_distance_row(torch, mode, sets, log))
         q, x = sets[0]
         n, d = x.shape
-        plain = ref.l2_distance_ref if mode == "l2" else ref.dot_distance_ref
-        got = l2_distance(q, x, mode=mode)
-        want = plain(q, x)
-        torch.cuda.synchronize()
-        err = (got - want).abs()
-        tol = RTOL * want.abs() \
-            + ATOL_PER_NORM * q.norm(dim=1)[:, None] * x.norm(dim=1)
-        max_err = float(err.max())
-        check(bool((err <= tol).all()),
-              f"l2_distance {mode} Q={nq} N={n} D={d}: max err "
-              f"{max_err} over tolerance")
-        del want, err, tol
         # the fused entry: topk_smallest over the matrix entry's output
+        got = l2_distance(q, x, mode=mode)
         mat = 1.0 + got if tmode == "cosine" else got
         fd, fi = l2_topk(q, x, K, mode=tmode)
         wd, wi = topk_smallest(mat, K)
@@ -941,32 +1051,7 @@ def l2_kernel_checks(torch, sift_cos, sift_raw, fm, signs, log):
         r.update(plain_timing(torch, [plain_topk(a, b, tmode)
                                       for a, b in sets]))
         log(r)
-        out = torch.empty((nq, n), device="cuda")
-        if mode == "dot":
-            library = [lambda a=a, b=b: torch.addmm(out, a, b.T, beta=0,
-                                                    alpha=-1)
-                       for a, b in sets]
-        else:
-            library = [lambda a=a, b=b: torch.cdist(
-                a, b, compute_mode="use_mm_for_euclid_dist") for a, b in sets]
-        # each input read once, the output written once; 2 flops per
-        # product term, plus for l2 the norms and a 3-op epilogue
-        nbytes = (nq + n) * d * 4 + nq * n * 4
-        mm, other = 2 * nq * n * d, (2 * (nq + n) * d + 3 * nq * n
-                                     if mode == "l2" else nq * n)
-        b3, bf = bound_3xtf32(nbytes, mm, other), bound(nbytes, mm + other)
-        t = timing(torch, [lambda a=a, b=b: l2_distance(a, b, mode=mode)
-                           for a, b in sets])
-        rows.append({"name": "l2_distance", "mode": mode, "Q": nq, "N": n,
-                     "D": d, "max_abs_err": max_err, **t,
-                     **plain_timing(torch, [lambda a=a, b=b: plain(a, b)
-                                            for a, b in sets]),
-                     "bound_ms": b3[0], "bound_us": b3[0] * 1e3,
-                     "bound_by": b3[1], "bound_fp32_ms": bf[0],
-                     "bound_held_to": "3xtf32", "share": b3[0] / t["ms"],
-                     **timing(torch, library, prefix="library_")})
-        log(rows[-1])
-        del out, x, q, fd, fi, sets, library
+        del x, q, fd, fi, sets
         torch.cuda.empty_cache()
 
     # the fused entry where the exact scans run it: the whole 1M corpus
@@ -2148,6 +2233,235 @@ def run_cluster(torch, corpus, queries, gt, counters, log):
 
 
 # ---------------------------------------------------------------------------
+# phase I: the distributed search on the card
+# ---------------------------------------------------------------------------
+
+def ids_agree(torch, got_i, want_i, want_d, tol):
+    """Whether two (Q, k) top-k lists agree, ties aside: wherever their ids
+    differ, the id ``got`` holds sits in ``want`` at a distance within
+    ``tol`` (Q, k) of the position's, or is missing from it where the
+    position lies within ``tol`` of the k-th distance.  Returns (agree,
+    the count of positions whose ids differ)."""
+    differ = got_i != want_i
+    eq = got_i[:, :, None] == want_i[:, None, :]
+    present = eq.any(-1)
+    at = want_d.gather(1, eq.int().argmax(-1))
+    near = (at - want_d).abs() <= tol
+    edge = want_d >= want_d[:, -1:] - tol
+    ok = ~differ | (present & near) | (~present & edge)
+    return bool(ok.all()), int(differ.sum())
+
+
+def run_distributed(torch, corpus, queries, quant_state, counters, log):
+    """Phase I: the distributed search (``repro_torch.distributed``) on the
+    card under ``quantixar-db``'s settings, flat (cosine as -q.x on unit
+    rows, and l2), PQ and BQ: at world 1 on NCCL in both modes, the query
+    batches through ``device_put_batches``, held to the exact scans; then
+    one process plays the ranks of 4 row shards ("rows") and of 2 row x 2
+    model shards ("dims") through the module's per-rank functions on one
+    batch each, held to world 1's answer."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.quantixar_db import CONFIG as DB
+    from repro_torch.core.bq import BinaryQuantizer, BQConfig
+    from repro_torch.core.distances import normalize
+    from repro_torch.core.hnsw_build import preprocess_vectors
+    from repro_torch.core.pq import PQConfig, ProductQuantizer
+    from repro_torch.data import device_put_batches
+    from repro_torch.distributed import search as ds
+    from repro_torch.kernels import ref
+    from repro_torch.launch.mesh import make_local_mesh, mesh_axis_sizes
+
+    t_phase = time.perf_counter()
+    n, dim = corpus.shape
+    k, qb = DB.k, DB.query_batch
+    res = {"phase": "I", "n": n, "dim": dim, "k": k, "query_batch": qb,
+           "queries": len(queries), "metric": DB.metric,
+           "reduced": DIST_REDUCED}
+    counters.reset()
+    mesh = make_local_mesh(1, 1)                    # the card: NCCL
+    res["backend"] = dist.get_backend()
+    check(res["backend"] == "nccl" and dist.get_world_size() == 1
+          and mesh_axis_sizes(mesh) == {"data": 1, "model": 1},
+          f"I: the world-1 mesh is {mesh_axis_sizes(mesh)} on "
+          f"{res['backend']}")
+    pq = ProductQuantizer(PQConfig(m=DB.pq_m, k=DB.pq_k, metric=DB.metric))
+    pq.load_state_dict(quant_state["pq"])
+    bq = BinaryQuantizer(BQConfig(bits=DB.bq_bits))
+    bq.load_state_dict(quant_state["bq"])
+    x_raw = torch.as_tensor(corpus, device="cuda")
+    # case -> (kind, scan metric, global corpus / codes, feature width)
+    cases = {"flat_cosine": ("flat", "dot", normalize(x_raw), dim),
+             "flat_l2": ("flat", "l2", x_raw, dim),
+             "pq": ("pq", "adc", pq.encode(x_raw), DB.pq_m),
+             "bq": ("hamming", "hamming", bq.encode(x_raw), bq.config.words)}
+    makers = {"flat_cosine": lambda mode: ds.make_flat_search(
+                  mesh, k=k, metric="cosine", dim=dim, mode=mode),
+              "flat_l2": lambda mode: ds.make_flat_search(
+                  mesh, k=k, metric="l2", dim=dim, mode=mode),
+              "pq": lambda mode: ds.make_pq_search(
+                  mesh, k=k, m_subspaces=DB.pq_m, mode=mode),
+              "bq": lambda mode: ds.make_hamming_search(
+                  mesh, k=k, words=bq.config.words, mode=mode)}
+    unit = preprocess_vectors(queries, "cosine")     # normalised once
+    batches = [{"unit": unit[lo: lo + qb], "raw": queries[lo: lo + qb]}
+               for lo in range(0, len(queries), qb)]
+
+    def query_side(case, b):
+        """A batch's global query array for a case: unit rows, raw rows,
+        the PQ LUTs or the BQ words."""
+        if case == "flat_cosine":
+            return b["unit"]
+        if case == "flat_l2":
+            return b["raw"]
+        return pq.lut(b["raw"]) if case == "pq" else bq.encode(b["raw"])
+
+    # world 1 on NCCL: every batch through the pipeline, in both modes
+    out, res["qps"] = {}, {}
+    for case, (_, _, x, width) in cases.items():
+        for mode in ("rows", "dims"):
+            fn = makers[case](mode)
+            block = ds.local_block(x, mesh, mode, dim=width)
+
+            def search(b):
+                return fn(block, ds.local_block(query_side(case, b), mesh,
+                                                mode, rows=False, dim=width))
+
+            # warm-up: the NCCL communicators, the caches
+            search({key: torch.as_tensor(v, device="cuda")
+                    for key, v in batches[0].items()})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = [search(b) for b in device_put_batches(iter(batches))]
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            check(all(d.shape == (len(b["raw"]), k) and i.dtype == torch.int32
+                      and bool(torch.isfinite(d).all())
+                      and bool(((i >= 0) & (i < n)).all())
+                      for (d, i), b in zip(got, batches)),
+                  f"I: {case} {mode}: malformed results")
+            out[(case, mode)] = got
+            res["qps"][f"{case}/{mode}"] = len(queries) / secs
+            log({"search": {"phase": "I", "case": case, "mode": mode,
+                            "qps": len(queries) / secs, "seconds": secs}})
+        # at world 1 no axis splits anything: the two modes are one path
+        check(all(torch.equal(a[1], b[1]) and torch.equal(a[0], b[0])
+                  for a, b in zip(out[(case, "rows")], out[(case, "dims")])),
+              f"I: {case}: the modes differ at world 1")
+
+    # one process plays the shards, through the module's per-rank
+    # functions, on the first batch
+    b0 = {key: torch.as_tensor(v, device="cuda")
+          for key, v in batches[0].items()}
+    res["emulation"] = {}
+    for case, (kind, metric, x, width) in cases.items():
+        q = query_side(case, b0)
+        w_d, w_i = out[(case, "rows")][0]
+        t0 = time.perf_counter()
+        r_d, r_i = ds.emulate_search(kind, metric, x, q, k, DIST_ROWS,
+                                     "rows", width)
+        d_d, d_i = ds.emulate_search(kind, metric, x, q, k, DIST_DIMS,
+                                     "dims", width)
+        torch.cuda.synchronize()
+        emu = {"seconds": time.perf_counter() - t0,
+               "rows_bit_equal": torch.equal(r_i, w_i) and torch.equal(
+                   r_d.view(torch.int32), w_d.view(torch.int32))}
+        check(emu["rows_bit_equal"],
+              f"I: {case}: {DIST_ROWS} row shards differ from world 1")
+        if kind == "hamming":
+            # integer sums: the same bits in any order
+            tol = torch.zeros_like(w_d)
+        elif kind == "pq":
+            tol = PQ_DIMS_RTOL * w_d.abs()
+        else:
+            tol = RTOL * w_d.abs() + ATOL_PER_NORM * (
+                q.norm(dim=1)[:, None] * x.norm(dim=1).max())
+        err = (d_d - w_d).abs()
+        agree, differ = ids_agree(torch, d_i, w_i, w_d, tol)
+        emu.update({"dims_max_abs_err": float(err.max()),
+                    "dims_ids_differ": differ,
+                    "dims_bit_equal": torch.equal(d_i, w_i)
+                    and torch.equal(d_d, w_d)})
+        check(bool((err <= tol).all()) and agree,
+              f"I: {case}: the {DIST_DIMS} emulation differs from world 1 "
+              f"beyond ties and tolerance ({emu})")
+        res["emulation"][case] = emu
+        log({"emulation": {"phase": "I", "case": case, **emu}})
+    res["launches"] = counters.read()
+    for kname in PHASE_KERNELS["I"]:
+        check(res["launches"][kname] > 0, f"I: kernel {kname} never launched")
+
+    # after the launch count: the exact scans.  Flat: recall@k against
+    # torch.topk over the plain distances (ties aside); PQ and BQ: the
+    # quantizers' own exact scans, ids and distances equal
+    x_cos, x_l2 = cases["flat_cosine"][2], cases["flat_l2"][2]
+    for case in cases:
+        hits = 0
+        for j, b in enumerate(batches):
+            if case.startswith("flat"):
+                qd = torch.as_tensor(query_side(case, b), device="cuda")
+                d = (ref.dot_distance_ref(qd, x_cos) if case == "flat_cosine"
+                     else ref.l2_distance_ref(qd, x_l2))
+                want = torch.topk(d, k, dim=1, largest=False).indices
+                del d
+                got = out[(case, "rows")][j][1].long()
+                hits += int((got[:, :, None] == want[:, None, :]).any(-1)
+                            .sum())
+                continue
+            raw = torch.as_tensor(b["raw"], device="cuda")
+            codes = cases[case][2]
+            w_d, w_i = (pq.search(codes, raw, k) if case == "pq"
+                        else bq.search(codes, raw, k))
+            for mode in ("rows", "dims"):
+                g_d, g_i = out[(case, mode)][j]
+                check(torch.equal(g_i, w_i) and torch.equal(g_d, w_d),
+                      f"I: {case} {mode}: batch {j} differs from the "
+                      f"quantizer's exact scan")
+        if case.startswith("flat"):
+            res[f"{case}_recall_at_{k}"] = hits / (len(queries) * k)
+            check(res[f"{case}_recall_at_{k}"] >= DIST_RECALL_FLOOR,
+                  f"I: {case}: recall@{k} {res[f'{case}_recall_at_{k}']}")
+        else:
+            res[f"{case}_equals_exact_scan"] = True
+        torch.cuda.empty_cache()
+
+    # B6 and B7 where the "dims" ranks run them: model shard 0's halves
+    # (m 8, W 4) over consecutive chunks of its row shard
+    pq_codes, words = cases["pq"][2], cases["bq"][2]
+    half_m, half_w = DB.pq_m // 2, bq.config.words // 2
+    lut = pq.lut(b0["raw"])[:, :half_m].contiguous()
+    codes_h = pq_codes[:, :half_m].contiguous()
+    q_words = bq.encode(b0["raw"])[:, :half_w].contiguous()
+    words_h = words[:, :half_w].contiguous()
+    chunk = ds.CHUNK
+    res["pq_row"] = pq_adc_row(torch, lut, [
+        codes_h[i * chunk:(i + 1) * chunk] for i in range(SETS)], log,
+        inputs="I dims split")
+    res["hamming_row"] = hamming_row(torch, q_words, [
+        words_h[i * chunk:(i + 1) * chunk] for i in range(SETS)], log,
+        inputs="I dims split")
+    # B5's matrix entry there: dot mode over model shard 0's half of the
+    # features (D 64), for the cosine rows and for l2's raw rows
+    half = dim // 2
+    res["l2_rows"] = []
+    for case, xf, qd in (("flat_cosine", x_cos, b0["unit"]),
+                         ("flat_l2", x_l2, b0["raw"])):
+        x_h = xf[:, :half].contiguous()
+        q_h = qd[:, :half].contiguous()
+        res["l2_rows"].append(l2_distance_row(torch, "dot", [
+            (q_h, x_h[i * chunk:(i + 1) * chunk]) for i in range(SETS)],
+            log, inputs=f"I dims split, {case}"))
+        del x_h, q_h
+    res["seconds"] = time.perf_counter() - t_phase
+    log({"phase_result": {key: v for key, v in res.items()
+                          if key not in ROW_KEYS}})
+    dist.destroy_process_group()
+    del cases, out, x_raw, x_cos, x_l2
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase F: xlstm-1.3b serving through repro_torch.models
 # ---------------------------------------------------------------------------
 
@@ -2465,6 +2779,8 @@ def main(argv) -> int:
         codes, lut = pq.encode(sift_raw), pq.lut(q_dev)
         words, q_words = bq.encode(sift_raw), bq.encode(q_dev)
         signs = bq_mod.signs(words, BQ_BITS)
+        # phase I's quantizers: these ones' state
+        quant_state = {"pq": pq.state_dict(), "bq": bq.state_dict()}
         log({"quantizers_s": time.perf_counter() - t0})
         rows = kernel_checks(torch, [(128, sift_cos, ("dot",)),
                                      (128, sift_raw, ("l2",)),
@@ -2516,6 +2832,8 @@ def main(argv) -> int:
                              counters, log)
         phase["H"] = run_cluster(torch, sift, sift_q, gt_sift, counters,
                                  log)
+        phase["I"] = run_distributed(torch, sift, sift_q, quant_state,
+                                     counters, log)
         del sift, sift_q, sift_new, fm, fm_q, fm_new, gt_sift, gt_fm
         torch.cuda.empty_cache()
         phase["F"], slstm_rows = run_xlstm(torch, counters, log)
@@ -2572,6 +2890,10 @@ def main(argv) -> int:
     # (at_ivf_probe: Q=1024 x the 1,024 centroids, l2, k=nprobe=32, with
     # route_ms, the matrix route flat_search takes there) and on one of H's
     # shards (at_shard: Q=1024 and 32 x ~250k unit rows, cosine, k=10).
+    # pq_adc, hamming and l2_distance also carry their rows where phase
+    # I's "dims" ranks run them (at_dims_split: Q=1024 x a 65,536-row chunk
+    # of a rank's half, m=8 / W=4 / D=64 in dot mode, the last over the
+    # cosine rows and over l2's raw rows).
     main_rows = {
         "beam_gather": (pick("beam_gather", mode="dot", D=128, L=256), "A",
                         "beam_gather.py:98",
@@ -2588,11 +2910,15 @@ def main(argv) -> int:
                                 "beam_gather.py:185"),
         "beam_gather_hamming_masked": (phase["D"]["fused_step"], "D",
                                        "beam_gather.py:185"),
-        "pq_adc": (pick("pq_adc", Q=QUERY_BATCH, N=FLAT_CHUNK), "C",
-                   "pq_adc.py:59"),
-        "hamming": (pick("hamming", N=FLAT_CHUNK), "D", "hamming.py:33"),
+        "pq_adc": (pick("pq_adc", Q=QUERY_BATCH, N=FLAT_CHUNK, m=PQ_M), "C",
+                   "pq_adc.py:59",
+                   {"at_dims_split": phase["I"]["pq_row"]}),
+        "hamming": (pick("hamming", N=FLAT_CHUNK, W=BQ_BITS // 32), "D",
+                    "hamming.py:33",
+                    {"at_dims_split": phase["I"]["hamming_row"]}),
         "l2_distance": (pick("l2_distance", mode="dot", D=128, Q=32,
-                             N=FLAT_CHUNK), "E", "l2.py:62"),
+                             N=FLAT_CHUNK), "E", "l2.py:62",
+                        {"at_dims_split": phase["I"]["l2_rows"]}),
         "l2_topk": (next(r for r in rows if r["name"] == "l2_topk"
                          and "route_ms" in r and r["Q"] == QUERY_BATCH),
                     "E", "l2.py:62",
@@ -2643,7 +2969,7 @@ def main(argv) -> int:
            for p in phase.values() if p["phase"] in "ABCD"},
         **{p: {k: v for k, v in phase[p].items()
                if k != "launches" and k not in ROW_KEYS}
-           for p in ("E", "F", "G", "H")}}
+           for p in ("E", "F", "G", "H", "I")}}
     print(json.dumps({"summary": summary}, default=float))
     print(card)
     print(json.dumps({"kernels": kernels}, default=float))

@@ -53,6 +53,14 @@ warm-up: one embedded 1,024-query batch, the same batch through
 (the collection's batcher coalesces them), each span with its wall,
 device and busy share.
 
+``--phase I`` profiles the distributed search (``repro_torch.distributed``)
+at world 1 under quantixar-db's settings (k = 100, one 1,024-query batch;
+PQ m 16 / k 256 and BQ 256 bits trained as phases C and D train them):
+one span for each scan (flat cosine as -q.x on unit rows, flat l2, PQ,
+BQ), and one for the same batch with one process playing the 2 row x 2
+model shards of "dims" mode (B5's matrix entry, B6 or B7 on each half,
+the halves added a row chunk at a time).
+
 ``--phase E`` profiles the public API instead: an exact (flat) cosine
 collection of the same corpus through ``repro_torch.api.Database``, one
 warm-up batch, then one 1,024-query batch (k=10), which scans the whole
@@ -80,6 +88,7 @@ Run on a card from the repository root:
     python3 scripts/profile_torch.py --phase F    # one xLSTM prefill
     python3 scripts/profile_torch.py --phase G    # IVF build and search
     python3 scripts/profile_torch.py --phase H    # sharded, over HTTP
+    python3 scripts/profile_torch.py --phase I    # distributed search
     python3 scripts/profile_torch.py --n 20000    # a quick look
 
 ``--device cpu`` runs the same path with host events only (no device
@@ -315,6 +324,73 @@ def profile_cluster(args, x, q) -> int:
     return 0
 
 
+def profile_distributed(args, x, q) -> int:
+    """Phase I: the distributed search at world 1 (NCCL on the card, gloo
+    on the CPU) under quantixar-db's settings, one 1,024-query batch per
+    scan after a warm-up; and the same batch with one process playing the
+    2 row x 2 model shards of "dims" mode (``emulate_search``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.configs.quantixar_db import CONFIG as DB
+    from repro_torch.core import (BinaryQuantizer, BQConfig, PQConfig,
+                                  ProductQuantizer, normalize)
+    from repro_torch.distributed import search as ds
+    from repro_torch.launch.mesh import make_local_mesh
+
+    on_card = args.device != "cpu"
+    mesh = make_local_mesh(1, 1, device=args.device)
+    x_raw = torch.as_tensor(x, device=args.device)
+    pq = ProductQuantizer(PQConfig(m=DB.pq_m, k=DB.pq_k, metric=DB.metric),
+                          device=args.device)
+    pq.train(x_raw, seed=0)
+    bq = BinaryQuantizer(BQConfig(bits=DB.bq_bits), device=args.device)
+    bq.train(x_raw, seed=0)
+    raw = torch.as_tensor(q[:QUERY_BATCH], device=args.device)
+    w = bq.config.words
+    # span -> (kind, scan metric, corpus, queries, feature width, maker)
+    scans = {
+        "flat_cosine": ("flat", "dot", normalize(x_raw), normalize(raw), 128,
+                        lambda: ds.make_flat_search(mesh, k=DB.k,
+                                                    metric="cosine")),
+        "flat_l2": ("flat", "l2", x_raw, raw, 128,
+                    lambda: ds.make_flat_search(mesh, k=DB.k, metric="l2")),
+        "pq": ("pq", "adc", pq.encode(x_raw), pq.lut(raw), DB.pq_m,
+               lambda: ds.make_pq_search(mesh, k=DB.k)),
+        "bq": ("hamming", "hamming", bq.encode(x_raw), bq.encode(raw), w,
+               lambda: ds.make_hamming_search(mesh, k=DB.k))}
+    runs = []
+    for name, (kind, metric, xs, qs, width, make) in scans.items():
+        fn = make()
+        runs.append((name, lambda fn=fn, xs=xs, qs=qs: fn(xs, qs)))
+        runs.append((name + "_dims_2x2", lambda kind=kind, metric=metric,
+                     xs=xs, qs=qs, width=width: ds.emulate_search(
+                         kind, metric, xs, qs, DB.k,
+                         {"data": 2, "model": 2}, "dims", width)))
+    for _, fn in runs:                        # warm-up: NCCL, caches
+        fn()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card
+                                     else [])
+    t0 = time.perf_counter()
+    with profile(activities=acts) as prof:
+        for span, fn in runs:
+            with record_function(f"span::{span}"):
+                fn()
+                if on_card:
+                    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dev, total_dev = span_rows(prof, {})
+    print(json.dumps({"phase": "I", "wall_s_profiled": wall,
+                      "device_events": len(dev), "device_ms": total_dev}),
+          flush=True)
+    torch.distributed.destroy_process_group()
+    if on_card and not dev:
+        print("profile_torch: the profiler recorded no device events",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
 def profile_xlstm(args) -> int:
     """Phase F: one full-width xlstm-1.3b prefill of 8 x 2,048 tokens."""
     import torch
@@ -416,7 +492,7 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--queries", type=int, default=10_000)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--phase", choices=[*sorted(QUANT), "F", "H"],
+    ap.add_argument("--phase", choices=[*sorted(QUANT), "F", "H", "I"],
                     default="A")
     args = ap.parse_args()
 
@@ -439,6 +515,8 @@ def main() -> int:
         return profile_exact(args, x, q)
     if args.phase == "H":
         return profile_cluster(args, x, q)
+    if args.phase == "I":
+        return profile_distributed(args, x, q)
     eng = QuantixarEngine(EngineConfig(
         dim=x.shape[1], metric="cosine",
         index="ivf" if args.phase == "G" else "hnsw",

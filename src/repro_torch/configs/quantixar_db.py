@@ -1,7 +1,8 @@
 """quantixar-db — the paper's own workload as a dry-runnable config:
 a sharded vector corpus searched with flat / PQ-ADC / BQ-hamming scans +
 cross-shard top-k merge.  Corpus rows are sharded over (pod, data); the
-search step is the shard_map program in repro.distributed.search."""
+search step is repro_torch.distributed.search, every rank of the mesh
+scanning its own block."""
 
 import dataclasses
 

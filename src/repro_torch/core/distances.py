@@ -18,11 +18,12 @@ query's own gathered rows, batched (the exact rescore): a plain
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
 import torch
 
 from ..kernels import ops
+from ..kernels.ref import topk_smallest
 
 #: Registry of metric name -> pairwise fn (queries (Q,D), corpus (N,D)) -> (Q,N)
 _METRICS: Dict[str, Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = {}
@@ -85,6 +86,36 @@ def pairwise_hamming(q_codes: torch.Tensor,
     int32 words holding the uint32 bits (``core/bq.py``'s layout) ->
     ``(Q, N)`` int32 bit-difference counts."""
     return ops.hamming_distances(q_codes.contiguous(), x_codes.contiguous())
+
+
+# ---------------------------------------------------------------------------
+# Single-pair conveniences
+# ---------------------------------------------------------------------------
+
+def point_l2(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    d = q.float() - x.float()
+    return (d * d).sum(-1)
+
+
+def point_cosine(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return 1.0 - (normalize(q) * normalize(x)).sum(-1)
+
+
+def point_dot(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return -(q.float() * x.float()).sum(-1)
+
+
+POINT_METRICS = {"l2": point_l2, "cosine": point_cosine, "dot": point_dot}
+
+
+def brute_force_topk(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+                     metric: str = "cosine"
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over the whole (Q, N) matrix of the registry's metric:
+    the paper's Flat Index primitive.  Returns (distances (Q, k) ascending,
+    indices (Q, k) int32), ties to the lowest index."""
+    d, idx = topk_smallest(get_metric(metric)(queries, corpus), k)
+    return d, idx.to(torch.int32)
 
 
 def rowwise(metric: str, queries: torch.Tensor,

@@ -32,6 +32,7 @@ rows (``unit_corpus``).
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -180,3 +181,17 @@ def _empty_slots(d: torch.Tensor, idx: torch.Tensor, chunk: Optional[int],
     if chunk is None or chunk >= n:
         return idx
     return torch.where(d == float("inf"), torch.full_like(idx, -1), idx)
+
+
+@dataclass
+class FlatIndex:
+    """Thin stateful wrapper; all compute is in flat_search."""
+
+    metric: str = "cosine"
+    chunk: Optional[int] = None
+
+    def search(self, corpus: torch.Tensor, queries: torch.Tensor, k: int,
+               mask: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return flat_search(queries, corpus, k, metric=self.metric,
+                           chunk=self.chunk, mask=mask)

@@ -78,6 +78,14 @@ def sift_like(n: int, seed: int = 0) -> np.ndarray:
     return (512.0 * x / np.maximum(norm2, 1e-9)).astype(np.float32)
 
 
+def make_corpus(spec: DatasetSpec, n: int, seed: int = 0) -> np.ndarray:
+    if spec.name.startswith("fashion"):
+        return fashion_mnist_like(n, seed)
+    if spec.name.startswith("sift"):
+        return sift_like(n, seed)
+    return gaussian_mixture(n, spec.dim, seed=seed)
+
+
 # ---------------------------------------------------------------------------
 # LM token streams (architecture training cells)
 # ---------------------------------------------------------------------------

@@ -1120,3 +1120,99 @@ def test_launch_counters_count_every_thread(cuda):
         sys.setswitchinterval(old)
     assert not any(w.is_alive() for w in workers)
     assert bg_mod.launches == before + threads * per
+
+
+@pytest.fixture(scope="module")
+def world_one():
+    """A single-rank process group with NCCL for the card and gloo for the
+    CPU, so that one process holds a mesh on each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import torch.distributed as dist
+    dist.init_process_group("cpu:gloo,cuda:nccl", store=dist.HashStore(),
+                            rank=0, world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("k", [10, 100])
+@pytest.mark.parametrize("mode", ["rows", "dims"])
+@pytest.mark.parametrize("case", ["flat_cosine", "flat_l2", "pq", "bq"])
+def test_distributed_search_on_card_matches_cpu(cuda, world_one, case, mode,
+                                                k):
+    """The three makers at world 1 on NCCL return what the same call on the
+    CPU with gloo returns: integer-valued inputs, so the ids match exactly,
+    ties included; each scan runs its kernel (B5's fused entry, B6, B7)."""
+    from repro_torch.distributed import (make_flat_search,
+                                         make_hamming_search, make_pq_search)
+    from repro_torch.launch.mesh import make_local_mesh
+    rng = np.random.RandomState(11)
+    n, nq = 20_000, 40
+    if case.startswith("flat"):
+        x = rng.randint(-4, 5, (n, 32)).astype(np.float32)
+        q = rng.randint(-4, 5, (nq, 32)).astype(np.float32)
+        make = lambda mesh: make_flat_search(   # noqa: E731
+            mesh, k=k, metric=case[5:], dim=32, mode=mode)
+        mod, attr = l2_mod, "topk_launches"
+    elif case == "pq":
+        x = rng.randint(0, 256, (n, 16)).astype(np.uint8)
+        q = rng.randint(0, 64, (nq, 16, 256)).astype(np.float32)
+        make = lambda mesh: make_pq_search(   # noqa: E731
+            mesh, k=k, m_subspaces=16, mode=mode)
+        mod, attr = adc_mod, "launches"
+    else:
+        x = rng.randint(-2 ** 31, 2 ** 31, (n, 8)).astype(np.int32)
+        q = rng.randint(-2 ** 31, 2 ** 31, (nq, 8)).astype(np.int32)
+        make = lambda mesh: make_hamming_search(   # noqa: E731
+            mesh, k=k, words=8, mode=mode)
+        mod, attr = hm_mod, "launches"
+    out = {}
+    for dev in ("cuda", "cpu"):
+        fn = make(make_local_mesh(1, 1, device=dev))
+        before = getattr(mod, attr)
+        d, i = fn(torch.as_tensor(x, device=dev),
+                  torch.as_tensor(q, device=dev))
+        assert (getattr(mod, attr) > before) == (dev == "cuda")
+        out[dev] = (d.cpu(), i.cpu())
+    assert out["cuda"][1].dtype == torch.int32
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_device_put_batches_on_card(cuda):
+    """Each batch lands on the card equal to its arrays, containers kept.
+    The copies run on the pipeline's own stream (here held back behind a
+    ~0.5 s spin), and the consumer's stream waits on them: a read on the
+    consumer's stream right after ``next`` sees the copied values."""
+    import threading
+    import time
+
+    from repro_torch.data import device_put_batches
+    rng = np.random.RandomState(12)
+    batches = [{"x": rng.randn(2048, 2048).astype(np.float32),
+                "ids": (rng.randint(0, 9, (7,)).astype(np.int64),)}
+               for _ in range(3)]
+    gate = threading.Event()
+
+    def gated():
+        gate.wait(60)
+        yield from batches
+
+    it = device_put_batches(gated(), depth=1)
+    assert it.stream != torch.cuda.current_stream()
+    with torch.cuda.stream(it.stream):
+        torch.cuda._sleep(10 ** 9)
+    gate.set()
+    t0 = time.perf_counter()
+    first = next(it)
+    got = first["x"].cpu()
+    assert time.perf_counter() - t0 > 0.1          # waited behind the spin
+    assert torch.equal(got, torch.from_numpy(batches[0]["x"]))
+    assert first["x"].device.type == "cuda"
+    rest = [first] + list(it)
+    assert len(rest) == 3
+    for b, g in zip(batches, rest):
+        assert torch.equal(g["x"].cpu(), torch.from_numpy(b["x"]))
+        assert isinstance(g["ids"], tuple)
+        assert torch.equal(g["ids"][0].cpu(), torch.from_numpy(b["ids"][0]))
