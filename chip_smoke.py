@@ -13,8 +13,8 @@ against its plain PyTorch version on the card at the main paths' shapes, and
 then drives five collections end to end through
 ``repro_torch.core.QuantixarEngine``, three through the public API (one of
 them sharded, behind the HTTP server), the distributed search through
-``repro_torch.distributed`` and the xLSTM language model through
-``repro_torch.models``:
+``repro_torch.distributed`` and the language models through
+``repro_torch.models`` (xLSTM, then the nine other families):
 
   phase A  cosine, HNSW, no quantization, bulk builder, over a SIFT-like
            corpus at SIFT's published size (1M x 128): build, 10,000 queries
@@ -83,7 +83,30 @@ them sharded, behind the HTTP server), the distributed search through
            plain exact top-k (recall@100) and PQ / BQ to the quantizers'
            exact scans; then one process plays the ranks of 4 row shards
            (bit-equal to world 1) and of 2 row x 2 model shards (equal up
-           to ties and tolerance) through the module's per-rank functions.
+           to ties and tolerance) through the module's per-rank functions;
+  phase J  qwen2-1.5b (``src/repro_torch/configs/qwen2_1_5b.py``: 28 layers,
+           d_model 1536, 12 heads, 2 kv heads, vocab 151,936) at its full
+           published size, random weights from a seeded ``torch.Generator``:
+           8 prompts of 2,048 Zipf tokens through ``forward`` in bf16 (the
+           chunked attention route; tokens/s, peak memory), the greedy
+           ``make_serve_step`` at batch 8 (128 teacher-forced + 32 generated
+           tokens) in "ragged" and "uniform" ``decode_pos_mode`` (the same
+           ids), the fp32 check (teacher-forced ``decode_step`` against
+           ``forward`` at 8 x 128), and the attention yardstick: the port's
+           attention against ``F.scaled_dot_product_attention`` on the same
+           q, k and v (the library call on no path);
+  phase K  the other eight new families (qwen3-4b, stablelm-3b,
+           granite-moe-3b-a800m, seamless-m4t-medium, recurrentgemma-9b,
+           starcoder2-15b, mixtral-8x7b, chameleon-34b) at their published
+           widths, depth cut only where the fp32 weights would not fit on
+           the card (each cut, with the sizes that force it, in the
+           family's ``reduced``): a bf16 prefill of 2 x 2,048 tokens (seamless
+           with 2 x 1,024 seeded frames), 16 greedy steps after a 32-token
+           teacher-forced prompt, and the fp32 check at 2 x 64 (the MoE
+           families with ``moe_capacity_factor=8`` and seamless with
+           ``rope_pct=0``, which remove two known properties of the
+           reference, printed under ``reduced``).  J and K run no kernel of
+           the port: the reference computes these blocks in plain ``jnp``.
 
 Every phase must pass and every kernel of its path must have launched, or
 the script exits non-zero.  The exact scans of phases A-E (delta segment,
@@ -125,6 +148,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 # dense TF32 on the tensor cores; B5's 3xTF32 does three per fp32 product
 TF32_FLOP_PER_S = 495e12
+# dense bf16 on the tensor cores (phase J's attention yardstick)
+BF16_FLOP_PER_S = 989e12
 # population count: 16 results per clock per SM for compute capability 9.0
 # (CUDA C++ Programming Guide, throughput of native arithmetic
 # instructions), x 132 SMs x the H100 SXM's 1.98 GHz boost clock
@@ -226,6 +251,41 @@ SLSTM_ATOL = {"float32": 1e-4, "bfloat16": 7.9e-3}
 # the fp32 end-to-end checks: kernel vs plain forward, decode vs forward
 LOGIT_REL_TOL = 1e-3
 ARGMAX_AGREEMENT = 0.99
+# the port's chunked attention against scaled_dot_product_attention, bf16
+# q, k, v: the largest difference at a position over that position's largest
+# output.  Both round the output to bf16 (2^-9 relative) and the port rounds
+# the softmax weights and each chunk's PV product to bf16 as the reference
+# does (2^-9 each), so a few such roundings fit; a wrong kv chunk moves a
+# late position by about its whole size
+ATTN_REL_TOL = 0.02
+# phases J and K: the attention, MoE, RG-LRU and encoder-decoder families
+# (J: qwen2-1.5b at its full size, F's prefill and generation sizes; K: the
+# other eight at their published widths, a prefill of 2 x 2,048 tokens, a
+# 32-token teacher-forced prompt and 16 generated tokens, the fp32 check at
+# 2 x 64)
+QWEN2 = "qwen2-1.5b"
+K_PREFILL_B, K_FRAMES = 2, 1024
+K_PROMPT_S, K_GEN_TOKENS = 32, 16
+K_CHECK_S = 64
+K_FAMILIES = ("qwen3-4b", "stablelm-3b", "granite-moe-3b-a800m",
+              "seamless-m4t-medium", "recurrentgemma-9b", "starcoder2-15b",
+              "mixtral-8x7b", "chameleon-34b")
+# each family runs at the deepest depth (at most its published one) whose
+# fp32 weights fit in the card's free memory less this reserve for the
+# prefill's activations and logits: the most K's families took beside their
+# weights was 10.8 GiB (recurrentgemma-9b's 256,000-wide logits, NVIDIA H100
+# 80GB HBM3)
+K_RESERVE_GIB = 16.0
+# the fp32 decode-vs-forward check runs without the reference's two known
+# properties (ROADMAP queue C): each override removes one
+K_AGREE_OVERRIDES = {"granite-moe-3b-a800m": {"moe_capacity_factor": 8.0},
+                     "mixtral-8x7b": {"moe_capacity_factor": 8.0},
+                     "seamless-m4t-medium": {"rope_pct": 0.0}}
+K_AGREE_WHY = {
+    "moe_capacity_factor": "forward drops tokens past the experts' "
+                           "capacity, a decode step of one token none",
+    "rope_pct": "forward rotates the cross-attention queries, decode does "
+                "not"}
 # phase G: IVF at SIFT1M's usual setting, nlist ~ sqrt(N) (ann-benchmarks'
 # faiss-ivf grid over SIFT-128 holds nlist 1,024 and nprobe in the tens);
 # the schema's default nlist 64 would scan 187,504 candidates a query
@@ -2555,8 +2615,7 @@ def run_xlstm(torch, counters, log):
 
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import zipf_tokens
-    from repro_torch.models import (decode_step, forward, init_decode_state,
-                                    init_params, make_serve_step)
+    from repro_torch.models import forward, init_params
 
     cfg = get_config(XLSTM)
     n_slstm = sum(bt == "slstm" for bt in cfg.block_pattern) * cfg.n_units
@@ -2579,21 +2638,9 @@ def run_xlstm(torch, counters, log):
     toks = torch.as_tensor(zipf_tokens(np.random.RandomState(0),
                                        (PREFILL_B, PREFILL_S), V),
                            device="cuda")
-    forward(model, {"tokens": toks[:, :256]}, cfg)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    counters.reset()
-    t0 = time.perf_counter()
-    logits, _ = forward(model, {"tokens": toks}, cfg)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
+    res.update(lm_prefill(torch, model, cfg, toks, None, "F", counters))
     res["launches"] = counters.read()
-    res["prefill_s"] = prefill_s
-    res["prefill_tokens_per_s"] = PREFILL_B * PREFILL_S / prefill_s
-    res["prefill_peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
-    check(tuple(logits.shape) == (PREFILL_B, PREFILL_S, V)
-          and logits.dtype == torch.float32, f"F: logits {logits.shape}")
-    check(bool(torch.isfinite(logits).all()), "F: non-finite logits")
+    prefill_s = res["prefill_s"]
     check(res["launches"]["slstm"] == n_slstm,
           f"F: slstm called {res['launches']['slstm']} times in one "
           f"prefill, want {n_slstm}")
@@ -2601,42 +2648,17 @@ def run_xlstm(torch, counters, log):
                 and r["S"] == PREFILL_S)
     res["slstm_ms_per_prefill"] = full["ms"] * n_slstm
     res["slstm_share_of_prefill"] = full["ms"] * n_slstm / (prefill_s * 1e3)
-    del logits
-    torch.cuda.empty_cache()
     log({"xlstm": "prefill", **res})
 
     # 2. generation requests: 8 prompts of 128 tokens teacher-forced through
     # the greedy serve step, then 32 tokens generated each
-    serve = make_serve_step(cfg)
     prompts = torch.as_tensor(zipf_tokens(np.random.RandomState(1),
                                           (PREFILL_B, PROMPT_S), V),
                               device="cuda")
-    state = init_decode_state(cfg, PREFILL_B, PROMPT_S + GEN_TOKENS,
-                              device="cuda")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for t in range(PROMPT_S):
-        nxt, state = serve(model, state, prompts[:, t:t + 1])
-    torch.cuda.synchronize()
-    res["prompt_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / PROMPT_S
-    out, step_ms = [nxt], []
-    for _ in range(GEN_TOKENS - 1):
-        t1 = time.perf_counter()
-        nxt, state = serve(model, state, nxt)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t1) * 1e3)
-        out.append(nxt)
-    gen_ids = torch.cat(out, dim=1)
-    res["decode_ms_per_step"] = statistics.median(step_ms)
-    res["decode_tokens_per_s"] = PREFILL_B * 1e3 / res["decode_ms_per_step"]
-    steps = PROMPT_S + GEN_TOKENS - 1
-    check(tuple(gen_ids.shape) == (PREFILL_B, GEN_TOKENS)
-          and int(gen_ids.min()) >= 0 and int(gen_ids.max()) < V,
-          f"F: generated ids out of range or shape {tuple(gen_ids.shape)}")
-    check(bool((state.pos == steps).all()),
-          f"F: decode pos {state.pos.tolist()} after {steps} steps")
+    out, gen_ids = lm_generate(torch, model, cfg, prompts, GEN_TOKENS, None,
+                               "F")
+    res.update(out)
     res["generated_first_row"] = gen_ids[0].tolist()
-    del state
     log({"xlstm": "generate", **{k: res[k] for k in (
         "prompt_ms_per_step", "decode_ms_per_step", "decode_tokens_per_s",
         "generated_first_row")}})
@@ -2651,29 +2673,334 @@ def run_xlstm(torch, counters, log):
     want, _ = forward(model, {"tokens": toks}, cfg32, force_ref=True)
     scale = want.abs().max().item()
     res["fp32_kernel_vs_plain_max_abs"] = (got - want).abs().max().item()
-    res["fp32_logit_max_abs"] = scale
     check(res["fp32_kernel_vs_plain_max_abs"] <= LOGIT_REL_TOL * scale,
           f"F: fp32 forward, kernel vs plain: {res['fp32_kernel_vs_plain_max_abs']}"
           f" over {LOGIT_REL_TOL} x {scale}")
-    del want
-    state = init_decode_state(cfg32, PREFILL_B, PROMPT_S, device="cuda")
-    dec = torch.empty_like(got)
-    for t in range(PROMPT_S):
-        step, state = decode_step(model, state, toks[:, t:t + 1], cfg32)
-        dec[:, t] = step[:, 0]
-    res["fp32_decode_vs_forward_max_abs"] = (dec - got).abs().max().item()
-    res["fp32_argmax_agreement"] = (dec.argmax(-1) == got.argmax(-1)) \
-        .float().mean().item()
-    check(res["fp32_decode_vs_forward_max_abs"] <= LOGIT_REL_TOL * scale,
-          f"F: fp32 decode vs forward: {res['fp32_decode_vs_forward_max_abs']}")
-    check(res["fp32_argmax_agreement"] >= ARGMAX_AGREEMENT,
-          f"F: fp32 argmax agreement {res['fp32_argmax_agreement']}")
-    del got, dec, state, model
+    del got, want
+    res.update(lm_agreement(torch, model, cfg32, toks, None, "F"))
+    del model
     torch.cuda.empty_cache()
     for kname in PHASE_KERNELS["F"]:
         check(res["launches"][kname] > 0, f"F: kernel {kname} never launched")
     log({"phase_result": res})
     return res, rows
+
+
+# ---------------------------------------------------------------------------
+# phases J and K: the attention, MoE, RG-LRU and encoder-decoder families
+# ---------------------------------------------------------------------------
+
+def lm_prefill(torch, model, cfg, toks, frames, tag, counters=None):
+    """One prefill / scoring forward, timed after a warm-up of the first
+    256 tokens (``counters`` set to 0 after it): tokens/s, peak GB, finite
+    logits of the full shape."""
+    from repro_torch.models import forward
+
+    def batch(n):
+        out = {"tokens": toks[:, :n]}
+        if frames is not None:
+            out["frames"] = frames
+        return out
+
+    b, s = toks.shape
+    forward(model, batch(256), cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    if counters is not None:
+        counters.reset()
+    t0 = time.perf_counter()
+    logits, aux = forward(model, batch(s), cfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(tuple(logits.shape) == (b, s, cfg.vocab_size)
+          and logits.dtype == torch.float32, f"{tag}: logits {logits.shape}")
+    check(bool(torch.isfinite(logits).all()) and bool(torch.isfinite(aux)),
+          f"{tag}: non-finite logits or aux")
+    out = {"prefill_s": secs, "prefill_tokens_per_s": b * s / secs,
+           "prefill_peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "aux": aux.item()}
+    del logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_generate(torch, model, cfg, prompts, gen_tokens, enc_out, tag):
+    """The greedy serve step: the prompt teacher-forced, then gen_tokens
+    generated.  Returns ({prompt / decode ms per step, ...}, ids)."""
+    from repro_torch.models import init_decode_state, make_serve_step
+
+    b, prompt_s = prompts.shape
+    serve = make_serve_step(cfg)
+    state = init_decode_state(cfg, b, prompt_s + gen_tokens, enc_out=enc_out,
+                              params=model, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(prompt_s):
+        nxt, state = serve(model, state, prompts[:, t:t + 1])
+    torch.cuda.synchronize()
+    prompt_ms = (time.perf_counter() - t0) * 1e3 / prompt_s
+    out, step_ms = [nxt], []
+    for _ in range(gen_tokens - 1):
+        t1 = time.perf_counter()
+        nxt, state = serve(model, state, nxt)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        out.append(nxt)
+    ids = torch.cat(out, dim=1)
+    steps = prompt_s + gen_tokens - 1
+    check(tuple(ids.shape) == (b, gen_tokens) and int(ids.min()) >= 0
+          and int(ids.max()) < cfg.vocab_size,
+          f"{tag}: generated ids out of range or shape {tuple(ids.shape)}")
+    check(bool((state.pos == steps).all()),
+          f"{tag}: decode pos {state.pos.tolist()} after {steps} steps")
+    ms = statistics.median(step_ms)
+    return {"prompt_ms_per_step": prompt_ms, "decode_ms_per_step": ms,
+            "decode_tokens_per_s": b * 1e3 / ms}, ids
+
+
+def lm_agreement(torch, model, cfg32, toks, frames, tag):
+    """fp32, the same weights: teacher-forced ``decode_step`` against
+    ``forward``: max abs difference <= LOGIT_REL_TOL x the largest logit,
+    argmax agreement >= ARGMAX_AGREEMENT."""
+    from repro_torch.models import (decode_step, encode, forward,
+                                    init_decode_state)
+
+    b, s = toks.shape
+    batch = {"tokens": toks}
+    enc_out = None
+    if frames is not None:
+        batch["frames"] = frames
+        enc_out = encode(model, frames, cfg32)
+    full, _ = forward(model, batch, cfg32)
+    state = init_decode_state(cfg32, b, s, enc_out=enc_out, params=model,
+                              device="cuda")
+    dec = torch.empty_like(full)
+    for t in range(s):
+        step, state = decode_step(model, state, toks[:, t:t + 1], cfg32)
+        dec[:, t] = step[:, 0]
+    scale = full.abs().max().item()
+    out = {"fp32_logit_max_abs": scale,
+           "fp32_decode_vs_forward_max_abs": (dec - full).abs().max().item(),
+           "fp32_argmax_agreement": (dec.argmax(-1) == full.argmax(-1))
+           .float().mean().item()}
+    check(out["fp32_decode_vs_forward_max_abs"] <= LOGIT_REL_TOL * scale,
+          f"{tag}: fp32 decode vs forward: "
+          f"{out['fp32_decode_vs_forward_max_abs']} over {LOGIT_REL_TOL} x "
+          f"{scale}")
+    check(out["fp32_argmax_agreement"] >= ARGMAX_AGREEMENT,
+          f"{tag}: fp32 argmax agreement {out['fp32_argmax_agreement']}")
+    return out
+
+
+def attention_yardstick(torch, cfg, log):
+    """The port's full-sequence attention (the route phase J's prefill
+    takes) against one ``F.scaled_dot_product_attention`` call on the same
+    q, k and v (the kv heads repeated to the query heads, outside the
+    timing): device ms of each (calls back to back) and per-call ms, the
+    largest difference, and a bound: the causal half of the two products'
+    operations at the bf16 tensor-core peak.  The library call is timed
+    here only; no path of the port takes it."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import layers as L
+
+    b, s = PREFILL_B, PREFILL_S
+    nq, nkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    dt = cfg.activation_dtype
+    sets = []
+    for _ in range(2):
+        q = torch.randn((b, s, nq, dh), generator=gen, device="cuda").to(dt)
+        k = torch.randn((b, s, nkv, dh), generator=gen, device="cuda").to(dt)
+        v = torch.randn((b, s, nkv, dh), generator=gen, device="cuda").to(dt)
+        sets.append((q, k, v))
+    pos = torch.arange(s, dtype=torch.int32, device="cuda")[None].expand(b, s)
+    route = L.attention_route(cfg, s, s, True, cfg.attn_chunk)
+    check(route == "chunked", f"J: attention takes the {route} route")
+
+    def port(q, k, v):
+        return L._chunked_attention(q.reshape(b, s, nkv, nq // nkv, dh), k,
+                                    v, pos, pos, True, 0, cfg.attn_chunk)
+
+    def lib_inputs(q, k, v):
+        rep = nq // nkv
+        return (q.transpose(1, 2),
+                k.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous(),
+                v.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous())
+
+    lib_sets = [lib_inputs(*x) for x in sets]
+
+    def lib(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    got = port(*sets[0]).reshape(b, s, nq, dh).float()
+    want = lib(*lib_sets[0]).transpose(1, 2).float()
+    diff = (got - want).abs().amax(-1)
+    err = diff.max().item()
+    # each (row, position, head) against its own largest output: late
+    # positions average ~2k keys, so their outputs are ~20x smaller than the
+    # first ones' and an absolute limit would not see them
+    rel = (diff / want.abs().amax(-1).clamp_min(1e-30)).max().item()
+    check(rel <= ATTN_REL_TOL,
+          f"J: attention vs scaled_dot_product_attention: {rel} of each "
+          f"position's largest output (max abs {err})")
+    del got, want, diff
+    flops = 2 * 2 * b * nq * dh * s * (s + 1) / 2
+    # q, k, v read once and the output written once, bf16
+    b_ms, b_by = bound((2 * nq + 2 * nkv) * b * s * dh * 2, flops,
+                       BF16_FLOP_PER_S)
+    row = {"attention_yardstick": "J", "B": b, "S": s, "nq": nq, "nkv": nkv,
+           "dh": dh, "route": route, "chunk": cfg.attn_chunk,
+           "max_abs_err": err, "max_rel_err_per_position": rel,
+           **timing(torch, [lambda x=x: port(*x) for x in sets],
+                    graph=False, reps=5, warmup=1),
+           **timing(torch, [lambda x=x: lib(*x) for x in lib_sets],
+                    prefix="sdpa_", graph=False, reps=5, warmup=1),
+           "bound_ms": b_ms, "bound_by": b_by}
+    log(row)
+    torch.cuda.empty_cache()
+    return row
+
+
+def run_qwen2(torch, counters, log):
+    """Phase J: qwen2-1.5b at its full published size on the card."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import zipf_tokens
+    from repro_torch.models import init_params
+    from repro_torch.models import layers as L
+
+    cfg = get_config(QWEN2)
+    res = {"phase": "J", "model": QWEN2, "param_count": cfg.param_count(),
+           "reduced": []}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    model = init_params(cfg, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    res["init_s"] = time.perf_counter() - t0
+    res["param_numel"] = sum(p.numel() for p in model.parameters())
+    V = cfg.vocab_size
+    toks = torch.as_tensor(zipf_tokens(np.random.RandomState(0),
+                                       (PREFILL_B, PREFILL_S), V),
+                           device="cuda")
+    res["attention_route"] = L.attention_route(cfg, PREFILL_S, PREFILL_S,
+                                               True, cfg.attn_chunk)
+    counters.reset()
+    res.update(lm_prefill(torch, model, cfg, toks, None, "J"))
+    prompts = torch.as_tensor(zipf_tokens(np.random.RandomState(1),
+                                          (PREFILL_B, PROMPT_S), V),
+                              device="cuda")
+    ids = {}
+    for mode in ("ragged", "uniform"):
+        gcfg = cfg.with_overrides(decode_pos_mode=mode)
+        out, ids[mode] = lm_generate(torch, model, gcfg, prompts, GEN_TOKENS,
+                                     None, f"J {mode}")
+        res.update({f"{k}_{mode}": v for k, v in out.items()})
+    res["launches"] = counters.read()
+    check(torch.equal(ids["ragged"], ids["uniform"]),
+          "J: ragged and uniform decode generated other ids")
+    res["decode_ms_per_step"] = res["decode_ms_per_step_ragged"]
+    res["generated_first_row"] = ids["ragged"][0].tolist()
+    log({"qwen2": "serve", **res})
+    cfg32 = cfg.with_overrides(dtype="float32")
+    toks = torch.as_tensor(zipf_tokens(np.random.RandomState(2),
+                                       (PREFILL_B, PROMPT_S), V),
+                           device="cuda")
+    res.update(lm_agreement(torch, model, cfg32, toks, None, "J"))
+    del model
+    torch.cuda.empty_cache()
+    res["yardstick"] = attention_yardstick(torch, cfg, log)
+    log({"phase_result": res})
+    return res
+
+
+def k_depth(torch, cfg):
+    """The deepest depth, at most the published one, whose fp32 weights (the
+    parameters of the model built on the meta device) fit in the card's
+    free memory less K_RESERVE_GIB; and why it is cut, or None."""
+    from repro_torch.models.model import Model
+
+    def gib(n):
+        model = Model(cfg.with_overrides(n_layers=n), "meta")
+        return sum(p.numel() for p in model.parameters()) * 4 / 2**30
+
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0] / 2**30
+    depth = cfg.n_layers
+    while depth > 1 and gib(depth) > free - K_RESERVE_GIB:
+        depth -= 1
+    if depth == cfg.n_layers:
+        return depth, None
+    return depth, (f"memory: {gib(cfg.n_layers):.1f} GiB of fp32 weights at "
+                   f"{cfg.n_layers} layers, {gib(depth):.1f} at {depth}; "
+                   f"{free:.1f} GiB free on the card less {K_RESERVE_GIB} "
+                   f"for the prefill's activations and logits")
+
+
+def run_families(torch, counters, log):
+    """Phase K: the other eight new families at their published widths,
+    depth cut only where the fp32 weights would not fit (k_depth); one
+    model at a time."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import zipf_tokens
+    from repro_torch.models import encode, init_params
+
+    res = {"phase": "K", "families": {}}
+    counters.reset()
+    for arch in K_FAMILIES:
+        cfg = get_config(arch)
+        reduced = []
+        depth, why = k_depth(torch, cfg)
+        if why is not None:
+            reduced.append(f"n_layers {cfg.n_layers} -> {depth}: {why}")
+            cfg = cfg.with_overrides(n_layers=depth)
+        fam = {"layers": cfg.n_layers, "encoder_layers": cfg.encoder_layers,
+               "param_count": cfg.param_count()}
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        model = init_params(cfg, generator=gen, device="cuda")
+        torch.cuda.synchronize()
+        fam["init_s"] = time.perf_counter() - t0
+        fam["weights_gib"] = (sum(p.numel() for p in model.parameters())
+                              * 4 / 2**30)
+        V, d = cfg.vocab_size, cfg.d_model
+        toks = torch.as_tensor(zipf_tokens(np.random.RandomState(0),
+                                           (K_PREFILL_B, PREFILL_S), V),
+                               device="cuda")
+        frames = None
+        if cfg.is_enc_dec:
+            frames = torch.randn((K_PREFILL_B, K_FRAMES, d), generator=gen,
+                                 device="cuda")
+        fam.update(lm_prefill(torch, model, cfg, toks, frames, f"K {arch}"))
+        enc_out = None if frames is None else encode(model, frames, cfg)
+        out, gen_ids = lm_generate(torch, model, cfg, toks[:, :K_PROMPT_S],
+                                   K_GEN_TOKENS, enc_out, f"K {arch}")
+        fam.update(out)
+        fam["generated_first_row"] = gen_ids[0].tolist()
+        del enc_out
+        over = K_AGREE_OVERRIDES.get(arch, {})
+        reduced += [f"fp32 check: {k}={v} ({K_AGREE_WHY[k]})"
+                    for k, v in over.items()]
+        cfg32 = cfg.with_overrides(dtype="float32", **over)
+        check_frames = None if frames is None else frames[:, :K_CHECK_S]
+        fam.update(lm_agreement(torch, model, cfg32,
+                                toks[:, :K_CHECK_S].contiguous(),
+                                check_frames, f"K {arch}"))
+        fam["reduced"] = reduced
+        fam["seconds"] = time.perf_counter() - t0
+        log({"family": arch, **fam})
+        res["families"][arch] = fam
+        del model, toks, frames, check_frames
+        torch.cuda.empty_cache()
+    res["launches"] = counters.read()
+    log({"phase_result": res})
+    return res
 
 
 class Counters:
@@ -2838,6 +3165,8 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         phase["F"], slstm_rows = run_xlstm(torch, counters, log)
         rows += slstm_rows
+        phase["J"] = run_qwen2(torch, counters, log)
+        phase["K"] = run_families(torch, counters, log)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -2969,7 +3298,7 @@ def main(argv) -> int:
            for p in phase.values() if p["phase"] in "ABCD"},
         **{p: {k: v for k, v in phase[p].items()
                if k != "launches" and k not in ROW_KEYS}
-           for p in ("E", "F", "G", "H", "I")}}
+           for p in ("E", "F", "G", "H", "I", "J", "K")}}
     print(json.dumps({"summary": summary}, default=float))
     print(card)
     print(json.dumps({"kernels": kernels}, default=float))

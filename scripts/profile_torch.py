@@ -80,6 +80,20 @@ event inside the chunk spans) and the matrix products' ms (device kernels
 named as cuBLAS / CUTLASS GEMMs: "gemm", "nvjet", "xmma", "cutlass"), in
 all and inside the chunk loop, and the largest device items by name.
 
+``--phase J`` profiles one full-size qwen2-1.5b prefill of 8 x 2,048 Zipf
+tokens in bf16 (random weights, seeded 0, after a warm-up of 8 x 256): each
+call of the attention core (the chunked online softmax at this length) runs
+in a span closed by a synchronize; it prints wall_ms, device_ms, busy and
+host_ms, the attention core's device ms (and of it the products'), the
+other matrix products' ms (the projections, the MLP, the logits), the
+elementwise rest (the attention core against
+``F.scaled_dot_product_attention`` is ``chip_smoke.py``'s phase J
+yardstick).  ``--phase K`` profiles one granite-moe-3b-a800m prefill of
+2 x 2,048 tokens the same way, each MoE wave in a span and its experts'
+products in one inside it: the MoE's device ms split into the experts'
+products and the routing's dispatch / combine.  Both run at the configs'
+own depth.
+
 Run on a card from the repository root:
 
     python3 scripts/profile_torch.py              # phase A, ~3 minutes
@@ -89,6 +103,8 @@ Run on a card from the repository root:
     python3 scripts/profile_torch.py --phase G    # IVF build and search
     python3 scripts/profile_torch.py --phase H    # sharded, over HTTP
     python3 scripts/profile_torch.py --phase I    # distributed search
+    python3 scripts/profile_torch.py --phase J    # one qwen2-1.5b prefill
+    python3 scripts/profile_torch.py --phase K    # one granite MoE prefill
     python3 scripts/profile_torch.py --n 20000    # a quick look
 
 ``--device cpu`` runs the same path with host events only (no device
@@ -487,13 +503,140 @@ def profile_xlstm(args) -> int:
     return 0
 
 
+def profile_lm(args) -> int:
+    """Phase J: one full-size qwen2-1.5b prefill of 8 x 2,048 tokens, its
+    device time split into the attention core, the other matrix products
+    and the rest.  Phase K: one
+    granite-moe-3b-a800m prefill of 2 x 2,048 tokens, the MoE layers'
+    device time split into the experts' products and the routing's
+    dispatch / combine."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import zipf_tokens
+    from repro_torch.models import forward, init_params
+    from repro_torch.models import layers as L
+
+    on_card = args.device != "cpu"
+    arch, b = (("qwen2-1.5b", 8) if args.phase == "J"
+               else ("granite-moe-3b-a800m", 2))
+    cfg = get_config(arch)
+    gen = torch.Generator(device=args.device)
+    gen.manual_seed(0)
+    model = init_params(cfg, generator=gen, device=args.device)
+    toks = torch.as_tensor(zipf_tokens(np.random.RandomState(0), (b, 2048),
+                                       cfg.vocab_size), device=args.device)
+    forward(model, {"tokens": toks[:, :256]}, cfg)     # warm-up
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # each span's function, wrapped in a record_function closed by a sync
+    spans = ({"attention": ("_sdpa", "_chunked_attention",
+                            "_extent_attention")}
+             if args.phase == "J" else
+             {"moe": ("_route_groups",), "experts": ("_experts",)})
+    saved = {}
+
+    def wrap(label, name):
+        fn = getattr(L, name)
+
+        def inner(*a, **kw):
+            with record_function(f"span::{label}"):
+                out = fn(*a, **kw)
+                sync()
+            return out
+        return inner
+
+    for label, names in spans.items():
+        for name in names:
+            saved[name] = getattr(L, name)
+            setattr(L, name, wrap(label, name))
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card
+                                     else [])
+    sync()
+    try:
+        with profile(activities=acts) as prof:
+            with record_function("span::prefill"):
+                forward(model, {"tokens": toks}, cfg)
+                sync()
+    finally:
+        for name, fn in saved.items():
+            setattr(L, name, fn)
+
+    prefill, inside, dev = None, collections.defaultdict(list), []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            if not e.name().startswith("span::"):
+                dev.append((e.start_ns(), e.duration_ns(), e.name()))
+        elif e.name() == "span::prefill":
+            prefill = (e.start_ns(), e.end_ns())
+        elif e.name().startswith("span::"):
+            inside[e.name()[6:]].append((e.start_ns(), e.end_ns()))
+    for v in inside.values():
+        v.sort()
+
+    def in_span(label, t):
+        iv = inside[label]
+        i = bisect.bisect_right([lo for lo, _ in iv], t) - 1
+        return i >= 0 and t < iv[i][1]
+
+    def is_gemm(n):
+        return any(p in n.lower() for p in GEMM_PARTS)
+
+    names, by_span = collections.Counter(), collections.defaultdict(
+        collections.Counter)
+    for start, dur, name in dev:
+        if prefill[0] <= start < prefill[1]:
+            names[name] += dur
+            for label in spans:
+                if in_span(label, start):
+                    by_span[label][name] += dur
+
+    def ms(counter, pred=lambda n: True):
+        return sum(v for n, v in counter.items() if pred(n)) / 1e6
+
+    wall = (prefill[1] - prefill[0]) / 1e6
+    device = ms(names)
+    rec = {"phase": args.phase, "model": arch, "layers": cfg.n_layers,
+           "tokens": b * 2048, "wall_ms": wall, "device_ms": device,
+           "busy": device / wall if wall else None,
+           "host_ms": wall - device, "matmul_ms": ms(names, is_gemm)}
+    if args.phase == "J":
+        core = by_span["attention"]
+        rec.update({
+            "attention_core_ms": ms(core),
+            "attention_core_matmul_ms": ms(core, is_gemm),
+            "attention_spans": len(inside["attention"]),
+            "other_matmul_ms": ms(names, is_gemm) - ms(core, is_gemm),
+            "other_elementwise_ms": (device - ms(core)
+                                     - (ms(names, is_gemm) - ms(core,
+                                                                is_gemm)))})
+    else:
+        moe, experts = by_span["moe"], by_span["experts"]
+        rec.update({"moe_ms": ms(moe), "experts_ms": ms(experts),
+                    "dispatch_combine_ms": ms(moe) - ms(experts),
+                    "moe_waves": len(inside["moe"]),
+                    "moe_dispatch": cfg.moe_dispatch})
+    rec["top"] = [[n[:80], v / 1e6] for n, v in names.most_common(10)]
+    print(json.dumps(rec), flush=True)
+    if on_card and not dev:
+        print("profile_torch: the profiler recorded no device events",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--queries", type=int, default=10_000)
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--phase", choices=[*sorted(QUANT), "F", "H", "I"],
-                    default="A")
+    ap.add_argument("--phase", choices=[*sorted(QUANT), "F", "H", "I", "J",
+                                        "K"], default="A")
     args = ap.parse_args()
 
     import torch
@@ -509,6 +652,8 @@ def main() -> int:
         _build.build()
     if args.phase == "F":
         return profile_xlstm(args)
+    if args.phase in ("J", "K"):
+        return profile_lm(args)
     x = sift_like(args.n, seed=0)
     q = sift_like(10_000, seed=1)[: args.queries]
     if args.phase == "E":

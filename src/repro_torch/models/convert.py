@@ -4,9 +4,11 @@ The JAX tree (``repro.models.init_params``, as numpy arrays) holds
 ``embed``, ``final_norm``, ``head`` and ``units[str(i)][...]`` with a leading
 ``n_units`` axis (the pattern's block ``i`` of every unit, stacked by
 ``jax.vmap``), plus ``tail[str(i)]`` when n_layers is not a multiple of the
-pattern.  The port's layer ``u·P + i`` is ``units[str(i)][...][u]``; the
-names below the layer are the same dict keys in both.  Both directions copy
-the values exactly.
+pattern, and for encoder-decoder models ``enc_units["0"][...]`` (one
+``"attn"`` block a unit, ``encoder_layers`` units) and ``enc_final_norm``.
+The port's layer ``u·P + i`` is ``units[str(i)][...][u]`` and its encoder
+layer ``u`` is ``enc_units["0"][...][u]``; the names below the layer are
+the same dict keys in both.  Both directions copy the values exactly.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ def _leaves(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()):
 def _source(key: str, cfg: ModelConfig) -> Tuple[Tuple[str, ...], Any]:
     """(path in the JAX tree, unit index or None) of a port state-dict key."""
     parts = tuple(key.split("."))
+    if parts[0] == "enc_layers":
+        return ("enc_units", "0") + parts[2:], int(parts[1])
     if parts[0] != "layers":
         return parts, None
     j, rest = int(parts[1]), parts[2:]

@@ -1,6 +1,10 @@
-"""Recurrent blocks of xLSTM: mLSTM (matrix memory) and sLSTM (scalar
-memory), the port of the JAX package's ``repro.models.recurrent``.
+"""Recurrent blocks: RG-LRU (RecurrentGemma / Griffin) and xLSTM (mLSTM,
+sLSTM), the port of the JAX package's ``repro.models.recurrent``.
 
+  * RG-LRU — an elementwise linear recurrence h_t = a_t h_{t-1} + b_t over
+    gates from block-diagonal projections of a causal conv; the reference
+    runs ``lax.associative_scan`` over time, the port a log-depth doubling
+    scan in plain PyTorch (ceil(log2 S) passes, 11 at S = 2,048).
   * mLSTM — matrix-memory recurrence in chunkwise-parallel form: intra-chunk
     attention-like products + inter-chunk state carry (exp-gate stabilised in
     log space), plain PyTorch as the JAX package computes it in jnp.
@@ -9,8 +13,8 @@ memory), the port of the JAX package's ``repro.models.recurrent``.
     ``slstm_sequence`` CUDA kernel (B8) on the card, its plain version on
     the CPU.  The JAX package runs the same cell through ``lax.scan``.
 
-Both expose a single-token ``*_decode`` path with explicit state (plain
-PyTorch: one cell step per token).  RG-LRU is not ported yet.
+All three expose a single-token ``*_decode`` path with explicit state (plain
+PyTorch: one cell step per token).
 
 Parameters live in ``nn.Module``s whose attribute names are the JAX
 package's dict keys (``models/convert.py`` relies on it); the math is in
@@ -28,17 +32,15 @@ from torch import nn
 from ..kernels import ops
 from ..kernels.ref import slstm_cell
 from .config import ModelConfig
-from .layers import _init
+from .layers import _init, _param
 
 CONV_WIDTH = 4
-
-
-def _param(shape, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=torch.float32, device=device))
+LRU_C = 8.0          # Griffin's gate sharpness constant
+N_GATE_BLOCKS = 4    # block-diagonal gate projections
 
 
 # ---------------------------------------------------------------------------
-# depthwise causal temporal conv (the mLSTM branch)
+# depthwise causal temporal conv (the RG-LRU and mLSTM branches)
 # ---------------------------------------------------------------------------
 
 class Conv(nn.Module):
@@ -70,6 +72,118 @@ def apply_conv_decode(p: Conv, x_t: torch.Tensor,
     win = torch.cat([cache, x_t[:, None, :]], dim=1)          # (B, W, C)
     out = torch.einsum("bwc,wc->bc", win, p.w.to(dt)) + p.b.to(dt)
     return out, win[:, 1:, :]
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU
+# ---------------------------------------------------------------------------
+
+class RGLRU(nn.Module):
+    """``w_x`` / ``w_y`` (d, w) input and gate branches, ``conv``,
+    ``gate_a`` / ``gate_i`` (4, w/4, w/4) block-diagonal gates, ``b_a`` /
+    ``b_i`` (w,), ``lam`` (w,) and ``w_out`` (w, d)."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        d, w = cfg.d_model, cfg.lru_width
+        blk = w // N_GATE_BLOCKS
+        self.w_x = _param((d, w), device)
+        self.w_y = _param((d, w), device)
+        self.conv = Conv(w, device)
+        self.gate_a = _param((N_GATE_BLOCKS, blk, blk), device)
+        self.gate_i = _param((N_GATE_BLOCKS, blk, blk), device)
+        self.b_a = _param((w,), device)
+        self.b_i = _param((w,), device)
+        self.lam = _param((w,), device)
+        self.w_out = _param((w, d), device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """The reference's draws, its quirk included: ``_init`` scales by
+        the leading dim, so the (4, blk, blk) gates get 1/sqrt(4)."""
+        _init(self.w_x, generator)
+        _init(self.w_y, generator)
+        self.conv.reset_parameters(generator)
+        _init(self.gate_a, generator)
+        _init(self.gate_i, generator)
+        with torch.no_grad():
+            self.b_a.zero_()
+            self.b_i.zero_()
+            # so that a = sigmoid(lam)^c spreads over (0.9, 0.999)
+            self.lam.copy_(torch.linspace(2.0, 6.0, self.lam.shape[0],
+                                          dtype=torch.float32))
+        _init(self.w_out, generator)
+
+
+def _block_diag_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., W) with W = NB·blk; w (NB, blk, blk); in x's dtype."""
+    nb, blk, _ = w.shape
+    xs = x.reshape(*x.shape[:-1], nb, blk)
+    return torch.einsum("...nb,nbc->...nc", xs,
+                        w.to(x.dtype)).reshape(x.shape)
+
+
+def _rglru_coeffs(p: RGLRU, u: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """u (B, S, W) post-conv input -> fp32 (a_t, b_t) of
+    h_t = a_t h_{t-1} + b_t."""
+    r = torch.sigmoid(_block_diag_proj(u, p.gate_a).float() + p.b_a)
+    i = torch.sigmoid(_block_diag_proj(u, p.gate_i).float() + p.b_i)
+    log_a = -LRU_C * r * F.softplus(p.lam)                   # log a_t <= 0
+    a = torch.exp(log_a)
+    # sqrt(1 - a^2) in a numerically safe form
+    gate = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    return a, gate * (i * u.float())
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t along dim 1 from h_{-1} = 0, by doubling:
+    after the pass at offset o, (a_t, b_t) is the composition of steps
+    t-2o+1 .. t, so ceil(log2 S) passes cover the sequence."""
+    s = a.shape[1]
+    off = 1
+    while off < s:
+        b = torch.cat([b[:, :off], a[:, off:] * b[:, :-off] + b[:, off:]],
+                      dim=1)
+        if 2 * off < s:
+            a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
+        off *= 2
+    return b
+
+
+def apply_rglru(p: RGLRU, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Full-sequence RG-LRU block body (the caller adds the residual)."""
+    dt = x.dtype
+    y = F.gelu(x @ p.w_y.to(dt), approximate="tanh")
+    u = apply_conv(p.conv, x @ p.w_x.to(dt))
+    a, b = _rglru_coeffs(p, u)
+    h = linear_scan(a, b)
+    return (h.to(dt) * y) @ p.w_out.to(dt)
+
+
+class RGLRUState(NamedTuple):
+    h: torch.Tensor      # (B, W) fp32
+    conv: torch.Tensor   # (B, CONV_WIDTH-1, W)
+
+
+def rglru_init_state(cfg: ModelConfig, batch: int, dtype: torch.dtype,
+                     device) -> RGLRUState:
+    w = cfg.lru_width
+    return RGLRUState(
+        h=torch.zeros((batch, w), dtype=torch.float32, device=device),
+        conv=torch.zeros((batch, CONV_WIDTH - 1, w), dtype=dtype,
+                         device=device))
+
+
+def apply_rglru_decode(p: RGLRU, x_t: torch.Tensor, state: RGLRUState,
+                       cfg: ModelConfig) -> Tuple[torch.Tensor, RGLRUState]:
+    """x_t (B, d) -> (out (B, d), new state)."""
+    dt = x_t.dtype
+    y = F.gelu(x_t @ p.w_y.to(dt), approximate="tanh")
+    u_t, conv = apply_conv_decode(p.conv, x_t @ p.w_x.to(dt), state.conv)
+    a, b = _rglru_coeffs(p, u_t[:, None, :])
+    h = a[:, 0] * state.h + b[:, 0]
+    out = (h.to(dt) * y) @ p.w_out.to(dt)
+    return out, RGLRUState(h=h, conv=conv)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Serve step factory: one decode step over the recurrent-state cache, then
-the next token — the serving half of the JAX package's
+"""Serve step factory: one decode step over the KV caches and recurrent
+states (and an encoder-decoder model's cross K/V), then the next token — the serving half of the JAX package's
 ``repro.models.steps``.  The loss and the train step come with training.
 """
 

@@ -8,7 +8,8 @@ package's oracle and to its Pallas kernel in interpret mode at the JAX
 package's own tolerance (tests/test_kernels.py: rtol = atol = 3e-5); the
 model to 1e-4 in fp32, and to 0.15 with argmax agreement >= 0.9 in bf16,
 where the two frameworks round at other places.  The CUDA kernel itself
-runs only on a card: tests/test_torch_cuda.py.
+runs only on a card: tests/test_torch_cuda.py.  The other nine families
+are tests/test_torch_families.py, their layers tests/test_torch_attention.py.
 """
 
 import dataclasses
@@ -364,28 +365,19 @@ def test_db_config_matches_the_reference():
     assert dataclasses.asdict(tdb.SMOKE) == dataclasses.asdict(jdb.SMOKE)
 
 
-@pytest.mark.parametrize("arch", [a for a in jconfigs.arch_ids()
-                                  if a != ARCH])
-def test_unported_block_types_raise(arch):
-    cfg = configs.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError) as e:
-        init_params(cfg, generator=torch.Generator(), device="cpu")
-    named = "encoder-decoder" if cfg.is_enc_dec else repr(
-        cfg.block_pattern[0])
-    assert named in str(e.value)
-    with pytest.raises(NotImplementedError):
-        init_decode_state(cfg, 1, 8, device="cpu")
-
-
-def test_entry_points_default_to_the_card(monkeypatch):
+@pytest.mark.parametrize("arch", [ARCH, "qwen2-1.5b",
+                                  "seamless-m4t-medium"])
+def test_entry_points_default_to_the_card(monkeypatch, arch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    _, cfg = _cfgs("float32")
+    cfg = configs.get_smoke_config(arch)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_params(cfg, generator=torch.Generator())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_decode_state(cfg, 1, 8)
+    tree = to_numpy_params(init_params(cfg, generator=torch.Generator(),
+                                       device="cpu"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        from_numpy_params(_params("float32")[1], cfg)
+        from_numpy_params(tree, cfg)
 
 
 def test_lm_token_streams_match_the_reference():
