@@ -106,7 +106,25 @@ them sharded, behind the HTTP server), the distributed search through
            families with ``moe_capacity_factor=8`` and seamless with
            ``rope_pct=0``, which remove two known properties of the
            reference, printed under ``reduced``).  J and K run no kernel of
-           the port: the reference computes these blocks in plain ``jnp``.
+           the port: the reference computes these blocks in plain ``jnp``;
+  phase L  training at full width through ``repro_torch.launch.train``,
+           random weights from a seeded ``torch.Generator``, fp32 master
+           weights, activations in the config's dtype, each pattern unit
+           recomputed in the backward: xlstm-1.3b (48 layers, d_model 2048;
+           every sLSTM layer's forward on B8's saving entry and its backward
+           on B8ᵀ, ``slstm_backward``) for 6 steps of 8 x 2,048 tokens of
+           the ``lm_batches`` stream (step wall and device ms, tokens/s,
+           peak memory, model-FLOP share of the dense bf16 peak), every loss
+           finite and the last below the first, then the fp32 gradient
+           check at 2 x 256 (every parameter's gradient with B8 + B8ᵀ
+           against ``force_ref=True``); qwen2-1.5b at full size (the
+           launcher's default arch) the same 6 steps, 2 steps with
+           ``grad_compress`` at the same 8 x 2,048 (expandable segments
+           for those two, COMPRESS_ALLOC), and a kill at step 3 and a
+           resume from the step-2 generation through ``ckpt_dir`` at 2 of
+           its 28 layers (printed under ``reduced``: a generation of the
+           full depth would be 17.2 GiB on disk).  The serving phases F, J and K run under
+           ``torch.no_grad()``.
 
 Every phase must pass and every kernel of its path must have launched, or
 the script exits non-zero.  The exact scans of phases A-E (delta segment,
@@ -114,7 +132,10 @@ flat route, flat index) run B5's fused entry (``l2_topk``: distances and
 their top-k in one launch over the whole corpus), and phase E's k = 1,000
 query, C and D's delta scans (k = 40 over 8,192 rows) and G's coarse probe
 its matrix entry (``l2_distance``) and ``topk_smallest``; every sLSTM
-layer of phase F's prefill runs the ``slstm`` kernel.  Before the last
+layer of phase F's prefill runs the ``slstm`` kernel, and every sLSTM
+layer of phase L's train steps B8's saving entry and B8ᵀ
+(``slstm_backward``), which phase F holds to its plain version (the
+explicit reverse loop) at F's shape.  Before the last
 line it prints the card's name and power limit and one JSON line with each
 kernel's launches, error, time, plain-version time, bound and library-call
 time; the last line is the device JSON.  A kernel's ``ms`` is its device
@@ -218,7 +239,8 @@ PHASE_KERNELS = {
     "F": ("slstm",),
     "G": ("beam_gather_lists", "l2_distance", "l2_topk"),
     "H": ("l2_topk",),
-    "I": ("l2_topk", "l2_distance", "pq_adc", "hamming")}
+    "I": ("l2_topk", "l2_distance", "pq_adc", "hamming"),
+    "L": ("slstm", "slstm_backward")}
 # kernels whose source file is named otherwise: B5's two entries share one,
 # and B4's
 SOURCES = {"l2_topk": "l2_distance",
@@ -286,6 +308,42 @@ K_AGREE_WHY = {
                            "capacity, a decode step of one token none",
     "rope_pct": "forward rotates the cross-attention queries, decode does "
                 "not"}
+# phase F: B8ᵀ (the sLSTM backward) against its plain reverse loop on the
+# same saved forward and cotangent, per-tensor relative L2: fp32 within 1e-4
+# (summation order over 2,048 sequential steps).  With bf16 gates both
+# round their f32 dpre, which agree within 1e-4, to bf16: the two differ
+# only where the f32 values straddle a rounding boundary, by one bf16 step
+# (2^-8 relative) on those few elements, so 1e-3 for dgates (2.1e-5 on the
+# H100, PERF.md) and 1e-4 for the f32 dpre, dr and db
+SLSTM_BWD_RTOL = {"float32": 1e-4, "bfloat16": 1e-3}
+# phase L: training at full width (xlstm-1.3b, then qwen2-1.5b, the
+# launcher's default arch): 6 steps of 8 x 2,048 tokens at lr 3e-4; the
+# step times are the median of steps 2-6
+TRAIN_STEPS, TRAIN_B, TRAIN_S, TRAIN_LR = 6, 8, 2048, 3e-4
+# the fp32 gradient check of L1 at 2 x 256: B8 + B8ᵀ against the plain
+# recurrence and reverse loop through the whole model.  Loss within 1e-5
+# relative (fp32 sums in another order, one forward); every parameter's
+# gradient within 1e-3 relative L2 (the order differences of 6 sLSTM
+# layers' 256 steps, carried back through 48 layers)
+GRAD_CHECK_B, GRAD_CHECK_S = 2, 256
+GRAD_LOSS_RTOL, GRAD_REL_L2 = 1e-5, 1e-3
+# L2's two grad_compress steps run at 8 x 2,048 too: the error feedback
+# (5.75 GiB of f32) on top of the step's 65.7 GiB peak (its 9.27 GiB of
+# fp32 logits and as much again for their gradient) fits the H100's 79.18
+# GiB, but the caching allocator's blocks, split around those 9.27 GiB
+# tensors, left 19.4 GiB reserved and unusable and the second step ran out
+# of memory; expandable segments map freed pages into one range, so these
+# two steps run with them (and only these: A-L1 keep the default)
+COMPRESS_ALLOC = "expandable_segments:True"
+# L2's kill and resume: a generation holds params, m and v in fp32, 17.2
+# GiB at qwen2-1.5b's 28 layers; at 2 layers (the 233M-parameter embedding
+# dominates) 3.65 GiB
+RESUME_LAYERS, RESUME_B, RESUME_S = 2, 2, 512
+# the model-FLOP share: 6 x the parameters that enter a product x tokens
+# (the forward's 2 and the backward's 4; remat's recomputed forward, the
+# attention scores and the recurrences are not counted) over the dense bf16
+# peak
+MODEL_FLOPS_PER_PARAM_TOKEN = 6
 # phase G: IVF at SIFT1M's usual setting, nlist ~ sqrt(N) (ann-benchmarks'
 # faiss-ivf grid over SIFT-128 holds nlist 1,024 and nprobe in the tens);
 # the schema's default nlist 64 would scan 187,504 candidates a query
@@ -2608,9 +2666,94 @@ def slstm_kernel_checks(torch, layer, n_heads, log):
     return rows
 
 
+def rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| in float64."""
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def slstm_backward_checks(torch, layer, n_heads, log):
+    """B8ᵀ (``slstm_backward``) against its plain reverse loop
+    (``ref.slstm_sequence_backward_ref`` + ``slstm_param_grads``) at phase
+    F's shape (B = 8, S = 2,048, d = 2,048, 4 heads) with the model's first
+    sLSTM layer's R and b, bf16 and fp32 gates N(0, 1), a cotangent
+    N(0, 1), on one saved forward (B8's saving entry): dgates (and the f32
+    dpre), dr and db by relative L2 (SLSTM_BWD_RTOL).
+
+    bound: the reverse product's 2·B·S·4d·blk flops at the fp32 rate (the
+    forward's), against the save, dy and R read once and dpre and dgates
+    written once.  library_ms is null: no PyTorch call computes this
+    cell's backward.  The device timer issues launches back to back (no
+    graph), as B8's; the plain loop is timed per call (3 calls)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import slstm as slstm_mod
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    d = layer.w_in.shape[0]
+    b, s, h = PREFILL_B, PREFILL_S, n_heads
+    blk = d // h
+    r, bias = layer.r.detach(), layer.b.detach()
+    g32 = torch.randn((b, s, 4 * d), generator=gen, device="cuda")
+    dy32 = torch.randn((b, s, d), generator=gen, device="cuda")
+    rows = []
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        g, dy = g32.to(dt), dy32.to(dt)
+        _, saved = slstm_mod.slstm_sequence_save(g, r, bias, n_heads=h)
+        dgates, dpre = slstm_mod.slstm_backward(dy, saved, r, n_heads=h)
+        layout = dict(slstm_mod.last_launch)
+        dr, db = ref.slstm_param_grads(saved, dpre, h)
+        want_g, want_p = ref.slstm_sequence_backward_ref(dy, saved, r, h, dt)
+        want_r, want_b = ref.slstm_param_grads(saved, want_p, h)
+        torch.cuda.synchronize()
+        errs = {"dgates": rel_l2(dgates, want_g), "dpre": rel_l2(dpre, want_p),
+                "dr": rel_l2(dr, want_r), "db": rel_l2(db, want_b)}
+        limits = {"dgates": SLSTM_BWD_RTOL[dtype],
+                  "dpre": SLSTM_BWD_RTOL["float32"],
+                  "dr": SLSTM_BWD_RTOL["float32"],
+                  "db": SLSTM_BWD_RTOL["float32"]}
+        for k, e in errs.items():
+            check(e <= limits[k], f"slstm_backward {dtype}: {k} relative L2 "
+                  f"{e} over {limits[k]}")
+        again, _ = slstm_mod.slstm_backward(dy, saved, r, n_heads=h)
+        torch.cuda.synchronize()
+        check(torch.equal(again, dgates),
+              f"slstm_backward {dtype}: two calls differ")
+        esize = g.element_size()
+        nbytes = saved.numel() * 4 + dy.numel() * esize + r.numel() * 4 \
+            + dpre.numel() * 4 + (0 if dgates is dpre
+                                  else dgates.numel() * esize)
+        b_ms, b_by = bound(nbytes, 2 * b * s * 4 * d * blk)
+        row = {"name": "slstm_backward", "dtype": dtype, "B": b, "S": s,
+               "d": d, "H": h,
+               "max_abs_err": (dgates.float() - want_g.float()).abs().max()
+               .item(), "rel_l2": errs, "rel_l2_limits": limits,
+               "forward_path": layout["path"],
+               **timing(torch, [lambda: slstm_mod.slstm_backward(
+                   dy, saved, r, n_heads=h)], graph=False),
+               **plain_timing(torch, [lambda: ref.slstm_sequence_backward_ref(
+                   dy, saved, r, h, dt)], reps=3, warmup=1),
+               "plain_reps": 3, "bound_ms": b_ms, "bound_by": b_by,
+               "bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "library_ms": None}
+        row["share"] = b_ms / row["ms"]
+        log(row)
+        rows.append(row)
+        del saved, dgates, dpre, want_g, want_p, again, dr, db
+        torch.cuda.empty_cache()
+    return rows
+
+
 def run_xlstm(torch, counters, log):
-    """Phase F: xlstm-1.3b at full width on the card: B8's checks, the
-    prefill, greedy generation, and the fp32 consistency checks."""
+    """Phase F: xlstm-1.3b at full width on the card, serving (no
+    autograd): B8's and B8ᵀ's checks, the prefill, greedy generation, and
+    the fp32 consistency checks."""
+    with torch.no_grad():
+        return _run_xlstm(torch, counters, log)
+
+
+def _run_xlstm(torch, counters, log):
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -2631,6 +2774,7 @@ def run_xlstm(torch, counters, log):
                        if b.block_type == "slstm")
     rows = slstm_kernel_checks(torch, first_slstm, cfg.n_heads, log)
     torch.cuda.empty_cache()
+    rows += slstm_backward_checks(torch, first_slstm, cfg.n_heads, log)
 
     # 1. embedding / scoring requests: 8 prompts of 2,048 tokens (a warm-up
     # forward of 8 x 256 first: cuBLAS handles, the kernel's library)
@@ -2864,7 +3008,13 @@ def attention_yardstick(torch, cfg, log):
 
 
 def run_qwen2(torch, counters, log):
-    """Phase J: qwen2-1.5b at its full published size on the card."""
+    """Phase J: qwen2-1.5b at its full published size on the card, serving
+    (no autograd)."""
+    with torch.no_grad():
+        return _run_qwen2(torch, counters, log)
+
+
+def _run_qwen2(torch, counters, log):
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -2943,7 +3093,12 @@ def k_depth(torch, cfg):
 def run_families(torch, counters, log):
     """Phase K: the other eight new families at their published widths,
     depth cut only where the fp32 weights would not fit (k_depth); one
-    model at a time."""
+    model at a time, serving (no autograd)."""
+    with torch.no_grad():
+        return _run_families(torch, counters, log)
+
+
+def _run_families(torch, counters, log):
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -3003,6 +3158,246 @@ def run_families(torch, counters, log):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase L: training at full width
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def step_timer(torch, times):
+    """Times every train step that ``launch.train.train`` builds: the host
+    clock around the step (ending in a synchronize) and CUDA events
+    recorded before and after it on the stream; appends (wall s, event ms)
+    to ``times``.  A measurement wrapper: the step itself is unchanged."""
+    from repro_torch.launch import train as train_mod
+
+    orig = train_mod.make_train_step
+
+    def timed(*args, **kw):
+        fn = orig(*args, **kw)
+
+        def step(state, batch):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a.record()
+            out = fn(state, batch)
+            b.record()
+            b.synchronize()
+            times.append((time.perf_counter() - t0, a.elapsed_time(b)))
+            return out
+        return step
+
+    train_mod.make_train_step = timed
+    try:
+        yield
+    finally:
+        train_mod.make_train_step = orig
+
+
+def product_params(cfg) -> int:
+    """The parameters that enter a matrix product: all but an untied
+    embedding table, which is only gathered (a tied one is the head)."""
+    from repro_torch.models.model import Model
+    model = Model(cfg, "meta")
+    n = sum(p.numel() for p in model.parameters())
+    return n if cfg.tie_embeddings else n - model.embed.numel()
+
+
+def train_run(torch, cfg, tag, counters, log, **kw):
+    """``train()`` on the card at phase L's sizes, timed step by step:
+    losses (finite, the last below the first), the median step wall and
+    event ms over steps 2.., tokens/s, peak GiB, the model-FLOP share, the
+    kernels' launches.  Returns (result, the train output)."""
+    from repro_torch.launch.train import train
+
+    times = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    t0 = time.perf_counter()
+    with step_timer(torch, times):
+        out = train(cfg, steps=TRAIN_STEPS, global_batch=TRAIN_B,
+                    seq_len=TRAIN_S, lr=TRAIN_LR, device="cuda", **kw)
+    secs = time.perf_counter() - t0
+    launches = counters.read()
+    losses = [m["loss"] for m in out["metrics"]]
+    check(len(losses) == TRAIN_STEPS and all(
+        map(lambda x: x == x and abs(x) != float("inf"), losses)),
+        f"{tag}: losses {losses}")
+    check(losses[-1] < losses[0], f"{tag}: the loss did not fall: {losses}")
+    wall = statistics.median(t for t, _ in times[1:])
+    event = statistics.median(e for _, e in times[1:])
+    tokens = TRAIN_B * TRAIN_S
+    flops = MODEL_FLOPS_PER_PARAM_TOKEN * product_params(cfg) * tokens
+    res = {"losses": losses,
+           "grad_norms": [m["grad_norm"] for m in out["metrics"]],
+           "steps": TRAIN_STEPS, "batch": TRAIN_B, "seq": TRAIN_S,
+           "step_wall_ms": wall * 1e3, "step_event_ms": event,
+           "step_wall_ms_all": [t * 1e3 for t, _ in times],
+           "tokens_per_s": tokens / wall,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "model_tflop_per_step": flops / 1e12,
+           "model_flop_share_bf16": flops / wall / BF16_FLOP_PER_S,
+           "train_s": secs, "launches": launches}
+    log({"train": tag, **res})
+    return res, out
+
+
+def grad_check(torch, model, cfg, log):
+    """L1's fp32 check at GRAD_CHECK_B x GRAD_CHECK_S: the loss and every
+    parameter's gradient through B8 + B8ᵀ against ``force_ref=True``."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import zipf_tokens
+    from repro_torch.kernels import slstm as slstm_mod
+    from repro_torch.models import make_loss_fn
+
+    cfg32 = cfg.with_overrides(dtype="float32")
+    toks = torch.as_tensor(zipf_tokens(np.random.RandomState(3), (
+        GRAD_CHECK_B, GRAD_CHECK_S + 1), cfg.vocab_size), device="cuda")
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    out = {}
+    for force_ref in (False, True):
+        before = slstm_mod.backward_launches
+        loss, _ = make_loss_fn(cfg32, force_ref=force_ref)(model, batch)
+        loss.backward()
+        out[force_ref] = (loss.item(), {k: p.grad for k, p in
+                                        model.named_parameters()})
+        for p in model.parameters():
+            p.grad = None
+        n_slstm = sum(b.block_type == "slstm" for b in model.layers)
+        check(slstm_mod.backward_launches - before
+              == (0 if force_ref else n_slstm),
+              f"L1 grad check: {slstm_mod.backward_launches - before} "
+              f"B8ᵀ launches with force_ref={force_ref}")
+    (l_k, g_k), (l_p, g_p) = out[False], out[True]
+    loss_rel = abs(l_k - l_p) / abs(l_p)
+    check(loss_rel <= GRAD_LOSS_RTOL, f"L1 grad check: loss {l_k} vs {l_p}")
+    rels = {k: rel_l2(g_k[k], g_p[k]) for k in g_p}
+    worst = max(rels, key=rels.get)
+    check(rels[worst] <= GRAD_REL_L2,
+          f"L1 grad check: {worst} relative L2 {rels[worst]}")
+    sl = [k for k in rels if ".slstm." in k]
+    res = {"grad_check": f"{GRAD_CHECK_B} x {GRAD_CHECK_S} fp32",
+           "loss_kernel": l_k, "loss_plain": l_p, "loss_rel": loss_rel,
+           "grad_rel_l2_max": rels[worst], "grad_rel_l2_worst": worst,
+           "grad_rel_l2_slstm_max": max(rels[k] for k in sl),
+           "n_params_checked": len(rels)}
+    log({"train": "L1 grad check", **res})
+    return res
+
+
+def set_allocator(torch, conf: str) -> None:
+    """The caching allocator's settings from here on (as
+    PYTORCH_CUDA_ALLOC_CONF would set them at start)."""
+    setter = getattr(torch._C, "_accelerator_setAllocatorSettings", None)
+    if setter is None:
+        setter = torch.cuda.memory._set_allocator_settings
+    setter(conf)
+
+
+def compress_run(torch, cfg, log):
+    """L2's two ``grad_compress`` steps at TRAIN_B x TRAIN_S, with
+    COMPRESS_ALLOC's expandable segments: finite losses; the peak GiB."""
+    from repro_torch.launch.train import train
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    set_allocator(torch, COMPRESS_ALLOC)
+    try:
+        t0 = time.perf_counter()
+        out = train(cfg, steps=2, global_batch=TRAIN_B, seq_len=TRAIN_S,
+                    lr=TRAIN_LR, grad_compress=True, device="cuda")
+        losses = [m["loss"] for m in out["metrics"]]
+        del out
+        res = {"losses": losses, "batch": TRAIN_B, "seq": TRAIN_S,
+               "allocator": COMPRESS_ALLOC,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "seconds": time.perf_counter() - t0}
+    finally:
+        torch.cuda.empty_cache()
+        set_allocator(torch, COMPRESS_ALLOC.replace("True", "False"))
+    check(len(losses) == 2 and all(
+        map(lambda x: x == x and abs(x) != float("inf"), losses)),
+        f"L2 grad_compress: losses {losses}")
+    log({"train": "L2 grad_compress", **res})
+    return res
+
+
+def run_training(torch, counters, log):
+    """Phase L: training at full width through ``launch.train.train``: L1
+    xlstm-1.3b (B8's saving entry + B8ᵀ), then its fp32 gradient check; L2
+    qwen2-1.5b, 2 steps with ``grad_compress``, and the kill and resume at
+    RESUME_LAYERS layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+
+    res = {"phase": "L", "reduced": []}
+    cfg = get_config(XLSTM)
+    l1, out = train_run(torch, cfg, "L1 xlstm-1.3b", counters,
+                        log)
+    res["launches"] = l1.pop("launches")
+    n_slstm = sum(bt == "slstm" for bt in cfg.block_pattern) * cfg.n_units
+    # the forward and the remat recompute each run B8 once a layer and step,
+    # the backward B8ᵀ once
+    check(res["launches"]["slstm"] == 2 * n_slstm * TRAIN_STEPS,
+          f"L1: slstm launched {res['launches']['slstm']} times")
+    check(res["launches"]["slstm_backward"] == n_slstm * TRAIN_STEPS,
+          f"L1: slstm_backward launched "
+          f"{res['launches']['slstm_backward']} times")
+    res["L1"] = l1
+    model = out["state"].model
+    del out
+    torch.cuda.empty_cache()
+    res["L1"].update(grad_check(torch, model, cfg, log))
+    del model
+    torch.cuda.empty_cache()
+
+    cfg = get_config(QWEN2)
+    res["L2"], out = train_run(torch, cfg, "L2 qwen2-1.5b",
+                                 counters, log)
+    del out
+    torch.cuda.empty_cache()
+    res["L2"]["grad_compress"] = compress_run(torch, cfg, log)
+
+    small = cfg.with_overrides(n_layers=RESUME_LAYERS)
+    res["reduced"].append(
+        f"L2 kill and resume: n_layers {cfg.n_layers} -> {RESUME_LAYERS}, "
+        f"{RESUME_B} x {RESUME_S} tokens a step: a generation holds params, "
+        f"m and v in fp32, 17.2 GiB at 28 layers, 3.65 GiB at "
+        f"{RESUME_LAYERS}")
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        kw = dict(steps=4, global_batch=RESUME_B, seq_len=RESUME_S,
+                  ckpt_dir=ckpt, checkpoint_every=2, lr=TRAIN_LR,
+                  device="cuda")
+        try:
+            train(small, simulate_failure_at=3, **kw)
+            check(False, "L2 resume: the simulated failure did not raise")
+        except RuntimeError as e:
+            check("simulated node failure" in str(e), f"L2 resume: {e}")
+        out = train(small, **kw)
+        steps = [m["step"] for m in out["metrics"]]
+        check(out["start_step"] == 2 and steps == [3, 4],
+              f"L2 resume: started at {out['start_step']}, steps {steps}")
+        from repro_torch.checkpoint import CheckpointStore
+        last = os.path.join(ckpt, f"gen-{CheckpointStore(ckpt).latest():06d}")
+        gen_bytes = sum(os.path.getsize(os.path.join(last, f))
+                        for f in os.listdir(last))
+        res["L2"]["resume"] = {"start_step": out["start_step"],
+                               "steps": steps,
+                               "generation_gib": gen_bytes / 2**30,
+                               "seconds": time.perf_counter() - t0}
+        del out
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log({"phase_result": res})
+    return res
+
+
 class Counters:
     """The kernels' launch counters, read as deltas since the last reset."""
 
@@ -3022,7 +3417,8 @@ class Counters:
                      "l2_distance": (l2, "launches"),
                      "l2_topk": (l2, "topk_launches"),
                      "beam_gather_lists": (beam_gather, "lists_launches"),
-                     "slstm": (slstm, "launches")}
+                     "slstm": (slstm, "launches"),
+                     "slstm_backward": (slstm, "backward_launches")}
 
     def reset(self):
         for m, attr in self.mods.values():
@@ -3167,11 +3563,15 @@ def main(argv) -> int:
         rows += slstm_rows
         phase["J"] = run_qwen2(torch, counters, log)
         phase["K"] = run_families(torch, counters, log)
+        phase["L"] = run_training(torch, counters, log)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     finally:
         log_f.close()
+        import torch.distributed as dist
+        if dist.is_initialized():       # phases I and L's world-1 group
+            dist.destroy_process_group()
 
     def strip_row(r):
         if isinstance(r, list):
@@ -3254,7 +3654,14 @@ def main(argv) -> int:
                     {"at_ivf_probe": phase["G"]["probe_row"],
                      "at_shard": phase["H"]["shard_rows"]}),
         "slstm": (pick("slstm", dtype="bfloat16", S=PREFILL_S), "F",
-                  "slstm.py:90")}
+                  "slstm.py:90"),
+        "slstm_backward": (pick("slstm_backward", dtype="bfloat16"), "L",
+                           "slstm.py:90")}
+    # B8ᵀ replaces no TPU kernel: the reference differentiates a lax.scan of
+    # its cell; it is the backward of B8's
+    notes = {"slstm_backward": "no TPU kernel: the backward of B8 "
+                               "(slstm.py:90); the JAX package trains "
+                               "through autodiff of a lax.scan"}
     kernels = []
     for name, (r, home, tpu, *extra) in main_rows.items():
         entries = ENTRIES.get(name, (name,))
@@ -3267,6 +3674,7 @@ def main(argv) -> int:
             "source": "src/repro_torch/csrc/"
                       f"{SOURCES.get(name, name)}.cu",
             "replaces": f"src/repro/kernels/{tpu}",
+            **({"replaces_note": notes[name]} if name in notes else {}),
             "launches": count(home),
             "launches_by_phase": {p: count(p) for p in phase},
             **({"launches_by_entry": {e: phase[home]["launches"][e]
@@ -3281,7 +3689,8 @@ def main(argv) -> int:
                                  "route_ms",
                                  "path", "floor_ms", "digest",
                                  "in_path_ms", "in_path_launches",
-                                 "fresh_share", "share")
+                                 "fresh_share", "share", "rel_l2",
+                                 "bound_bytes_ms", "forward_path")
                if k in r},
             "at": {k: r[k] for k in ("mode", "dtype", "Q", "L", "B", "C",
                                      "D", "N", "m", "k", "W", "S", "d", "H")
@@ -3298,7 +3707,7 @@ def main(argv) -> int:
            for p in phase.values() if p["phase"] in "ABCD"},
         **{p: {k: v for k, v in phase[p].items()
                if k != "launches" and k not in ROW_KEYS}
-           for p in ("E", "F", "G", "H", "I", "J", "K")}}
+           for p in ("E", "F", "G", "H", "I", "J", "K", "L")}}
     print(json.dumps({"summary": summary}, default=float))
     print(card)
     print(json.dumps({"kernels": kernels}, default=float))

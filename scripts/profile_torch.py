@@ -92,7 +92,26 @@ yardstick).  ``--phase K`` profiles one granite-moe-3b-a800m prefill of
 2 x 2,048 tokens the same way, each MoE wave in a span and its experts'
 products in one inside it: the MoE's device ms split into the experts'
 products and the routing's dispatch / combine.  Both run at the configs'
-own depth.
+own depth.  F, J and K serve: they run under ``torch.no_grad()``.
+
+``--phase L`` profiles one train step (``repro_torch.models.make_train_step``:
+loss, its gradient with each pattern unit recomputed, AdamW) of xlstm-1.3b
+and then of qwen2-1.5b at full size, 8 x 2,048 tokens of the
+``lm_batches`` stream (``--train-batch`` / ``--train-seq`` to cut them),
+after a warm-up step.  Each unit's forward, each unit's recompute in the
+backward, the logits and CE, the backward call and AdamW run in spans
+opened and closed by a synchronize (the wall time stretches; the step's
+unprofiled time is ``chip_smoke.py``'s L), and the device events are
+assigned by start time:
+``forward_ms`` and ``recompute_ms`` by the unit's block pattern,
+``logits_ce_ms`` (forward), ``backward_ms`` by the unit whose recompute
+came last before the event (autograd runs a unit's backward right after
+recomputing it; before the first recompute the logits' and CE's backward,
+``backward_logits_ce_ms``), ``adamw_ms``, ``b8_ms`` / ``b8t_ms`` (the
+``slstm`` kernel's forward and B8ᵀ's backward, also inside the buckets
+above) with their launches, ``other_ms`` (the device time outside every
+bucket: gathering and zeroing the gradients, the embedding), and
+``host_ms`` = wall_ms - device_ms.
 
 Run on a card from the repository root:
 
@@ -105,6 +124,7 @@ Run on a card from the repository root:
     python3 scripts/profile_torch.py --phase I    # distributed search
     python3 scripts/profile_torch.py --phase J    # one qwen2-1.5b prefill
     python3 scripts/profile_torch.py --phase K    # one granite MoE prefill
+    python3 scripts/profile_torch.py --phase L    # one train step a model
     python3 scripts/profile_torch.py --n 20000    # a quick look
 
 ``--device cpu`` runs the same path with host events only (no device
@@ -142,7 +162,9 @@ KERNELS = {"beam_gather": "beam_gather_f32_kernel",
            "hamming": "::hamming_kernel",
            "l2_distance": "l2_distance_kernel",
            "l2_topk": "l2_topk_kernel",
-           "slstm": "slstm_"}
+           "slstm": "slstm_",
+           "slstm_forward": ("slstm_sequence_kernel", "slstm_cluster_kernel"),
+           "slstm_backward": "slstm_backward_kernel"}
 # the device kernels of the matrix products (cuBLAS / cuBLASLt / CUTLASS)
 GEMM_PARTS = ("gemm", "nvjet", "xmma", "cutlass")
 
@@ -630,13 +652,188 @@ def profile_lm(args) -> int:
     return 0
 
 
+def profile_train(args) -> int:
+    """Phase L: one train step of xlstm-1.3b and of qwen2-1.5b, its device
+    time split into forward, recompute, backward (by the units' block
+    pattern), logits and CE, AdamW, B8 / B8ᵀ and the host."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.kernels import slstm
+    from repro_torch.models import init_train_state, make_train_step
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import steps as steps_mod
+    from repro_torch.optim import AdamWConfig, adamw
+
+    on_card = args.device != "cpu"
+    b, s = args.train_batch, args.train_seq
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # a span synchronizes as it opens and as it closes, so that the work
+    # queued before it does not run inside it
+    def spanned(fn, label):
+        def inner(*a, **kw):
+            sync()
+            with record_function(f"span::{label(*a)}"):
+                out = fn(*a, **kw)
+                sync()
+            return out
+        return inner
+
+    in_backward = [False]
+
+    def unit_label(blocks, *_):
+        kinds = collections.Counter(blk.block_type for blk in blocks)
+        kind = " + ".join(f"{k} x{v}" if v > 1 else k
+                          for k, v in kinds.items())
+        return f"{'recompute' if in_backward[0] else 'forward'}::{kind}"
+
+    def backward(*a, **kw):
+        in_backward[0] = True
+        sync()
+        try:
+            with record_function("span::backward"):
+                out = saved["backward"](*a, **kw)
+                sync()
+        finally:
+            in_backward[0] = False
+        return out
+
+    saved = {"unit": model_mod._apply_unit,
+             "logits": model_mod.logits_from_hidden,
+             "ce": steps_mod.cross_entropy,
+             "adamw": adamw.apply_updates,
+             "backward": torch.autograd.backward}
+    status = 0
+    for arch in ("xlstm-1.3b", "qwen2-1.5b"):
+        cfg = get_config(arch)
+        gen = torch.Generator(device=args.device)
+        gen.manual_seed(0)
+        state = init_train_state(cfg, generator=gen, device=args.device)
+        step = make_train_step(cfg, AdamWConfig(lr=3e-4, total_steps=6,
+                                                warmup_steps=1))
+        data = lm_batches(cfg.vocab_size, b, s, seed=0)
+
+        def batch():
+            nb = next(data)
+            return {k: torch.as_tensor(getattr(nb, k), device=args.device)
+                    for k in ("tokens", "targets", "segment_ids")}
+
+        state, m = step(state, batch())          # warm-up
+        float(m["loss"])
+        nxt = batch()
+        before = (slstm.launches, slstm.backward_launches)
+        model_mod._apply_unit = spanned(saved["unit"], unit_label)
+        model_mod.logits_from_hidden = spanned(saved["logits"],
+                                               lambda *_: "logits_ce")
+        steps_mod.cross_entropy = spanned(saved["ce"],
+                                          lambda *_: "logits_ce")
+        adamw.apply_updates = spanned(saved["adamw"], lambda *_: "adamw")
+        torch.autograd.backward = backward
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                         if on_card else [])
+        sync()
+        try:
+            with profile(activities=acts) as prof:
+                with record_function("span::step"):
+                    state, m = step(state, nxt)
+                    loss = float(m["loss"])
+                    sync()
+        finally:
+            model_mod._apply_unit = saved["unit"]
+            model_mod.logits_from_hidden = saved["logits"]
+            steps_mod.cross_entropy = saved["ce"]
+            adamw.apply_updates = saved["adamw"]
+            torch.autograd.backward = saved["backward"]
+        b8 = slstm.launches - before[0]
+        b8t = slstm.backward_launches - before[1]
+
+        stepspan, spans, dev = None, [], []
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA:
+                if not e.name().startswith("span::"):
+                    dev.append((e.start_ns(), e.duration_ns(), e.name()))
+            elif e.name() == "span::step":
+                stepspan = (e.start_ns(), e.end_ns())
+            elif e.name().startswith("span::"):
+                spans.append((e.start_ns(), e.end_ns(), e.name()[6:]))
+        spans.sort()
+        recomputes = [sp for sp in spans if sp[2].startswith("recompute")]
+        rec_ends = [hi for _, hi, _ in recomputes]
+
+        def bucket(t):
+            inner = [lab for lo, hi, lab in spans if lo <= t < hi]
+            inner = [lab for lab in inner if lab != "backward"] or inner
+            if not inner:
+                return "other"
+            lab = inner[-1]
+            if lab != "backward":
+                return lab
+            i = bisect.bisect_right(rec_ends, t) - 1
+            if i < 0:
+                return "backward::logits_ce"
+            return "backward::" + recomputes[i][2].split("::", 1)[1]
+
+        names, buckets = collections.Counter(), collections.Counter()
+        for start, dur, name in dev:
+            if stepspan[0] <= start < stepspan[1]:
+                names[name] += dur
+                buckets[bucket(start)] += dur
+
+        def ms(counter, pred=lambda n: True):
+            return sum(v for n, v in counter.items() if pred(n)) / 1e6
+
+        def by(prefix):
+            return {k.split("::", 1)[1]: v / 1e6 for k, v in buckets.items()
+                    if k.startswith(prefix + "::")}
+
+        wall = (stepspan[1] - stepspan[0]) / 1e6
+        device = ms(names)
+        fwd_kernels = KERNELS["slstm_forward"]
+        print(json.dumps({
+            "phase": "L", "model": arch, "layers": cfg.n_layers,
+            "tokens": b * s, "loss": loss, "wall_ms": wall,
+            "device_ms": device, "busy": device / wall if wall else None,
+            "host_ms": wall - device,
+            "forward_ms": by("forward"), "recompute_ms": by("recompute"),
+            "logits_ce_ms": buckets["logits_ce"] / 1e6,
+            "backward_ms": {k: v for k, v in by("backward").items()
+                            if k != "logits_ce"},
+            "backward_logits_ce_ms": buckets["backward::logits_ce"] / 1e6,
+            "adamw_ms": buckets["adamw"] / 1e6,
+            "other_ms": buckets["other"] / 1e6,
+            "b8_ms": ms(names, lambda n: any(k in n for k in fwd_kernels)),
+            "b8_launches": b8,
+            "b8t_ms": ms(names, lambda n: KERNELS["slstm_backward"] in n),
+            "b8t_launches": b8t,
+            "recompute_spans": len(recomputes),
+            "top": [[n[:80], v / 1e6] for n, v in names.most_common(12)]}),
+            flush=True)
+        if on_card and not dev:
+            print("profile_torch: the profiler recorded no device events",
+                  file=sys.stderr)
+            status = 1
+        del state, m, prof
+        if on_card:
+            torch.cuda.empty_cache()
+    return status
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--queries", type=int, default=10_000)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--phase", choices=[*sorted(QUANT), "F", "H", "I", "J",
-                                        "K"], default="A")
+                                        "K", "L"], default="A")
+    ap.add_argument("--train-batch", type=int, default=8)
+    ap.add_argument("--train-seq", type=int, default=2048)
     args = ap.parse_args()
 
     import torch
@@ -651,9 +848,13 @@ def main() -> int:
     if on_card:
         _build.build()
     if args.phase == "F":
-        return profile_xlstm(args)
+        with torch.no_grad():
+            return profile_xlstm(args)
     if args.phase in ("J", "K"):
-        return profile_lm(args)
+        with torch.no_grad():
+            return profile_lm(args)
+    if args.phase == "L":
+        return profile_train(args)
     x = sift_like(args.n, seed=0)
     q = sift_like(10_000, seed=1)[: args.queries]
     if args.phase == "E":

@@ -70,7 +70,10 @@
 //   h_t visible to every block before step t + 1.
 //
 // Both paths start step 0 from the constant state and skip its product, and
-// use no fast-math intrinsics: expf, log1pf, tanhf.  The kernel allocates
+// use no fast-math intrinsics: expf, log1pf, tanhf.  The save entries
+// (training) run the same launches with one more store of each step's
+// pre-activations, c, n, m and h in the cell: nothing else changes, so h
+// keeps the serving entries' bits.  The kernel allocates
 // nothing (the wrapper passes the 5 x B x d f32 scratch the l2 path uses),
 // launches on the caller's stream and returns cudaGetLastError().
 
@@ -105,6 +108,20 @@ __device__ __forceinline__ float log_sigmoid(float x) {
   return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
 }
 
+// what the backward (csrc/slstm_backward.cu) reads of step t: save is (8,
+// B, S, d) f32, fields pre_i, pre_f, pre_z, pre_o, c, n, m, h; `at` is
+// (row * S + t) * d + unit, `bsd` = B * S * d
+__device__ __forceinline__ void save_step(float* save, const float* pre,
+                                          float c, float n, float m, float h,
+                                          size_t at, size_t bsd) {
+#pragma unroll
+  for (int g = 0; g < 4; ++g) save[g * bsd + at] = pre[g];
+  save[4 * bsd + at] = c;
+  save[5 * bsd + at] = n;
+  save[6 * bsd + at] = m;
+  save[7 * bsd + at] = h;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 slstm_sequence_kernel(const T* __restrict__ gates,
@@ -113,7 +130,7 @@ slstm_sequence_kernel(const T* __restrict__ gates,
                       float* __restrict__ h_buf, float* __restrict__ c_st,
                       float* __restrict__ n_st, float* __restrict__ m_st,
                       T* __restrict__ out, int B, int S, int d, int H,
-                      int blk, int r_in_smem) {
+                      int blk, int r_in_smem, float* __restrict__ save) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float smem[];
   float* red = smem;                    // [warp][gate][row][unit]
@@ -253,6 +270,10 @@ slstm_sequence_kernel(const T* __restrict__ gates,
           m_st[s_idx] = m_new;
           h_next[s_idx] = h;
           store(out + (static_cast<size_t>(row) * S + t) * d + j, h);
+          if (save)
+            save_step(save, pre, c_new, n_new, m_new, h,
+                      (static_cast<size_t>(row) * S + t) * d + j,
+                      static_cast<size_t>(B) * S * d);
         }
         __syncthreads();                // h_s and red are reused
       }
@@ -381,7 +402,8 @@ template <typename T, int RB, int KR, bool kFloor>
 __global__ void __launch_bounds__(kCThreads, 1)
 slstm_cluster_kernel(const T* __restrict__ gates, const float* __restrict__ r,
                      const float* __restrict__ bias, T* __restrict__ out,
-                     int B, int S, int d, int H, int blk) {
+                     int B, int S, int d, int H, int blk,
+                     float* __restrict__ save) {
   constexpr int RH = RB / 2;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 smem4[];
@@ -575,6 +597,10 @@ slstm_cluster_kernel(const T* __restrict__ gates, const float* __restrict__ r,
         m = m_new;
         h = live ? 1.f / (1.f + expf(-pre[3])) * c / fmaxf(nn, 1e-6f) : 0.f;
         if (live) store(o_row + static_cast<size_t>(t) * d, h);
+        if (live && save)
+          save_step(save, pre, c, nn, m, h,
+                    (static_cast<size_t>(row) * S + t) * d + j,
+                    static_cast<size_t>(B) * S * d);
         if (live && t + 1 < S) {
 #pragma unroll
           for (int g = 0; g < 4; ++g) gx[g] = widen(gn[g]);
@@ -633,7 +659,7 @@ cudaError_t cluster_config(int cs, int H, int B, int blk,
 
 template <typename T, int RB, int KR, bool kFloor>
 cudaError_t cluster_launch(const T* gates, const float* r, const float* b,
-                           T* out, int B, int S, int d, int H,
+                           T* out, float* save, int B, int S, int d, int H,
                            cudaStream_t stream) {
   const int blk = d / H;
   cudaLaunchConfig_t cfg;
@@ -643,7 +669,7 @@ cudaError_t cluster_launch(const T* gates, const float* r, const float* b,
       blk / kCU, H, B, blk, stream, &cfg, &attr, &active);
   if (e != cudaSuccess) return e;
   return cudaLaunchKernelEx(&cfg, slstm_cluster_kernel<T, RB, KR, kFloor>,
-                            gates, r, b, out, B, S, d, H, blk);
+                            gates, r, b, out, B, S, d, H, blk, save);
 }
 
 // the cluster layout for this shape: info = {path (1 cluster, 0 l2), rows a
@@ -689,8 +715,8 @@ cudaError_t choose_rb(int B, int d, int H, int* info) {
 
 template <typename T, bool kFloor>
 cudaError_t run_cluster(const T* gates, const float* r, const float* b,
-                        T* out, int B, int S, int d, int H, int* info,
-                        cudaStream_t stream) {
+                        T* out, float* save, int B, int S, int d, int H,
+                        int* info, cudaStream_t stream) {
   const int blk = d / H;
   info[0] = 0;
   if (blk % kCU != 0 || blk > kCMaxBlk) return cudaSuccess;
@@ -699,19 +725,20 @@ cudaError_t run_cluster(const T* gates, const float* r, const float* b,
                      : choose_rb<T, 0>(B, d, H, info);
   if (e != cudaSuccess || info[0] == 0) return e;
   if (info[1] == 8)
-    return kr ? cluster_launch<T, 8, kCKR, kFloor>(gates, r, b, out, B, S, d,
-                                                   H, stream)
-              : cluster_launch<T, 8, 0, kFloor>(gates, r, b, out, B, S, d, H,
-                                                stream);
-  return kr ? cluster_launch<T, 4, kCKR, kFloor>(gates, r, b, out, B, S, d, H,
-                                                 stream)
-            : cluster_launch<T, 4, 0, kFloor>(gates, r, b, out, B, S, d, H,
-                                              stream);
+    return kr ? cluster_launch<T, 8, kCKR, kFloor>(gates, r, b, out, save, B,
+                                                   S, d, H, stream)
+              : cluster_launch<T, 8, 0, kFloor>(gates, r, b, out, save, B, S,
+                                                d, H, stream);
+  return kr ? cluster_launch<T, 4, kCKR, kFloor>(gates, r, b, out, save, B, S,
+                                                 d, H, stream)
+            : cluster_launch<T, 4, 0, kFloor>(gates, r, b, out, save, B, S, d,
+                                              H, stream);
 }
 
 template <typename T>
 int run_l2(const T* gates, const float* r, const float* b, T* out,
-           float* scratch, int B, int S, int d, int H, cudaStream_t stream) {
+           float* scratch, int B, int S, int d, int H, cudaStream_t stream,
+           float* save = nullptr) {
   if (B <= 0 || S <= 0) return static_cast<int>(cudaSuccess);
   if (d <= 0 || H <= 0 || d % H != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -772,7 +799,7 @@ int run_l2(const T* gates, const float* r, const float* b, T* out,
   float* m_st = scratch + 4 * bd;
   int blk_arg = blk;
   void* args[] = {&gates, &r, &b, &h_buf, &c_st, &n_st, &m_st, &out,
-                  &B, &S, &d, &H, &blk_arg, &r_in_smem};
+                  &B, &S, &d, &H, &blk_arg, &r_in_smem, &save};
   e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
                                   dim3(grid), dim3(kThreads), args, smem,
                                   stream);
@@ -782,17 +809,17 @@ int run_l2(const T* gates, const float* r, const float* b, T* out,
 
 template <typename T>
 int run(const T* gates, const float* r, const float* b, T* out,
-        float* scratch, int* info, int B, int S, int d, int H,
+        float* scratch, float* save, int* info, int B, int S, int d, int H,
         cudaStream_t stream) {
   info[0] = info[1] = info[2] = info[3] = 0;
   if (B <= 0 || S <= 0) return static_cast<int>(cudaSuccess);
   if (d <= 0 || H <= 0 || d % H != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = run_cluster<T, false>(gates, r, b, out, B, S, d, H, info,
-                                        stream);
+  cudaError_t e = run_cluster<T, false>(gates, r, b, out, save, B, S, d, H,
+                                        info, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (info[0] == 1) return static_cast<int>(cudaGetLastError());
-  return run_l2<T>(gates, r, b, out, scratch, B, S, d, H, stream);
+  return run_l2<T>(gates, r, b, out, scratch, B, S, d, H, stream, save);
 }
 
 }  // namespace
@@ -804,7 +831,7 @@ extern "C" int slstm_sequence_f32(const float* gates, const float* r,
                                   const float* b, float* out, float* scratch,
                                   int* info, int B, int S, int d, int H,
                                   void* stream) {
-  return run<float>(gates, r, b, out, scratch, info, B, S, d, H,
+  return run<float>(gates, r, b, out, scratch, nullptr, info, B, S, d, H,
                     static_cast<cudaStream_t>(stream));
 }
 
@@ -813,8 +840,32 @@ extern "C" int slstm_sequence_bf16(const void* gates, const float* r,
                                    int* info, int B, int S, int d, int H,
                                    void* stream) {
   return run<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(gates), r, b,
-                            static_cast<__nv_bfloat16*>(out), scratch, info,
-                            B, S, d, H, static_cast<cudaStream_t>(stream));
+                            static_cast<__nv_bfloat16*>(out), scratch,
+                            nullptr, info, B, S, d, H,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// The same launches, also writing what the backward reads: save (8, B, S, d)
+// f32, each step's pre-activations (i, f, z, o) and new c, n, m and h.  The
+// arithmetic is the serving entries', so h has their bits.
+extern "C" int slstm_sequence_save_f32(const float* gates, const float* r,
+                                       const float* b, float* out,
+                                       float* scratch, float* save, int* info,
+                                       int B, int S, int d, int H,
+                                       void* stream) {
+  return run<float>(gates, r, b, out, scratch, save, info, B, S, d, H,
+                    static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int slstm_sequence_save_bf16(const void* gates, const float* r,
+                                        const float* b, void* out,
+                                        float* scratch, float* save,
+                                        int* info, int B, int S, int d,
+                                        int H, void* stream) {
+  return run<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(gates), r, b,
+                            static_cast<__nv_bfloat16*>(out), scratch, save,
+                            info, B, S, d, H,
+                            static_cast<cudaStream_t>(stream));
 }
 
 // The step floor of the cluster path at this shape: the same launch, S steps
@@ -827,7 +878,7 @@ extern "C" int slstm_step_floor(int* info, int B, int S, int d, int H,
   if (B <= 0 || S <= 0 || d <= 0 || H <= 0 || d % H != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = run_cluster<float, true>(nullptr, nullptr, nullptr, nullptr,
-                                           B, S, d, H, info,
+                                           nullptr, B, S, d, H, info,
                                            static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
   if (info[0] != 1) return static_cast<int>(cudaErrorInvalidValue);

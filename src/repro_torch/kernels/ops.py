@@ -24,6 +24,7 @@ from .hamming import hamming
 from .l2 import l2_distance
 from .l2 import l2_topk as _l2_topk
 from .pq_adc import pq_adc
+from .slstm import SLSTMSequence
 from .slstm import slstm_sequence as _slstm_sequence
 
 
@@ -159,8 +160,20 @@ def l2_topk(q: torch.Tensor, x: torch.Tensor, k: int, *, mode: str,
 def slstm_sequence(gates_x: torch.Tensor, r: torch.Tensor, b: torch.Tensor,
                    *, n_heads: int, force_ref: bool = False) -> torch.Tensor:
     """gates_x (B, S, 4d) × r (4, H, blk, blk) × b (4d,) -> h (B, S, d) in
-    the gates' dtype: the sLSTM recurrence of every prefill (``apply_slstm``)."""
-    if _plain(gates_x, force_ref):
+    the gates' dtype: the sLSTM recurrence of every prefill and train step
+    (``apply_slstm``).  Under grad, where any input requires it, the call
+    goes through ``SLSTMSequence``: B8's saving entry forward and B8ᵀ
+    backward on the card, the plain forward and reverse loop on the CPU or
+    under ``force_ref``; otherwise B8's serving entry (or its plain
+    version), which stores nothing for a backward."""
+    plain = _plain(gates_x, force_ref)
+    if torch.is_grad_enabled() and (gates_x.requires_grad or r.requires_grad
+                                    or b.requires_grad):
+        if not plain:
+            gates_x = gates_x.contiguous()
+            r, b = r.float().contiguous(), b.float().contiguous()
+        return SLSTMSequence.apply(gates_x, r, b, n_heads, plain)
+    if plain:
         return ref.slstm_sequence_ref(gates_x, r, b, n_heads)
     return _slstm_sequence(gates_x.contiguous(), r.float().contiguous(),
                            b.float().contiguous(), n_heads=n_heads)

@@ -201,23 +201,22 @@ def hamming_ref(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def slstm_cell(gates_x: torch.Tensor, r: torch.Tensor, b: torch.Tensor,
-               h: torch.Tensor, c: torch.Tensor, n: torch.Tensor,
-               m: torch.Tensor, n_heads: int):
-    """One step of the stabilised exp-gate sLSTM cell, all in float32.
-
-    gates_x (B, 4d) input-side gates, r (4, H, blk, blk) block-diagonal
-    recurrent weights, b (4d,) biases; state h, c, n, m (B, d).  Gate g of
-    unit n·blk + l reads pre[g·d + n·blk + l] and the column R[g, n, :, l].
-    Returns the new (h, c, n, m).
-    """
+def _slstm_pre(gates_x: torch.Tensor, r: torch.Tensor, b: torch.Tensor,
+               h: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B, 4d) pre-activations gates_x + h·R + b in h's dtype."""
     bsz, d4 = gates_x.shape
     d = d4 // 4
     blk = d // n_heads
+    acc = h.dtype
     rec = torch.einsum("bnk,gnkl->bgnl", h.reshape(bsz, n_heads, blk),
-                       r.float()).reshape(bsz, d4)
-    pre = gates_x.float() + rec + b.float()
-    gi, gf, gz, go = pre.split(d, dim=-1)
+                       r.to(acc)).reshape(bsz, d4)
+    return gates_x.to(acc) + rec + b.to(acc)
+
+
+def _slstm_update(pre: torch.Tensor, c: torch.Tensor, n: torch.Tensor,
+                  m: torch.Tensor):
+    """The cell from its pre-activations: the new (h, c, n, m)."""
+    gi, gf, gz, go = pre.chunk(4, dim=-1)
     log_f = torch.nn.functional.logsigmoid(gf)
     m_new = torch.maximum(log_f + m, gi)
     i_p = torch.exp(gi - m_new)
@@ -228,6 +227,32 @@ def slstm_cell(gates_x: torch.Tensor, r: torch.Tensor, b: torch.Tensor,
     return h_new, c_new, n_new, m_new
 
 
+def slstm_cell(gates_x: torch.Tensor, r: torch.Tensor, b: torch.Tensor,
+               h: torch.Tensor, c: torch.Tensor, n: torch.Tensor,
+               m: torch.Tensor, n_heads: int):
+    """One step of the stabilised exp-gate sLSTM cell, in the state's dtype
+    (float32; float64 for a float64 state).
+
+    gates_x (B, 4d) input-side gates, r (4, H, blk, blk) block-diagonal
+    recurrent weights, b (4d,) biases; state h, c, n, m (B, d).  Gate g of
+    unit n·blk + l reads pre[g·d + n·blk + l] and the column R[g, n, :, l].
+    Returns the new (h, c, n, m).
+    """
+    return _slstm_update(_slstm_pre(gates_x, r, b, h, n_heads), c, n, m)
+
+
+def _state_dtype(gates_x: torch.Tensor) -> torch.dtype:
+    """float32 for bf16 / f32 gates, float64 for f64 ones (gradcheck)."""
+    return torch.promote_types(gates_x.dtype, torch.float32)
+
+
+def _slstm_init(bsz: int, d: int, dtype, device):
+    state = [torch.zeros((bsz, d), dtype=dtype, device=device)
+             for _ in range(3)]
+    state.append(torch.full((bsz, d), -1e30, dtype=dtype, device=device))
+    return state
+
+
 def slstm_sequence_ref(gates_x: torch.Tensor, r: torch.Tensor,
                        b: torch.Tensor, n_heads: int) -> torch.Tensor:
     """gates_x (B, S, 4d) × r (4, H, blk, blk) × b (4d,) -> h (B, S, d) in
@@ -235,12 +260,108 @@ def slstm_sequence_ref(gates_x: torch.Tensor, r: torch.Tensor,
     m = -1e30, state in float32 (``repro.kernels.ref.slstm_sequence_ref``)."""
     bsz, s, d4 = gates_x.shape
     d = d4 // 4
-    state = [torch.zeros((bsz, d), dtype=torch.float32,
-                         device=gates_x.device) for _ in range(3)]
-    state.append(torch.full((bsz, d), -1e30, dtype=torch.float32,
-                            device=gates_x.device))
+    state = _slstm_init(bsz, d, _state_dtype(gates_x), gates_x.device)
     out = torch.empty((bsz, s, d), dtype=gates_x.dtype, device=gates_x.device)
     for t in range(s):
         state = slstm_cell(gates_x[:, t], r, b, *state, n_heads)
         out[:, t] = state[0]
     return out
+
+
+#: the fields of the sLSTM forward's save, (8, B, S, d) in the state's
+#: dtype: what its backward reads at each step
+SLSTM_SAVED = ("pre_i", "pre_f", "pre_z", "pre_o", "c", "n", "m", "h")
+
+
+def slstm_sequence_save_ref(gates_x: torch.Tensor, r: torch.Tensor,
+                            b: torch.Tensor, n_heads: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``slstm_sequence_ref`` that also returns what the backward reads:
+    (h (B, S, d) in the gates' dtype, saved (8, B, S, d): each step's four
+    pre-activations and its new c, n, m and h, in the state's dtype)."""
+    bsz, s, d4 = gates_x.shape
+    d = d4 // 4
+    acc = _state_dtype(gates_x)
+    state = _slstm_init(bsz, d, acc, gates_x.device)
+    out = torch.empty((bsz, s, d), dtype=gates_x.dtype, device=gates_x.device)
+    saved = torch.empty((8, bsz, s, d), dtype=acc, device=gates_x.device)
+    for t in range(s):
+        pre = _slstm_pre(gates_x[:, t], r, b, state[0], n_heads)
+        state = _slstm_update(pre, *state[1:])
+        saved[:4, :, t] = pre.reshape(bsz, 4, d).transpose(0, 1)
+        saved[4:, :, t] = torch.stack(state[1:] + state[:1])
+        out[:, t] = state[0]
+    return out, saved
+
+
+def slstm_sequence_backward_ref(dh: torch.Tensor, saved: torch.Tensor,
+                                r: torch.Tensor, n_heads: int,
+                                dtype: torch.dtype
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sLSTM sequence's backward, an explicit reverse loop: dh (B, S,
+    d), the cotangent of h, and the forward's ``saved`` -> (dgates (B, S, 4d)
+    in ``dtype``, dpre (B, S, 4d) in the state's dtype).
+
+    The derivative autodiff of the cell gives, with (dc, dn, dm) carried
+    from step t + 1 to t and dh_{t-1} += Σ_g dpre_g · R_gᵀ: through
+    ``logsigmoid``, through the stabiliser m (h is not invariant to m where
+    the clamp of n is active), through that clamp, and through
+    ``maximum`` with ties split evenly (``jnp.maximum``'s rule; the clamp is
+    ``jnp.maximum(n, 1e-6)`` in the reference)."""
+    _, bsz, s, d = saved.shape
+    acc = saved.dtype
+    blk = d // n_heads
+    r = r.to(acc)
+    dpre = torch.empty((bsz, s, 4 * d), dtype=acc, device=saved.device)
+    zero = torch.zeros((bsz, d), dtype=acc, device=saved.device)
+    dc = dn = dm = drec = zero
+    for t in reversed(range(s)):
+        gi, gf, gz, go, c, n, m, _ = saved[:, :, t]
+        if t > 0:
+            cp, np_, mp = saved[4:7, :, t - 1]
+        else:
+            cp, np_, mp = zero, zero, torch.full_like(zero, -1e30)
+        a = torch.nn.functional.logsigmoid(gf) + mp
+        i_p = torch.exp(gi - m)
+        f_p = torch.exp(a - m)
+        tz = torch.tanh(gz)
+        sg = torch.sigmoid(go)
+        nc = torch.clamp_min(n, 1e-6)
+        w_clamp = (n > 1e-6).to(acc) + 0.5 * (n == 1e-6).to(acc)
+        d_h = dh[:, t].to(acc) + drec
+        dgo = d_h * c / nc * sg * (1 - sg)
+        dct = dc + d_h * sg / nc
+        dnt = dn - d_h * sg * c / (nc * nc) * w_clamp
+        x_f = (dct * cp + dnt * np_) * f_p
+        x_i = (dct * tz + dnt) * i_p
+        dgz = dct * i_p * (1 - tz * tz)
+        dmt = dm - x_f - x_i
+        w_a = (a > gi).to(acc) + 0.5 * (a == gi).to(acc)
+        da = x_f + dmt * w_a
+        dgi = x_i + dmt * (1 - w_a)
+        dgf = da * torch.sigmoid(-gf)
+        dp = torch.cat([dgi, dgf, dgz, dgo], dim=-1)
+        dpre[:, t] = dp
+        dc, dn, dm = dct * f_p, dnt * f_p, da
+        drec = torch.einsum("bgnl,gnkl->bnk",
+                            dp.reshape(bsz, 4, n_heads, blk),
+                            r).reshape(bsz, d)
+    return dpre.to(dtype), dpre
+
+
+def slstm_param_grads(saved: torch.Tensor, dpre: torch.Tensor,
+                      n_heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dr (4, H, blk, blk), db (4d,)) from the saved h and dpre (B, S,
+    4d): dr[g, n, k, l] = Σ_{b,t} h_{t-1}[b, n·blk + k] · dpre_t[b, g·d +
+    n·blk + l] (h_{-1} = 0), db = Σ_{b,t} dpre_t: one product each, in the
+    state's dtype (a float32 product on the card runs in full float32
+    while ``torch.backends.cuda.matmul.allow_tf32`` is False, its
+    default)."""
+    _, bsz, s, d = saved.shape
+    blk = d // n_heads
+    h_prev = torch.zeros((bsz, s, d), dtype=saved.dtype, device=saved.device)
+    h_prev[:, 1:] = saved[7, :, :-1]
+    dr = torch.einsum("btnk,btgnl->gnkl",
+                      h_prev.reshape(bsz, s, n_heads, blk),
+                      dpre.reshape(bsz, s, 4, n_heads, blk))
+    return dr, dpre.sum(dim=(0, 1))

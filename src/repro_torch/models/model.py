@@ -9,7 +9,11 @@ blocks in one ``nn.ModuleList`` (layer ``u·P + i`` is block ``i`` of unit
 ``u``, the tail last) and runs them in order.  An encoder-decoder model adds
 ``enc_layers`` (``encoder_layers`` non-causal ``"attn"`` blocks) and
 ``enc_final_norm``; its decoder blocks carry cross-attention.  ``forward``
-and ``decode_step`` serve (no autograd): training is a later slice.
+and ``encode`` run under the caller's grad mode: a train step
+differentiates them, with each pattern unit recomputed in the backward
+(``remat``, the reference's ``jax.checkpoint`` of the unit body), and every
+serving caller runs them under ``torch.no_grad()``.  ``decode_step`` and
+``precompute_cross_kv`` never record a graph.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import blocks as B
@@ -74,12 +79,13 @@ class Model(nn.Module):
 
     def forward(self, tokens: torch.Tensor,
                 frames: Optional[torch.Tensor] = None, *,
-                force_ref: bool = False
+                force_ref: bool = False, remat: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         batch = {"tokens": tokens}
         if frames is not None:
             batch["frames"] = frames
-        return forward(self, batch, self.cfg, force_ref=force_ref)
+        return forward(self, batch, self.cfg, force_ref=force_ref,
+                       remat=remat)
 
 
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
@@ -112,42 +118,81 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
         b, s)
 
 
-@torch.no_grad()
-def encode(params: Model, frames: torch.Tensor,
-           cfg: ModelConfig) -> torch.Tensor:
+def _apply_unit(blocks, x: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor, causal: bool,
+                enc_out: Optional[torch.Tensor],
+                enc_pos: Optional[torch.Tensor], force_ref: bool
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One pattern unit (or the tail's blocks): (x, the unit's aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = L.constrain_batch(x, cfg)
+    for blk in blocks:
+        x, a = B.apply_block_train(blk, x, cfg, blk.block_type, positions,
+                                   causal=causal, enc_out=enc_out,
+                                   enc_pos=enc_pos, force_ref=force_ref)
+        x = L.constrain_batch(x, cfg)
+        aux = aux + a
+    return x, aux
+
+
+def _apply_stack(layers, n_units: int, p: int, x: torch.Tensor,
+                 cfg: ModelConfig,
+                 positions: torch.Tensor, *, causal: bool,
+                 enc_out: Optional[torch.Tensor] = None,
+                 enc_pos: Optional[torch.Tensor] = None,
+                 force_ref: bool = False, remat: bool = True
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's scan over ``n_units`` pattern units of ``p`` blocks,
+    then the tail's blocks (without remat, as the reference applies them).  Under grad with
+    ``remat`` each unit is recomputed in the backward
+    (``torch.utils.checkpoint``), so only the units' inputs are kept."""
+    rc = remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for u in range(n_units):
+        args = (layers[u * p:(u + 1) * p], x, cfg, positions, causal,
+                enc_out, enc_pos, force_ref)
+        x, a = (checkpoint(_apply_unit, *args, use_reentrant=False) if rc
+                else _apply_unit(*args))
+        aux = aux + a
+    for blk in layers[n_units * p:]:
+        x, a = B.apply_block_train(blk, x, cfg, blk.block_type, positions,
+                                   causal=causal, enc_out=enc_out,
+                                   enc_pos=enc_pos, force_ref=force_ref)
+        aux = aux + a
+    return x, aux
+
+
+def encode(params: Model, frames: torch.Tensor, cfg: ModelConfig, *,
+           remat: bool = True) -> torch.Tensor:
     """The encoder stack over the frontend's frame embeddings (B, S_enc, d):
     non-causal self-attention with RoPE, then ``enc_final_norm``."""
     b, s, _ = frames.shape
     pos = _positions(b, s, frames.device)
     x = frames.to(cfg.activation_dtype)
-    for blk in params.enc_layers:
-        x, _ = B.apply_block_train(blk, x, cfg, "attn", pos, causal=False)
-        x = L.constrain_batch(x, cfg)
+    x, _ = _apply_stack(params.enc_layers, len(params.enc_layers), 1, x,
+                        cfg, pos, causal=False, remat=remat)
     return L.apply_norm(params.enc_final_norm, x, cfg)
 
 
-@torch.no_grad()
 def forward(params: Model, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-            *, force_ref: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Prefill / scoring forward.  batch: tokens (B, S) [+ frames (B,
-    S_enc, d) for encoder-decoder models] on the model's device.  Returns
-    (logits (B, S, V) fp32, aux loss).  ``force_ref`` runs the sLSTM
-    layers' plain recurrence instead of the kernel."""
+            *, force_ref: bool = False, remat: bool = True
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Prefill / scoring / training forward.  batch: tokens (B, S) [+ frames
+    (B, S_enc, d) for encoder-decoder models] on the model's device.
+    Returns (logits (B, S, V) fp32, aux loss).  ``force_ref`` runs the sLSTM
+    layers' plain recurrence instead of the kernel; ``remat`` (under grad)
+    recomputes each pattern unit in the backward."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
     x = embed_tokens(params, tokens, cfg)
     enc_out = enc_pos = None
     if cfg.is_enc_dec:
-        enc_out = encode(params, batch["frames"], cfg)
+        enc_out = encode(params, batch["frames"], cfg, remat=remat)
         enc_pos = _positions(b, enc_out.shape[1], tokens.device)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for blk in params.layers:
-        x, a = B.apply_block_train(blk, x, cfg, blk.block_type, positions,
-                                   causal=True, enc_out=enc_out,
-                                   enc_pos=enc_pos, force_ref=force_ref)
-        x = L.constrain_batch(x, cfg)
-        aux = aux + a
+    x, aux = _apply_stack(params.layers, cfg.n_units, len(cfg.block_pattern),
+                          x, cfg, positions, causal=True, enc_out=enc_out, enc_pos=enc_pos,
+                          force_ref=force_ref, remat=remat)
     return logits_from_hidden(params, x, cfg), aux
 
 

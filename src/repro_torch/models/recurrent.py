@@ -11,7 +11,9 @@ sLSTM), the port of the JAX package's ``repro.models.recurrent``.
   * sLSTM — sequential (the hidden state feeds the gates): the input-side
     gates are one matrix product, the recurrence over the sequence is the
     ``slstm_sequence`` CUDA kernel (B8) on the card, its plain version on
-    the CPU.  The JAX package runs the same cell through ``lax.scan``.
+    the CPU; under grad its backward is the ``slstm_backward`` kernel (B8ᵀ)
+    or the plain reverse loop (``kernels/slstm.py``'s ``SLSTMSequence``).
+    The JAX package runs the same cell through ``lax.scan``.
 
 All three expose a single-token ``*_decode`` path with explicit state (plain
 PyTorch: one cell step per token).

@@ -23,6 +23,7 @@ from repro_torch.kernels import hamming as hm_mod
 from repro_torch.kernels import l2 as l2_mod
 from repro_torch.kernels import ops
 from repro_torch.kernels import pq_adc as adc_mod
+from repro_torch.kernels import ref
 from repro_torch.kernels import slstm as slstm_mod
 
 pytestmark = pytest.mark.cuda
@@ -802,6 +803,103 @@ def test_slstm_sequence_refuses_bad_inputs(cuda):
         slstm_mod.slstm_sequence(g.half(), r, bias, n_heads=4)
     with pytest.raises(ValueError, match="contiguous"):
         slstm_mod.slstm_sequence(g.transpose(0, 1), r, bias, n_heads=4)
+
+
+# B8's saving entry (training): the serving entry's launch with one more
+# store per field, so its h has the serving entry's bits on both paths; its
+# save is the plain save within B8's fp32 tolerance (|c|, |n| grow with the
+# sequence: relative to each field's largest value)
+@pytest.mark.parametrize("d,h,path", [(64, 2, "cluster"), (2048, 4, "cluster"),
+                                      (20, 4, "l2"), (64, 8, "l2"),
+                                      (4096, 2, "l2")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slstm_save_entry_has_the_serving_bits(cuda, d, h, path, dtype):
+    g, r, bias = _slstm_inputs(d + 1, 3, 37, d, h, dtype, cuda)
+    serving = slstm_mod.slstm_sequence(g, r, bias, n_heads=h)
+    before = (slstm_mod.launches, slstm_mod.save_launches,
+              slstm_mod.path_launches[path])
+    got, saved = slstm_mod.slstm_sequence_save(g, r, bias, n_heads=h)
+    assert (slstm_mod.launches, slstm_mod.save_launches,
+            slstm_mod.path_launches[path]) == tuple(x + 1 for x in before)
+    _, want = ref.slstm_sequence_save_ref(g, r, bias, h)
+    torch.cuda.synchronize()
+    assert torch.equal(got, serving)
+    assert saved.shape == (8, 3, 37, d) and saved.dtype == torch.float32
+    assert torch.equal(saved[7].to(dtype), got)
+    for f in range(8):
+        scale = want[f].abs().max().item()
+        err = (saved[f] - want[f]).abs().max().item()
+        assert err <= 1e-4 * max(scale, 1.0), (ref.SLSTM_SAVED[f], err)
+
+
+def _rel_l2(got, want):
+    return ((got.double() - want.double()).norm()
+            / want.double().norm().clamp_min(1e-30)).item()
+
+
+# B8ᵀ against the plain reverse loop on the same saved forward and the same
+# cotangent: fp32 within 1e-4 relative L2 per tensor (summation order over
+# S steps).  With bf16 gates both round their f32 dpre, which agree within
+# 1e-4, to bf16: they differ only where the f32 values straddle a rounding
+# boundary, by one bf16 step (2^-8 relative) on those few elements, so 1e-3
+# for dgates; dr and db come from the f32 dpre in both
+SLSTM_GRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+
+
+@pytest.mark.parametrize("d,h", [(32, 4), (20, 4), (64, 2), (64, 8),
+                                 (2048, 4), (4096, 2)])
+@pytest.mark.parametrize("b,s", [(1, 1), (3, 37), (8, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slstm_backward(cuda, d, h, b, s, dtype):
+    g, r, bias = _slstm_inputs(d + s + b, b, s, d, h, dtype, cuda)
+    dy = torch.as_tensor(np.random.RandomState(s).randn(b, s, d).astype(
+        np.float32), device=cuda).to(dtype)
+    _, saved = slstm_mod.slstm_sequence_save(g, r, bias, n_heads=h)
+    before = slstm_mod.backward_launches
+    dgates, dpre = slstm_mod.slstm_backward(dy, saved, r, n_heads=h)
+    assert slstm_mod.backward_launches == before + 1
+    want_g, want_p = ref.slstm_sequence_backward_ref(dy, saved, r, h, dtype)
+    torch.cuda.synchronize()
+    assert dgates.dtype == dtype and dpre.dtype == torch.float32
+    assert dgates.shape == (b, s, 4 * d)
+    assert (dgates is dpre) == (dtype == torch.float32)
+    assert _rel_l2(dpre, want_p) <= SLSTM_GRAD_RTOL[torch.float32]
+    assert _rel_l2(dgates, want_g) <= SLSTM_GRAD_RTOL[dtype]
+    again, _ = slstm_mod.slstm_backward(dy, saved, r, n_heads=h)
+    assert torch.equal(again, dgates)
+
+
+# the whole autograd function: kernel forward + B8ᵀ against the plain
+# forward + reverse loop, through ops.slstm_sequence under grad
+@pytest.mark.parametrize("d,h", [(64, 2), (20, 4), (2048, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slstm_sequence_grad_on_card(cuda, d, h, dtype):
+    g, r, bias = _slstm_inputs(d, 4, 64, d, h, dtype, cuda)
+    dy = torch.as_tensor(np.random.RandomState(1).randn(4, 64, d).astype(
+        np.float32), device=cuda).to(dtype)
+    grads = []
+    for force_ref in (False, True):
+        ins = [t.detach().clone().requires_grad_() for t in (g, r, bias)]
+        before = slstm_mod.backward_launches
+        out = ops.slstm_sequence(*ins, n_heads=h, force_ref=force_ref)
+        out.backward(dy)
+        assert slstm_mod.backward_launches == before + (not force_ref)
+        grads.append([t.grad for t in ins])
+    torch.cuda.synchronize()
+    for got, want in zip(*grads):
+        assert _rel_l2(got, want) <= SLSTM_GRAD_RTOL[got.dtype]
+
+
+def test_slstm_backward_refuses_bad_inputs(cuda):
+    g, r, bias = _slstm_inputs(0, 2, 4, 32, 4, torch.float32, cuda)
+    _, saved = slstm_mod.slstm_sequence_save(g, r, bias, n_heads=4)
+    dy = torch.zeros((2, 4, 32), device=cuda)
+    with pytest.raises(ValueError, match="not \\(8, B, S, d\\)"):
+        slstm_mod.slstm_backward(dy[:, :3].contiguous(), saved, r, n_heads=4)
+    with pytest.raises(ValueError, match="heads"):
+        slstm_mod.slstm_backward(dy, saved, r, n_heads=2)
+    with pytest.raises(ValueError, match="float32 or"):
+        slstm_mod.slstm_backward(dy.half(), saved, r, n_heads=4)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

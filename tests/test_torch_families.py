@@ -37,6 +37,15 @@ ENC_FRAMES = 24          # encoder frames (another length than the tokens')
 _PARAMS = {}
 
 
+@pytest.fixture(autouse=True)
+def _serving():
+    """These tests serve: ``forward`` runs under ``torch.no_grad()``, as
+    every serving caller runs it (under grad it records the graph a train
+    step differentiates)."""
+    with torch.no_grad():
+        yield
+
+
 def _cfgs(arch, dtype="float32", **kw):
     return (jconfigs.get_smoke_config(arch).with_overrides(dtype=dtype, **kw),
             configs.get_smoke_config(arch).with_overrides(dtype=dtype, **kw))

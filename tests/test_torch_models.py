@@ -50,6 +50,15 @@ def _cfgs(dtype):
 _PARAMS = {}
 
 
+@pytest.fixture(autouse=True)
+def _serving():
+    """These tests serve: ``forward`` runs under ``torch.no_grad()``, as
+    every serving caller runs it (under grad it records the graph a train
+    step differentiates)."""
+    with torch.no_grad():
+        yield
+
+
 def _params(dtype):
     """(JAX params, numpy tree, port model on the CPU), from PRNGKey(0)."""
     if dtype not in _PARAMS:
