@@ -112,10 +112,10 @@ them sharded, behind the HTTP server), the distributed search through
            weights, activations in the config's dtype, each pattern unit
            recomputed in the backward: xlstm-1.3b (48 layers, d_model 2048;
            every sLSTM layer's forward on B8's saving entry and its backward
-           on B8ᵀ, ``slstm_backward``) for 6 steps of 8 x 2,048 tokens of
-           the ``lm_batches`` stream (step wall and device ms, tokens/s,
-           peak memory, model-FLOP share of the dense bf16 peak), every loss
-           finite and the last below the first, then the fp32 gradient
+           on B8ᵀ's cluster path, ``slstm_backward``) for 6 steps of 8 x
+           2,048 tokens of the ``lm_batches`` stream (step wall and device
+           ms, tokens/s, peak memory, model-FLOP share of the dense bf16
+           peak), every loss finite and the last below the first, then the fp32 gradient
            check at 2 x 256 (every parameter's gradient with B8 + B8ᵀ
            against ``force_ref=True``); qwen2-1.5b at full size (the
            launcher's default arch) the same 6 steps, 2 steps with
@@ -134,8 +134,10 @@ query, C and D's delta scans (k = 40 over 8,192 rows) and G's coarse probe
 its matrix entry (``l2_distance``) and ``topk_smallest``; every sLSTM
 layer of phase F's prefill runs the ``slstm`` kernel, and every sLSTM
 layer of phase L's train steps B8's saving entry and B8ᵀ
-(``slstm_backward``), which phase F holds to its plain version (the
-explicit reverse loop) at F's shape.  Before the last
+(``slstm_backward``: its cluster path at xlstm-1.3b's head width, every
+launch checked), which phase F holds to its plain version (the explicit
+reverse loop) at B8's check shapes, on both of its paths, and at F's
+shape.  Before the last
 line it prints the card's name and power limit and one JSON line with each
 kernel's launches, error, time, plain-version time, bound and library-call
 time; the last line is the device JSON.  A kernel's ``ms`` is its device
@@ -310,7 +312,7 @@ K_AGREE_WHY = {
                 "not"}
 # phase F: B8ᵀ (the sLSTM backward) against its plain reverse loop on the
 # same saved forward and cotangent, per-tensor relative L2: fp32 within 1e-4
-# (summation order over 2,048 sequential steps).  With bf16 gates both
+# (summation order over up to 2,048 sequential steps).  With bf16 gates both
 # round their f32 dpre, which agree within 1e-4, to bf16: the two differ
 # only where the f32 values straddle a rounding boundary, by one bf16 step
 # (2^-8 relative) on those few elements, so 1e-3 for dgates (2.1e-5 on the
@@ -2674,74 +2676,106 @@ def rel_l2(a, b) -> float:
 
 def slstm_backward_checks(torch, layer, n_heads, log):
     """B8ᵀ (``slstm_backward``) against its plain reverse loop
-    (``ref.slstm_sequence_backward_ref`` + ``slstm_param_grads``) at phase
-    F's shape (B = 8, S = 2,048, d = 2,048, 4 heads) with the model's first
-    sLSTM layer's R and b, bf16 and fp32 gates N(0, 1), a cotangent
+    (``ref.slstm_sequence_backward_ref`` + ``slstm_param_grads``) at B8's
+    check shapes (``slstm_kernel_checks``: the JAX package's kernel-test
+    shapes and the smoke width, on the l2 and the cluster path, and phase
+    F's full width B = 8, S = 2,048, d = 2,048, 4 heads with the model's
+    first sLSTM layer's R and b), bf16 and fp32 gates N(0, 1), a cotangent
     N(0, 1), on one saved forward (B8's saving entry): dgates (and the f32
-    dpre), dr and db by relative L2 (SLSTM_BWD_RTOL).
+    dpre), dr and db by relative L2 (SLSTM_BWD_RTOL); two calls bit-equal.
 
     bound: the reverse product's 2·B·S·4d·blk flops at the fp32 rate (the
     forward's), against the save, dy and R read once and dpre and dgates
     written once.  library_ms is null: no PyTorch call computes this
-    cell's backward.  The device timer issues launches back to back (no
-    graph), as B8's; the plain loop is timed per call (3 calls)."""
+    cell's backward.  Each row names B8ᵀ's path and layout
+    (``slstm.last_backward_launch``); at full width the path must be the
+    cluster one and ``floor_ms`` is its step floor, the same clusters doing
+    only the S steps' exchange of partial sums and its waits
+    (``slstm.backward_step_floor``).  The device timer issues launches back
+    to back (no graph), as B8's; the plain loop is timed per call (3 calls
+    at full width)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import slstm as slstm_mod
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
-    d = layer.w_in.shape[0]
-    b, s, h = PREFILL_B, PREFILL_S, n_heads
-    blk = d // h
-    r, bias = layer.r.detach(), layer.b.detach()
-    g32 = torch.randn((b, s, 4 * d), generator=gen, device="cuda")
-    dy32 = torch.randn((b, s, d), generator=gen, device="cuda")
+    d_full = layer.w_in.shape[0]
+    # slstm_kernel_checks' shapes: (B, S, d, H, R's scale); the last row
+    # takes the layer's R and b
+    shapes = [(2, 64, 32, 4, 0.3), (1, 32, 16, 2, 0.3), (3, 96, 64, 8, 0.3),
+              (2, 128, 64, 2, 32 ** -0.5),
+              (PREFILL_B, PREFILL_S, d_full, n_heads, None)]
     rows = []
-    for dtype in ("bfloat16", "float32"):
-        dt = getattr(torch, dtype)
-        g, dy = g32.to(dt), dy32.to(dt)
-        _, saved = slstm_mod.slstm_sequence_save(g, r, bias, n_heads=h)
-        dgates, dpre = slstm_mod.slstm_backward(dy, saved, r, n_heads=h)
-        layout = dict(slstm_mod.last_launch)
-        dr, db = ref.slstm_param_grads(saved, dpre, h)
-        want_g, want_p = ref.slstm_sequence_backward_ref(dy, saved, r, h, dt)
-        want_r, want_b = ref.slstm_param_grads(saved, want_p, h)
-        torch.cuda.synchronize()
-        errs = {"dgates": rel_l2(dgates, want_g), "dpre": rel_l2(dpre, want_p),
-                "dr": rel_l2(dr, want_r), "db": rel_l2(db, want_b)}
-        limits = {"dgates": SLSTM_BWD_RTOL[dtype],
-                  "dpre": SLSTM_BWD_RTOL["float32"],
-                  "dr": SLSTM_BWD_RTOL["float32"],
-                  "db": SLSTM_BWD_RTOL["float32"]}
-        for k, e in errs.items():
-            check(e <= limits[k], f"slstm_backward {dtype}: {k} relative L2 "
-                  f"{e} over {limits[k]}")
-        again, _ = slstm_mod.slstm_backward(dy, saved, r, n_heads=h)
-        torch.cuda.synchronize()
-        check(torch.equal(again, dgates),
-              f"slstm_backward {dtype}: two calls differ")
-        esize = g.element_size()
-        nbytes = saved.numel() * 4 + dy.numel() * esize + r.numel() * 4 \
-            + dpre.numel() * 4 + (0 if dgates is dpre
-                                  else dgates.numel() * esize)
-        b_ms, b_by = bound(nbytes, 2 * b * s * 4 * d * blk)
-        row = {"name": "slstm_backward", "dtype": dtype, "B": b, "S": s,
-               "d": d, "H": h,
-               "max_abs_err": (dgates.float() - want_g.float()).abs().max()
-               .item(), "rel_l2": errs, "rel_l2_limits": limits,
-               "forward_path": layout["path"],
-               **timing(torch, [lambda: slstm_mod.slstm_backward(
-                   dy, saved, r, n_heads=h)], graph=False),
-               **plain_timing(torch, [lambda: ref.slstm_sequence_backward_ref(
-                   dy, saved, r, h, dt)], reps=3, warmup=1),
-               "plain_reps": 3, "bound_ms": b_ms, "bound_by": b_by,
-               "bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-               "library_ms": None}
-        row["share"] = b_ms / row["ms"]
-        log(row)
-        rows.append(row)
-        del saved, dgates, dpre, want_g, want_p, again, dr, db
-        torch.cuda.empty_cache()
+    for b, s, d, h, scale in shapes:
+        blk = d // h
+        if scale is None:
+            r, bias = layer.r.detach(), layer.b.detach()
+        else:
+            r = scale * torch.randn((4, h, blk, blk), generator=gen,
+                                    device="cuda")
+            bias = torch.randn((4 * d,), generator=gen, device="cuda")
+        g32 = torch.randn((b, s, 4 * d), generator=gen, device="cuda")
+        dy32 = torch.randn((b, s, d), generator=gen, device="cuda")
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            g, dy = g32.to(dt), dy32.to(dt)
+            _, saved = slstm_mod.slstm_sequence_save(g, r, bias, n_heads=h)
+            forward_path = slstm_mod.last_launch["path"]
+            dgates, dpre = slstm_mod.slstm_backward(dy, saved, r, n_heads=h)
+            layout = dict(slstm_mod.last_backward_launch)
+            dr, db = ref.slstm_param_grads(saved, dpre, h)
+            want_g, want_p = ref.slstm_sequence_backward_ref(dy, saved, r, h,
+                                                             dt)
+            want_r, want_b = ref.slstm_param_grads(saved, want_p, h)
+            torch.cuda.synchronize()
+            at = f"slstm_backward {dtype} B={b} S={s} d={d} H={h}"
+            errs = {"dgates": rel_l2(dgates, want_g),
+                    "dpre": rel_l2(dpre, want_p),
+                    "dr": rel_l2(dr, want_r), "db": rel_l2(db, want_b)}
+            limits = {"dgates": SLSTM_BWD_RTOL[dtype],
+                      "dpre": SLSTM_BWD_RTOL["float32"],
+                      "dr": SLSTM_BWD_RTOL["float32"],
+                      "db": SLSTM_BWD_RTOL["float32"]}
+            for k, e in errs.items():
+                check(e <= limits[k], f"{at}: {k} relative L2 {e} over "
+                      f"{limits[k]}")
+            again, again_p = slstm_mod.slstm_backward(dy, saved, r,
+                                                      n_heads=h)
+            torch.cuda.synchronize()
+            check(torch.equal(again, dgates) and torch.equal(again_p, dpre),
+                  f"{at}: two calls differ")
+            esize = g.element_size()
+            nbytes = saved.numel() * 4 + dy.numel() * esize + r.numel() * 4 \
+                + dpre.numel() * 4 + (0 if dgates is dpre
+                                      else dgates.numel() * esize)
+            b_ms, b_by = bound(nbytes, 2 * b * s * 4 * d * blk)
+            plain_reps = 3 if scale is None else 5
+            row = {"name": "slstm_backward", "dtype": dtype, "B": b, "S": s,
+                   "d": d, "H": h,
+                   "max_abs_err": (dgates.float() - want_g.float()).abs()
+                   .max().item(), "rel_l2": errs, "rel_l2_limits": limits,
+                   "forward_path": forward_path,
+                   **timing(torch, [lambda: slstm_mod.slstm_backward(
+                       dy, saved, r, n_heads=h)], graph=False),
+                   **plain_timing(torch, [
+                       lambda: ref.slstm_sequence_backward_ref(
+                           dy, saved, r, h, dt)], reps=plain_reps, warmup=1),
+                   "plain_reps": plain_reps, "bound_ms": b_ms,
+                   "bound_by": b_by,
+                   "bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                   "library_ms": None, **layout}
+            if scale is None:
+                check(layout["path"] == "cluster",
+                      f"{at}: B8ᵀ took the {layout['path']} path")
+                row["floor_ms"] = device_ms(torch, [
+                    lambda: slstm_mod.backward_step_floor(b, s, d, h,
+                                                          g.device)],
+                    graph=False)
+            row["share"] = b_ms / row["ms"]
+            log(row)
+            rows.append(row)
+            del saved, dgates, dpre, want_g, want_p, again, again_p, dr, db
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -2788,8 +2822,8 @@ def _run_xlstm(torch, counters, log):
     check(res["launches"]["slstm"] == n_slstm,
           f"F: slstm called {res['launches']['slstm']} times in one "
           f"prefill, want {n_slstm}")
-    full = next(r for r in rows if r["dtype"] == "bfloat16"
-                and r["S"] == PREFILL_S)
+    full = next(r for r in rows if r["name"] == "slstm"
+                and r["dtype"] == "bfloat16" and r["S"] == PREFILL_S)
     res["slstm_ms_per_prefill"] = full["ms"] * n_slstm
     res["slstm_share_of_prefill"] = full["ms"] * n_slstm / (prefill_s * 1e3)
     log({"xlstm": "prefill", **res})
@@ -3333,12 +3367,21 @@ def run_training(torch, counters, log):
     from repro_torch.configs import get_config
     from repro_torch.launch.train import train
 
+    from repro_torch.kernels import slstm
+
     res = {"phase": "L", "reduced": []}
     cfg = get_config(XLSTM)
+    before = dict(slstm.backward_path_launches)
     l1, out = train_run(torch, cfg, "L1 xlstm-1.3b", counters,
                         log)
     res["launches"] = l1.pop("launches")
     n_slstm = sum(bt == "slstm" for bt in cfg.block_pattern) * cfg.n_units
+    # B8ᵀ's path at xlstm-1.3b's head width (512): every launch a cluster one
+    l1["slstm_backward_paths"] = {
+        k: v - before[k] for k, v in slstm.backward_path_launches.items()}
+    check(l1["slstm_backward_paths"] == {"cluster": n_slstm * TRAIN_STEPS,
+                                         "l2": 0},
+          f"L1: B8ᵀ's paths {l1['slstm_backward_paths']}")
     # the forward and the remat recompute each run B8 once a layer and step,
     # the backward B8ᵀ once
     check(res["launches"]["slstm"] == 2 * n_slstm * TRAIN_STEPS,
@@ -3655,8 +3698,8 @@ def main(argv) -> int:
                      "at_shard": phase["H"]["shard_rows"]}),
         "slstm": (pick("slstm", dtype="bfloat16", S=PREFILL_S), "F",
                   "slstm.py:90"),
-        "slstm_backward": (pick("slstm_backward", dtype="bfloat16"), "L",
-                           "slstm.py:90")}
+        "slstm_backward": (pick("slstm_backward", dtype="bfloat16",
+                                S=PREFILL_S), "L", "slstm.py:90")}
     # B8ᵀ replaces no TPU kernel: the reference differentiates a lax.scan of
     # its cell; it is the backward of B8's
     notes = {"slstm_backward": "no TPU kernel: the backward of B8 "

@@ -136,6 +136,7 @@ from __future__ import annotations
 import argparse
 import bisect
 import collections
+import functools
 import json
 import os
 import re
@@ -151,20 +152,29 @@ K, EF, WIDTH, QUERY_BATCH = 10, 64, 4, 1024
 QUANT = {"A": "none", "C": "pq", "D": "bq", "E": "none", "G": "none"}
 # phase G's IVF setting (chip_smoke.py's IVF_NLIST, IVF_NPROBE)
 IVF_NLIST, IVF_NPROBE = 1024, 32
-# each kernel's device function, as the profiler names it (demangled), by
-# a part no other kernel's name contains
-KERNELS = {"beam_gather": "beam_gather_f32_kernel",
-           "beam_gather_lists": "beam_gather_lists_kernel",
-           "pair_gather": "pair_gather_f32_kernel",
-           "beam_gather_adc": "beam_gather_adc_kernel",
-           "beam_gather_hamming": "beam_gather_hamming_kernel",
-           "pq_adc": "pq_adc_",
-           "hamming": "::hamming_kernel",
-           "l2_distance": "l2_distance_kernel",
-           "l2_topk": "l2_topk_kernel",
-           "slstm": "slstm_",
+# each kernel's device functions, as the profiler names them (demangled), by
+# parts no other kernel's name contains
+KERNELS = {"beam_gather": ("beam_gather_f32_kernel",),
+           "beam_gather_lists": ("beam_gather_lists_kernel",),
+           "pair_gather": ("pair_gather_f32_kernel",),
+           "beam_gather_adc": ("beam_gather_adc_kernel",),
+           "beam_gather_hamming": ("beam_gather_hamming_kernel",),
+           "pq_adc": ("pq_adc_",),
+           "hamming": ("::hamming_kernel",),
+           "l2_distance": ("l2_distance_kernel",),
+           "l2_topk": ("l2_topk_kernel",),
+           "slstm": ("slstm_",),
            "slstm_forward": ("slstm_sequence_kernel", "slstm_cluster_kernel"),
-           "slstm_backward": "slstm_backward_kernel"}
+           "slstm_backward": ("slstm_backward_kernel",
+                              "slstm_backward_cluster_kernel")}
+
+
+def is_kernel(parts, name: str) -> bool:
+    """Whether the device event ``name`` is one of the kernels ``parts``
+    (a KERNELS value) names."""
+    return any(p in name for p in parts)
+
+
 # the device kernels of the matrix products (cuBLAS / cuBLASLt / CUTLASS)
 GEMM_PARTS = ("gemm", "nvjet", "xmma", "cutlass")
 
@@ -174,11 +184,12 @@ STEP_KERNEL = {"A": "beam_gather", "C": "beam_gather_adc",
                "D": "beam_gather_hamming"}
 
 
-def step_stats(events, part):
+def step_stats(events, parts):
     """events: one span's device events (start ns, duration ns, name) in
-    start order; part: the step kernel's name part.  The layer-0 steps,
-    each from one launch of the step kernel up to the next."""
-    at = [i for i, (_, _, n) in enumerate(events) if part in n]
+    start order; parts: the step kernel's name parts (a KERNELS value).
+    The layer-0 steps, each from one launch of the step kernel up to the
+    next."""
+    at = [i for i, (_, _, n) in enumerate(events) if is_kernel(parts, n)]
     if len(at) < 2:
         return {}
     steps = [events[a:b] for a, b in zip(at, at[1:])]
@@ -199,7 +210,7 @@ def step_stats(events, part):
 def span_rows(prof, labels, steps=None):
     """Assign the device events to the host spans by start time and print
     one JSON row per span (with `step_stats` for the spans named in
-    ``steps``: span -> step kernel part); returns (device events, summed
+    ``steps``: span -> the step kernel's parts); returns (device events, summed
     device ms)."""
     from torch.autograd import DeviceType
 
@@ -237,13 +248,15 @@ def span_rows(prof, labels, steps=None):
         row = {"span": name, "wall_ms": wall_ms, "device_ms": dev_ms,
                "busy": dev_ms / wall_ms if wall_ms else None,
                "host_ms": wall_ms - dev_ms}
-        for k, part in KERNELS.items():
-            row[f"{k}_ms"] = sum(v for n, v in c.items() if part in n) / 1e6
+        for k, parts in KERNELS.items():
+            row[f"{k}_ms"] = sum(v for n, v in c.items()
+                                 if is_kernel(parts, n)) / 1e6
             row[f"{k}_launches"] = sum(v for n, v in n_span[name].items()
-                                       if part in n)
+                                       if is_kernel(parts, n))
         row["topk_ms"] = sum(v for n, v in c.items()
                              if "topk" in n.lower() and not any(
-                                 part in n for part in KERNELS.values())) / 1e6
+                                 is_kernel(parts, n)
+                                 for parts in KERNELS.values())) / 1e6
         row["top"] = [[n[:80], v / 1e6] for n, v in c.most_common(6)]
         if name in steps:
             row.update(step_stats(in_span[name], steps[name]))
@@ -511,7 +524,7 @@ def profile_xlstm(args) -> int:
         "phase": "F", "tokens": 8 * 2048, "wall_ms": wall,
         "device_ms": device, "busy": device / wall if wall else None,
         "host_ms": wall - device,
-        "slstm_ms": ms(names, lambda n: KERNELS["slstm"] in n),
+        "slstm_ms": ms(names, lambda n: is_kernel(KERNELS["slstm"], n)),
         "slstm_launches": launches,
         "mlstm_chunk_loop_ms": ms(in_loop), "mlstm_chunks": len(chunks),
         "matmul_ms": ms(names, is_gemm),
@@ -795,7 +808,6 @@ def profile_train(args) -> int:
 
         wall = (stepspan[1] - stepspan[0]) / 1e6
         device = ms(names)
-        fwd_kernels = KERNELS["slstm_forward"]
         print(json.dumps({
             "phase": "L", "model": arch, "layers": cfg.n_layers,
             "tokens": b * s, "loss": loss, "wall_ms": wall,
@@ -808,9 +820,11 @@ def profile_train(args) -> int:
             "backward_logits_ce_ms": buckets["backward::logits_ce"] / 1e6,
             "adamw_ms": buckets["adamw"] / 1e6,
             "other_ms": buckets["other"] / 1e6,
-            "b8_ms": ms(names, lambda n: any(k in n for k in fwd_kernels)),
+            "b8_ms": ms(names, functools.partial(
+                is_kernel, KERNELS["slstm_forward"])),
             "b8_launches": b8,
-            "b8t_ms": ms(names, lambda n: KERNELS["slstm_backward"] in n),
+            "b8t_ms": ms(names, functools.partial(
+                is_kernel, KERNELS["slstm_backward"])),
             "b8t_launches": b8t,
             "recompute_spans": len(recomputes),
             "top": [[n[:80], v / 1e6] for n, v in names.most_common(12)]}),

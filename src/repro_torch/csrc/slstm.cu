@@ -82,11 +82,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <initializer_list>
+#include "slstm_common.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
+
+using namespace slstm_dev;
 
 constexpr int kThreads = 256;
 constexpr int kTL = 16;                 // units per tile
@@ -94,19 +96,6 @@ constexpr int kKS = kThreads / kTL;     // k-slices per block
 constexpr int kWarps = kThreads / 32;
 constexpr int kBB = 8;                  // batch rows per pass
 constexpr int kRedFloats = kWarps * 4 * kBB * kTL;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float log_sigmoid(float x) {
-  return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
-}
 
 // what the backward (csrc/slstm_backward.cu) reads of step t: save is (8,
 // B, S, d) f32, fields pre_i, pre_f, pre_z, pre_o, c, n, m, h; `at` is
@@ -293,56 +282,6 @@ constexpr int kCKS = 2 * kCWarps;       // k-slices: 2 a warp (half-warps)
 constexpr int kCMaxBlk = 512;           // 16 blocks a cluster
 constexpr int kCKR = 16;                // k of a slice held in registers
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(b)),
-               "r"(count));
-}
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* b, int parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n.reg .pred P;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2;\n"
-      "selp.b32 %0, 1, 0, P;\n}\n"
-      : "=r"(ok)
-      : "r"(smem_u32(b)), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-// a phase that has not completed in 2^35 clocks (~17 s) is a deadlock:
-// trap, so that the launch fails instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint64_t* b, int parity) {
-  if (mbar_try_wait(b, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(b, parity))
-    if (clock64() - t0 > (1ll << 35)) __trap();
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_u32(b)),
-               "r"(bytes)
-               : "memory");
-}
-// the same shared-memory offset in block `rank` of the cluster
-__device__ __forceinline__ uint32_t peer_u32(uint32_t a, int rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r)
-               : "r"(a), "r"(rank));
-  return r;
-}
-// 16 bytes into a peer's shared memory, completing on the peer's mbarrier
-// (an asynchronous remote store: the issuing thread does not wait for it)
-__device__ __forceinline__ void st_async(uint32_t dst, float4 v,
-                                         uint32_t mbar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32"
-      " [%0], {%1, %2, %3, %4}, [%5];" ::"r"(dst),
-      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(mbar)
-      : "memory");
-}
-
 // floats of shared memory: 4 mbarriers (2 halves x 2 parities, 8 floats),
 // h (2 halves x 2 parities x blk x RB / 2), the staged h of this block (2
 // halves x 32 x RB / 2), the partial sums of a half (16 slices x 4 gates x
@@ -352,26 +291,6 @@ __host__ __device__ constexpr size_t cluster_smem_floats(int blk, int rb,
   return 8 + static_cast<size_t>(2) * blk * rb + kCU * rb
          + static_cast<size_t>(kCKS) * 4 * (rb / 2) * kCU
          + static_cast<size_t>(4) * (blk - kCKS * kr) * kCU;
-}
-
-// a gate's raw bits, loaded at this point of the program (volatile asm
-// keeps the compiler from sinking the load to its first use) through the
-// non-coherent path, and widened to f32 where the cell reads it
-template <typename T> struct Raw { using type = float; };
-template <> struct Raw<__nv_bfloat16> { using type = unsigned short; };
-__device__ __forceinline__ void load_early(float* v, const float* p) {
-  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(*v) : "l"(p));
-}
-__device__ __forceinline__ void load_early(unsigned short* v,
-                                           const __nv_bfloat16* p) {
-  asm volatile("ld.global.nc.u16 %0, [%1];" : "=h"(*v) : "l"(p));
-}
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(unsigned short v) {
-  return __bfloat162float(__ushort_as_bfloat16(v));
-}
-__device__ __forceinline__ void prefetch_l2(const void* p) {
-  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
 }
 
 template <int N>
@@ -634,27 +553,10 @@ template <typename T, int RB, int KR, bool kFloor>
 cudaError_t cluster_config(int cs, int H, int B, int blk,
                            cudaStream_t stream, cudaLaunchConfig_t* cfg,
                            cudaLaunchAttribute* attr, int* active) {
-  auto kernel = slstm_cluster_kernel<T, RB, KR, kFloor>;
-  const size_t smem = cluster_smem_floats(blk, RB, KR) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e == cudaSuccess && cs > 8)
-    e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (e != cudaSuccess) return e;
-  *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3(cs, H, (B + RB - 1) / RB);
-  cfg->blockDim = dim3(kCThreads);
-  cfg->dynamicSmemBytes = smem;
-  cfg->stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = cs;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
-  return cudaOccupancyMaxActiveClusters(active, kernel, cfg);
+  return slstm_dev::cluster_launch_config(
+      slstm_cluster_kernel<T, RB, KR, kFloor>,
+      cluster_smem_floats(blk, RB, KR) * sizeof(float), kCThreads, cs, H, B,
+      RB, stream, cfg, attr, active);
 }
 
 template <typename T, int RB, int KR, bool kFloor>
@@ -677,40 +579,19 @@ cudaError_t cluster_launch(const T* gates, const float* r, const float* b,
 template <typename T, int KR>
 cudaError_t choose_rb(int B, int d, int H, int* info) {
   const int blk = d / H, cs = blk / kCU;
-  int max_smem = 0, dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&max_smem,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return e;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  int best_cost = 0;
-  for (int rb : {8, 4}) {
-    if (cluster_smem_floats(blk, rb, KR) * sizeof(float)
-        > static_cast<size_t>(max_smem))
-      continue;
-    int active = 0;
-    e = rb == 8 ? cluster_config<T, 8, KR, false>(cs, H, B, blk, nullptr,
-                                                  &cfg, &attr, &active)
-                : cluster_config<T, 4, KR, false>(cs, H, B, blk, nullptr,
-                                                  &cfg, &attr, &active);
-    if (e != cudaSuccess) {
-      cudaGetLastError();             // a refused configuration: not this rb
-      continue;
-    }
-    if (active <= 0) continue;
-    const int clusters = H * ((B + rb - 1) / rb);
-    const int cost = (clusters + active - 1) / active * rb;
-    if (best_cost == 0 || cost < best_cost) {
-      best_cost = cost;
-      info[0] = 1;
-      info[1] = rb;
-      info[2] = cs;
-      info[3] = active;
-    }
-  }
-  return cudaSuccess;
+  return slstm_dev::choose_cluster_rows(
+      B, H, cs,
+      [&](int rb, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+          int* active) {
+        return rb == 8 ? cluster_config<T, 8, KR, false>(cs, H, B, blk,
+                                                         nullptr, cfg, attr,
+                                                         active)
+                       : cluster_config<T, 4, KR, false>(cs, H, B, blk,
+                                                         nullptr, cfg, attr,
+                                                         active);
+      },
+      [&](int rb) { return cluster_smem_floats(blk, rb, KR) * sizeof(float); },
+      info);
 }
 
 template <typename T, bool kFloor>

@@ -12,9 +12,14 @@ took: ``"cluster"`` (one thread-block cluster per head and batch-row group,
 R on chip, h through distributed shared memory; every head width that is a
 multiple of 32 up to 512) or ``"l2"`` (the cooperative launch that reads R
 from L2 or shared memory and ends each step with a grid barrier; the other
-widths).  ``backward_launches`` counts the backward kernel's (B8ᵀ).  Each
-is bumped at its launch and nowhere else.  ``last_launch`` holds the last
-forward launch's layout.
+widths).  ``backward_launches`` counts the backward kernel's (B8ᵀ), and
+``backward_path_launches`` splits them the same way: ``"cluster"`` (one
+cluster per head and batch-row group, R on chip, the partial sums of the
+recurrent term through distributed shared memory) for the same widths, the
+head width alone deciding, or ``"l2"`` (the cooperative launch with a grid
+barrier a step).  Each is bumped at its launch and nowhere else.
+``last_launch`` and ``last_backward_launch`` hold the last forward and
+backward launch's layout.
 """
 
 from __future__ import annotations
@@ -31,8 +36,10 @@ launches = 0
 save_launches = 0
 backward_launches = 0
 path_launches = {"cluster": 0, "l2": 0}
+backward_path_launches = {"cluster": 0, "l2": 0}
 # {"path", "rows_per_cluster", "cluster_size", "active_clusters"}
 last_launch: dict = {}
+last_backward_launch: dict = {}
 
 _SYMBOLS = {torch.float32: "slstm_sequence_f32",
             torch.bfloat16: "slstm_sequence_bf16"}
@@ -55,14 +62,27 @@ def _save_fn(dtype: torch.dtype):
 @functools.cache
 def _backward_fn(dtype: torch.dtype):
     return _launch.c_fn(_build.load("slstm_backward"),
-                        f"slstm_backward_{_SUFFIX[dtype]}", n_ptrs=6,
+                        f"slstm_backward_{_SUFFIX[dtype]}", n_ptrs=7,
+                        n_ints=4)
+
+
+# the step floor's entry point in each source
+_FLOOR = {"slstm": "slstm_step_floor",
+          "slstm_backward": "slstm_backward_step_floor"}
+
+
+@functools.cache
+def _floor_fn(source: str):
+    return _launch.c_fn(_build.load(source), _FLOOR[source], n_ptrs=1,
                         n_ints=4)
 
 
 @functools.cache
-def _floor_fn():
-    return _launch.c_fn(_build.load("slstm"), "slstm_step_floor", n_ptrs=1,
-                        n_ints=4)
+def _backward_takes_cluster_fn():
+    fn = _build.load("slstm_backward").slstm_backward_takes_cluster
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _layout(info) -> dict:
@@ -149,9 +169,10 @@ def slstm_backward(dh: torch.Tensor, saved: torch.Tensor, r: torch.Tensor,
     """B8ᵀ: dh (B, S, d) f32 | bf16, the cotangent of h, × saved (8, B, S,
     d) f32 × r (4, H, blk, blk) f32 -> (dgates (B, S, 4d) in dh's dtype,
     dpre (B, S, 4d) f32, the same values before the cast; for f32 the two
-    are one tensor).  One cooperative launch walks t = S-1 .. 0 carrying
-    dc, dn, dm in f32."""
-    global backward_launches
+    are one tensor).  One launch walks t = S-1 .. 0 carrying dc, dn, dm in
+    f32: a cluster launch where the head width d / n_heads is a multiple
+    of 32 up to 512 (the C side's rule), else the cooperative one."""
+    global backward_launches, last_backward_launch
     name = "slstm_backward"
     if dh.dim() != 3 or tuple(saved.shape) != (8, *dh.shape):
         raise ValueError(f"{name}: dh {tuple(dh.shape)}, saved "
@@ -169,15 +190,20 @@ def slstm_backward(dh: torch.Tensor, saved: torch.Tensor, r: torch.Tensor,
         dpre, dtype=dh.dtype)
     if bsz == 0 or s == 0:
         return dgates, dpre
-    # dc, dn, dm carried from step t + 1: each (B, d) f32, written before
-    # it is read
-    carry = torch.empty((3, bsz, d), dtype=torch.float32, device=dh.device)
+    # the l2 path's dc, dn, dm carried from step t + 1: each (B, d) f32,
+    # written before it is read (the cluster path keeps them in registers)
+    carry = (None if _backward_takes_cluster_fn()(d // n_heads) else
+             torch.empty((3, bsz, d), dtype=torch.float32, device=dh.device))
+    info = (ctypes.c_int * 4)()
     _launch.launch(name, _backward_fn(dh.dtype), dh.device, dh.data_ptr(),
                    saved.data_ptr(), r.data_ptr(), dpre.data_ptr(),
                    dgates.data_ptr() if dgates is not dpre else None,
-                   carry.data_ptr(), bsz, s, d, n_heads)
+                   None if carry is None else carry.data_ptr(),
+                   ctypes.addressof(info), bsz, s, d, n_heads)
+    last_backward_launch = _layout(info)
     with _launch.count_lock:
         backward_launches += 1
+        backward_path_launches[last_backward_launch["path"]] += 1
     return dgates, dpre
 
 
@@ -219,7 +245,21 @@ def step_floor(bsz: int, s: int, d: int, n_heads: int,
     not counted in ``launches``): the same clusters doing only the S steps'
     h exchange and cluster barriers, with no product and no cell.  Returns
     the layout; raises where the shape takes the l2 path."""
+    return _step_floor("slstm", bsz, s, d, n_heads, device)
+
+
+def backward_step_floor(bsz: int, s: int, d: int, n_heads: int,
+                        device: torch.device) -> dict:
+    """B8ᵀ's ``step_floor``: its cluster path's launch at this shape doing
+    only the S steps' exchange of partial sums and its waits, with no
+    product and no cell (not counted in ``backward_launches``).  Returns
+    the layout; raises where the width takes the l2 path."""
+    return _step_floor("slstm_backward", bsz, s, d, n_heads, device)
+
+
+def _step_floor(source: str, bsz: int, s: int, d: int, n_heads: int,
+                device: torch.device) -> dict:
     info = (ctypes.c_int * 4)()
-    _launch.launch("slstm_step_floor", _floor_fn(), device,
+    _launch.launch(_FLOOR[source], _floor_fn(source), device,
                    ctypes.addressof(info), bsz, s, d, n_heads)
     return _layout(info)

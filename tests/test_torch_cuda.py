@@ -856,8 +856,13 @@ def test_slstm_backward(cuda, d, h, b, s, dtype):
         np.float32), device=cuda).to(dtype)
     _, saved = slstm_mod.slstm_sequence_save(g, r, bias, n_heads=h)
     before = slstm_mod.backward_launches
+    # head widths 32 (64 / 2) and 512 (2048 / 4) take the cluster path
+    path = "cluster" if (d, h) in {(64, 2), (2048, 4)} else "l2"
+    before_path = slstm_mod.backward_path_launches[path]
     dgates, dpre = slstm_mod.slstm_backward(dy, saved, r, n_heads=h)
     assert slstm_mod.backward_launches == before + 1
+    assert slstm_mod.backward_path_launches[path] == before_path + 1
+    assert slstm_mod.last_backward_launch["path"] == path
     want_g, want_p = ref.slstm_sequence_backward_ref(dy, saved, r, h, dtype)
     torch.cuda.synchronize()
     assert dgates.dtype == dtype and dpre.dtype == torch.float32
@@ -867,6 +872,67 @@ def test_slstm_backward(cuda, d, h, b, s, dtype):
     assert _rel_l2(dgates, want_g) <= SLSTM_GRAD_RTOL[dtype]
     again, _ = slstm_mod.slstm_backward(dy, saved, r, n_heads=h)
     assert torch.equal(again, dgates)
+
+
+def _slstm_backward_case(seed, b, s, d, h, dtype, device):
+    """B8's saved forward and a cotangent N(0, 1) for B8ᵀ: (dy, saved, r)."""
+    g, r, bias = _slstm_inputs(seed, b, s, d, h, dtype, device)
+    dy = torch.as_tensor(np.random.RandomState(seed + 1).randn(b, s, d)
+                         .astype(np.float32), device=device).to(dtype)
+    _, saved = slstm_mod.slstm_sequence_save(g, r, bias, n_heads=h)
+    return dy, saved, r
+
+
+# B8ᵀ's path by head width, as B8's: multiples of 32 up to 512 the cluster
+# path (a cluster of blk / 32 blocks), the others the l2 path; each held to
+# the plain reverse loop
+@pytest.mark.parametrize("d,h,path", [(64, 2, "cluster"), (256, 2, "cluster"),
+                                      (512, 1, "cluster"),
+                                      (2048, 4, "cluster"), (20, 4, "l2"),
+                                      (64, 8, "l2"), (4096, 2, "l2")])
+def test_slstm_backward_path_by_width(cuda, d, h, path):
+    dy, saved, r = _slstm_backward_case(d, 2, 5, d, h, torch.float32, cuda)
+    before = dict(slstm_mod.backward_path_launches)
+    dgates, dpre = slstm_mod.slstm_backward(dy, saved, r, n_heads=h)
+    other = "l2" if path == "cluster" else "cluster"
+    assert slstm_mod.backward_path_launches[path] == before[path] + 1
+    assert slstm_mod.backward_path_launches[other] == before[other]
+    layout = slstm_mod.last_backward_launch
+    assert layout["path"] == path
+    if path == "cluster":
+        assert layout["cluster_size"] == d // h // 32
+    _, want = ref.slstm_sequence_backward_ref(dy, saved, r, h, torch.float32)
+    torch.cuda.synchronize()
+    assert _rel_l2(dpre, want) <= SLSTM_GRAD_RTOL[torch.float32]
+
+
+# xlstm-1.3b's full width on B8ᵀ's cluster path: clusters of 16 blocks,
+# two calls on the same inputs equal bit for bit (the partial sums are
+# added in a fixed order); B = 1 at the full sequence
+@pytest.mark.parametrize("b,s", [(8, 64), (1, 2048)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slstm_backward_full_width_cluster_path(cuda, b, s, dtype):
+    d, h = 2048, 4
+    dy, saved, r = _slstm_backward_case(s + b, b, s, d, h, dtype, cuda)
+    before = dict(slstm_mod.backward_path_launches)
+    dgates, dpre = slstm_mod.slstm_backward(dy, saved, r, n_heads=h)
+    again, again_p = slstm_mod.slstm_backward(dy, saved, r, n_heads=h)
+    assert slstm_mod.backward_path_launches["cluster"] == before["cluster"] + 2
+    assert slstm_mod.backward_path_launches["l2"] == before["l2"]
+    assert slstm_mod.last_backward_launch["cluster_size"] == 16
+    want_g, want_p = ref.slstm_sequence_backward_ref(dy, saved, r, h, dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(dgates, again) and torch.equal(dpre, again_p)
+    assert _rel_l2(dpre, want_p) <= SLSTM_GRAD_RTOL[torch.float32]
+    assert _rel_l2(dgates, want_g) <= SLSTM_GRAD_RTOL[dtype]
+
+
+def test_slstm_backward_step_floor_runs_the_cluster_layout(cuda):
+    layout = slstm_mod.backward_step_floor(8, 16, 2048, 4, cuda)
+    torch.cuda.synchronize()
+    assert layout["path"] == "cluster" and layout["cluster_size"] == 16
+    with pytest.raises(RuntimeError, match="launch failed"):
+        slstm_mod.backward_step_floor(2, 16, 20, 4, cuda)
 
 
 # the whole autograd function: kernel forward + B8ᵀ against the plain
