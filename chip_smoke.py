@@ -3094,10 +3094,62 @@ def _run_qwen2(torch, counters, log):
                                        (PREFILL_B, PROMPT_S), V),
                            device="cuda")
     res.update(lm_agreement(torch, model, cfg32, toks, None, "J"))
+    res["rag"] = rag_run(torch, model, cfg, log)
     del model
     torch.cuda.empty_cache()
     res["yardstick"] = attention_yardstick(torch, cfg, log)
     log({"phase_result": res})
+    return res
+
+
+def rag_run(torch, model, cfg, log):
+    """J's model through ``examples/rag_serve_torch.py``'s flow once at
+    its full size: 512 documents embedded (mean logits, V wide) into a
+    4-shard exact collection on the card, top-3 retrieval for 8 queries,
+    then 8 greedy tokens each after its best document.  Each query's top-3
+    ids and distances are held to ``torch.topk`` over the plain cosine
+    distances of the same embeddings on the card (TF32 off), ties aside,
+    at B5's tolerance (RTOL + ATOL_PER_NORM, the rows unit)."""
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    import rag_serve_torch as rag
+    from repro_torch.core.distances import normalize
+    from repro_torch.kernels import ref
+
+    t0 = time.perf_counter()
+    out = rag.rag_flow(cfg, model, device=torch.device("cuda"),
+                       log=lambda *_: None)
+    gen = out["generated"]
+    check(len(out["retrieved"]) == rag.N_QUERIES and all(
+        len(r) == rag.TOP_K and all(i.startswith("doc-") for i in r)
+        for r in out["retrieved"]), f"J rag: retrieved {out['retrieved']}")
+    check(gen.shape == (rag.N_QUERIES, rag.GEN_TOKENS)
+          and 0 <= gen.min() and gen.max() < cfg.vocab_size,
+          f"J rag: generated {gen.tolist()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    plain = 1.0 + ref.dot_distance_ref(
+        normalize(torch.as_tensor(out["query_emb"], device="cuda")),
+        normalize(torch.as_tensor(out["doc_emb"], device="cuda")))
+    want_d, want_i = torch.topk(plain, rag.TOP_K, dim=1, largest=False)
+    got_i = torch.tensor([[int(i.split("-")[1]) for i in row]
+                          for row in out["retrieved"]], device="cuda")
+    got_d = torch.tensor(out["scores"], device="cuda")
+    at = plain.gather(1, got_i)
+    err = (got_d - at).abs()
+    agree, differ = ids_agree(torch, got_i, want_i, want_d,
+                              RTOL * want_d.abs() + ATOL_PER_NORM)
+    check(bool((err <= RTOL * at.abs() + ATOL_PER_NORM).all()) and agree,
+          f"J rag: the top-{rag.TOP_K} differ from torch.topk over the "
+          f"plain distances beyond ties and tolerance (max err "
+          f"{float(err.max())}, {differ} ids differ)")
+    res = {"docs": rag.N_DOCS, "doc_len": rag.DOC_LEN,
+           "dim": cfg.vocab_size, "shards": out["shards"],
+           "retrieved_first": out["retrieved"][0],
+           "max_abs_err_vs_plain": float(err.max()),
+           "ids_differ_from_plain": differ,
+           "retrieve_s": out["retrieve_s"],
+           "generated_first_row": gen[0].tolist(),
+           "seconds": time.perf_counter() - t0}
+    log({"qwen2": "rag", **res})
     return res
 
 
@@ -3390,8 +3442,19 @@ def run_training(torch, counters, log):
           f"L1: slstm_backward launched "
           f"{res['launches']['slstm_backward']} times")
     res["L1"] = l1
-    model = out["state"].model
-    del out
+    # the placed state at world 1 on a (1, 1) mesh: every tensor whole
+    from repro_torch.models.model import placement_summary
+    st = out["state"]
+    pl = st.model.placement
+    res["placement"] = {**placement_summary(st.model, st.opt),
+                        "collectives": dict(pl.counts)}
+    check(res["placement"]["param_bytes"]
+          == res["placement"]["whole_param_bytes"]
+          and res["placement"]["sharded_tensors"] == 0,
+          f"L1: the (1, 1) placement holds {res['placement']}")
+    log({"placement": "L1 " + XLSTM, **res["placement"]})
+    model = st.model
+    del out, st
     torch.cuda.empty_cache()
     res["L1"].update(grad_check(torch, model, cfg, log))
     del model

@@ -3,4 +3,5 @@ sharding policy of the train step (``ShardingPolicy``,
 ``make_train_shardings``)."""
 
 from .search import make_flat_search, make_hamming_search, make_pq_search
-from .sharding import ShardingPolicy, make_train_shardings, placements
+from .sharding import (Placement, ShardingPolicy, make_train_shardings,
+                       placements)

@@ -8,8 +8,7 @@ backward."""
 
 from .config import ModelConfig
 from .convert import (decay_mask, from_numpy_params, leaf_groups,
-                      to_numpy_params, train_state_from_numpy,
-                      train_state_to_numpy)
+                      to_numpy_params, train_state_to_numpy)
 from .model import (DecodeState, Model, decode_step, embed_tokens, encode,
                     forward, init_decode_state, init_params,
                     logits_from_hidden, precompute_cross_kv)
@@ -23,5 +22,4 @@ __all__ = ["DecodeState", "MOE_AUX_WEIGHT", "Model", "ModelConfig",
            "init_decode_state", "init_params", "init_train_state",
            "leaf_groups", "logits_from_hidden", "make_loss_fn",
            "make_serve_step", "make_train_step", "precompute_cross_kv",
-           "to_numpy_params", "train_state_from_numpy",
-           "train_state_to_numpy"]
+           "to_numpy_params", "train_state_to_numpy"]

@@ -83,25 +83,43 @@ def apply_block_train(p: Block, x: torch.Tensor, cfg: ModelConfig,
                       causal: bool = True,
                       enc_out: Optional[torch.Tensor] = None,
                       enc_pos: Optional[torch.Tensor] = None,
-                      force_ref: bool = False
+                      force_ref: bool = False, tp=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (x, aux loss); only the MoE blocks have an aux loss.
-    ``force_ref`` runs an sLSTM layer's plain recurrence."""
+    ``force_ref`` runs an sLSTM layer's plain recurrence.  ``tp``: the
+    block's ``ModelParallel`` on a placed model, whose ``attn`` / ``cross``
+    / ``mlp`` sub-blocks then run on this rank's heads or d_ff slice (their
+    parameters read as those slices), summed over ``model``."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.apply_norm(p.norm1, x, cfg)
     if block_type in ATTN_BLOCKS:
-        x = x + L.attention_full(p.attn, h, cfg, positions, causal=causal,
-                                 window=block_window(cfg, block_type))
+        window = block_window(cfg, block_type)
+        if tp is not None and tp.attn:
+            x = x + tp.reduce(L.attention_full(
+                p.attn, tp.copy(h), tp.cfg, positions, causal=causal,
+                window=window))
+        else:
+            x = x + L.attention_full(p.attn, h, cfg, positions,
+                                     causal=causal, window=window)
         if hasattr(p, "cross") and enc_out is not None:
             h = L.apply_norm(p.cross_norm, x, cfg)
-            kv = _cross_kv(p.cross, enc_out, cfg, enc_pos)
-            x = x + L.attention_full(p.cross, h, cfg, positions,
-                                     causal=False, window=0, kv_override=kv)
+            if tp is not None and tp.cross:
+                kv = _cross_kv(p.cross, tp.copy(enc_out), tp.cfg, enc_pos)
+                x = x + tp.reduce(L.attention_full(
+                    p.cross, tp.copy(h), tp.cfg, positions, causal=False,
+                    window=0, kv_override=kv))
+            else:
+                kv = _cross_kv(p.cross, enc_out, cfg, enc_pos)
+                x = x + L.attention_full(p.cross, h, cfg, positions,
+                                         causal=False, window=0,
+                                         kv_override=kv)
         h = L.apply_norm(p.norm2, x, cfg)
         if block_type.endswith("moe"):
             delta, aux = L.apply_moe(p.moe, h, cfg)
             return x + delta, aux
-        return x + L.apply_mlp(p.mlp, h, cfg), aux
+        return x + L.apply_mlp(p.mlp, h, cfg,
+                               tp=tp if tp is not None and tp.mlp
+                               else None), aux
     if block_type == "rglru":
         x = x + R.apply_rglru(p.rglru, h, cfg)
         h = L.apply_norm(p.norm2, x, cfg)

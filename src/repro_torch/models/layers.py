@@ -416,13 +416,23 @@ class MLP(nn.Module):
                     getattr(self, name).zero_()
 
 
-def apply_mlp(p: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def apply_mlp(p: MLP, x: torch.Tensor, cfg: ModelConfig,
+              tp=None) -> torch.Tensor:
+    """``tp`` (a ``ModelParallel``): ``wg`` / ``wu`` / ``bu`` / ``wd`` read
+    as this rank's slice of d_ff; the down product's partial sums are
+    summed over ``model`` before ``bd``."""
     dt = x.dtype
+    if tp is not None:
+        x = tp.copy(x)
     if cfg.mlp_type in ("swiglu", "geglu"):
         h = _act(cfg)(x @ p.wg.to(dt)) * (x @ p.wu.to(dt))
-        return h @ p.wd.to(dt)
+        out = h @ p.wd.to(dt)
+        return out if tp is None else tp.reduce(out)
     h = F.gelu(x @ p.wu.to(dt) + p.bu.to(dt), approximate="tanh")
-    return h @ p.wd.to(dt) + p.bd.to(dt)
+    out = h @ p.wd.to(dt)
+    if tp is not None:
+        out = tp.reduce(out)
+    return out + p.bd.to(dt)
 
 
 # ---------------------------------------------------------------------------

@@ -266,8 +266,9 @@ def _mlstm_qkv_gates(p: MLSTM, x: torch.Tensor, cfg: ModelConfig):
     k = _head_proj(c, p.w_k).transpose(1, 2) / (dk ** 0.5)
     v = _head_proj(u, p.w_v).transpose(1, 2)
     cf = c.float()
-    log_i = (cf @ p.w_i + p.b_i).transpose(1, 2)             # (B,H,S)
-    log_f = F.logsigmoid(cf @ p.w_f + p.b_f).transpose(1, 2)
+    # fp32 products, a bf16-cast weight promoted (as jnp promotes it)
+    log_i = (cf @ p.w_i.float() + p.b_i).transpose(1, 2)     # (B,H,S)
+    log_f = F.logsigmoid(cf @ p.w_f.float() + p.b_f).transpose(1, 2)
     return q, k, v, log_i, log_f, z
 
 

@@ -84,7 +84,8 @@ def _data_parallel_loss(model: Model, batch: Dict[str, torch.Tensor],
 
 def _average_grads(grads: Dict[str, Optional[torch.Tensor]], group) -> None:
     """Every gradient averaged over ``group``, in place (one all_reduce a
-    dtype over the flattened gradients)."""
+    dtype over the flattened gradients): the replicated model's data
+    parallelism (a placed model's backward reduces its own)."""
     world = dist.get_world_size(group)
     by_dtype: Dict[torch.dtype, list] = {}
     for g in grads.values():
@@ -112,8 +113,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *,
     reference leaf, error feedback ``ef``) before the update, as the
     reference's ``--grad-compress`` step.  ``group``: a process group whose
     ranks each hold a slice of the global batch; the loss is the global
-    masked mean and every gradient is averaged over the ranks before it is
-    clipped (the parameters stay replicated)."""
+    masked mean.  On a placed model (``model.placement``) the backward
+    reduce-scatters each gradient to the rank's block (``Placement``), the
+    compression's scales and the clipping norm are the whole gradient's
+    (a max and a sum over the mesh), and AdamW updates the blocks; on a
+    replicated one every gradient is averaged over ``group`` (after the
+    compression, each rank's own, as before) before it is clipped."""
     loss_fn = make_loss_fn(cfg)
     masks: list = []     # (decay, leaves): the same for every model of cfg
 
@@ -123,6 +128,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *,
         if not masks:
             masks.extend((decay_mask(model), leaf_groups(model)))
         decay, leaves = masks
+        placement = getattr(model, "placement", None)
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
@@ -139,11 +145,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *,
         for p in params.values():
             p.grad = None
         if compress:
-            grads, ef = compress_decompress(grads, ef, leaves=leaves)
-        if group is not None:
+            grads, ef = compress_decompress(grads, ef, leaves=leaves,
+                                            placement=placement)
+        norm = None
+        if placement is not None:
+            norm = placement.global_norm(grads)
+        elif group is not None:
             _average_grads(grads, group)
         _, opt, gnorm = adamw.apply_updates(params, grads, state.opt,
-                                            opt_cfg, decay=decay)
+                                            opt_cfg, decay=decay, norm=norm)
         metrics = {"ce": ce.detach(), "aux": aux.detach(),
                    "loss": loss.detach(), "grad_norm": gnorm,
                    "step": opt.step.to(torch.float32)}
@@ -154,11 +164,18 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *,
 
 
 def init_train_state(cfg: ModelConfig, *, generator: torch.Generator,
-                     device="cuda") -> TrainState:
+                     device="cuda", placement_of=None) -> TrainState:
     """Random weights from ``generator`` (``init_params``) and zero AdamW
-    moments, on ``device``."""
-    from .model import init_params
-    model = init_params(cfg, generator=generator, device=device)
+    moments, on ``device``.  With ``placement_of`` (model -> its
+    ``Placement``) the state is placed: each rank holds its blocks only,
+    cut from ``init_params``' values as each piece is drawn
+    (``init_params_placed``)."""
+    from .model import init_params, init_params_placed
+    if placement_of is None:
+        model = init_params(cfg, generator=generator, device=device)
+    else:
+        model = init_params_placed(cfg, generator=generator,
+                                   placement_of=placement_of, device=device)
     return TrainState(model=model,
                       opt=adamw.init(dict(model.named_parameters())))
 

@@ -83,26 +83,45 @@ def init(params: Mapping[str, torch.Tensor]) -> AdamWState:
                       v={k: zeros(p) for k, p in params.items()})
 
 
+# elements whose squares ``square_sum`` adds at a time (a 128 MiB f64 copy)
+_SQUARE_CHUNK = 1 << 24
+
+
+def square_sum(t: torch.Tensor) -> torch.Tensor:
+    """Σ t² as a 0-d f64 tensor.  Each f32 square is exact in f64, and the
+    sum carries 29 bits more than f32, so the order of its terms (a whole
+    tensor, or its blocks summed over a mesh) reaches the f32 norm only
+    where the sum lies within those bits of an f32 rounding boundary."""
+    total = torch.zeros((), dtype=torch.float64, device=t.device)
+    for part in t.detach().reshape(-1).split(_SQUARE_CHUNK):
+        total += part.double().square().sum()
+    return total
+
+
 def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of every element's square, in f32."""
-    sq = [t.float().square().sum() for t in tree.values()]
-    return torch.sqrt(torch.stack(sq).sum())
+    """sqrt of the sum of every element's square (summed in f64,
+    ``square_sum``), as f32."""
+    return torch.sqrt(torch.stack([square_sum(t)
+                                   for t in tree.values()]).sum()).float()
 
 
 def apply_updates(params: Mapping[str, torch.Tensor],
                   grads: Mapping[str, Optional[torch.Tensor]],
                   state: AdamWState, cfg: AdamWConfig, *,
-                  decay: Mapping[str, bool]
+                  decay: Mapping[str, bool],
+                  norm: Optional[torch.Tensor] = None
                   ) -> Tuple[Params, AdamWState, torch.Tensor]:
     """One AdamW step, in place: the new values are written into the given
     parameters, m and v (the fp32 master weights and both moments are not
     held twice).  Returns (those parameters, the state with the new step,
-    grad norm).  A missing gradient (None) is a zero one."""
+    grad norm).  A missing gradient (None) is a zero one.  ``norm``: the
+    whole gradient's global norm where ``grads`` are a rank's blocks of it
+    (``Placement.global_norm``); by default ``global_norm(grads)``."""
     with torch.no_grad():
         grads = {k: torch.zeros_like(p) if grads.get(k) is None else grads[k]
                  for k, p in params.items()}
         sched = make_schedule(cfg)
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads) if norm is None else norm
         scale = None
         if cfg.grad_clip_norm is not None:
             scale = torch.clamp_max(cfg.grad_clip_norm / (gnorm + 1e-9), 1.0)

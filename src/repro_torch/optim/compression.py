@@ -12,7 +12,10 @@ One scale per reference leaf: the reference quantizes each leaf of its own
 tree, whose scanned units stack a parameter of every unit along a leading
 ``n_units`` axis, so the port's per-layer tensors of one stacked leaf share
 one scale (``leaves``: name -> the reference leaf it belongs to,
-``models.convert.leaf_groups``).
+``models.convert.leaf_groups``).  On a placed state each rank holds blocks
+of the gradient and of the error feedback (placed like their parameter):
+a leaf's scale is then its largest |value| over the mesh, one all-reduce
+(max) of every leaf's local maximum.
 """
 
 from __future__ import annotations
@@ -58,17 +61,23 @@ def _groups(keys, leaves: Mapping[str, str]) -> Dict[str, list]:
 
 def compress_decompress(grads: Mapping[str, torch.Tensor],
                         ef: Mapping[str, torch.Tensor], *,
-                        leaves: Mapping[str, str]) -> Tuple[Params, Params]:
+                        leaves: Mapping[str, str],
+                        placement=None) -> Tuple[Params, Params]:
     """int8 round trip with error feedback, in place: the dequantized grads
     (what the receiving side applies) are written into the given f32
     ``grads``, the new error feedback (what the wire dropped) into ``ef``
-    (neither is held twice).  Returns (grads, ef)."""
+    (neither is held twice).  Returns (grads, ef).  ``placement``: the
+    ``Placement`` whose blocks ``grads`` and ``ef`` are."""
     with torch.no_grad():
-        for members in _groups(grads, leaves).values():
-            # the leaf's scale first, one tensor's target at a time
-            scale = leaf_scale(torch.stack(
-                [(grads[k].float() + ef[k]).abs().max() for k in members])
-                .max())
+        groups = list(_groups(grads, leaves).values())
+        # each leaf's scale first, one tensor's target at a time
+        maxima = torch.stack([torch.stack(
+            [(grads[k].float() + ef[k]).abs().max() for k in members])
+            .max() for members in groups])
+        if placement is not None:
+            placement.all_max(maxima)
+        for members, mx in zip(groups, maxima):
+            scale = leaf_scale(mx)
             for k in members:
                 target = grads[k].float() + ef[k]
                 codes, _ = quantize_leaf(target, scale)
