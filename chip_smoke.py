@@ -124,7 +124,19 @@ them sharded, behind the HTTP server), the distributed search through
            resume from the step-2 generation through ``ckpt_dir`` at 2 of
            its 28 layers (printed under ``reduced``: a generation of the
            full depth would be 17.2 GiB on disk).  The serving phases F, J and K run under
-           ``torch.no_grad()``.
+           ``torch.no_grad()``;
+  phase N  the dry run (``repro_torch.launch.dryrun``), in child processes
+           on the host's CPU, started once phase 1's kernel rows are timed
+           (niced, on the upper half of the cores this process may use)
+           and run beside phases A-L: qwen2-1.5b and
+           xlstm-1.3b at every shape on the single-pod production mesh
+           (16 x 16, a fake process group, meta tensors), base and opt, and
+           the six quantixar-db cells, every record ok or the reference's
+           skip; its peak for phase L2's own cell (8 x 2,048 at a (1, 1)
+           mesh) beside L2's measured ``max_memory_allocated``, their ratio
+           within ``N_PEAK_RATIO``; and in J, J's greedy decode through
+           ``make_serve_step`` on the model placed at a (1, 1) mesh from a
+           decode state placed by the serve specs: J's ids.
 
 Every phase must pass and every kernel of its path must have launched, or
 the script exits non-zero.  The exact scans of phases A-E (delta segment,
@@ -2902,15 +2914,19 @@ def lm_prefill(torch, model, cfg, toks, frames, tag, counters=None):
     return out
 
 
-def lm_generate(torch, model, cfg, prompts, gen_tokens, enc_out, tag):
+def lm_generate(torch, model, cfg, prompts, gen_tokens, enc_out, tag,
+                state=None):
     """The greedy serve step: the prompt teacher-forced, then gen_tokens
-    generated.  Returns ({prompt / decode ms per step, ...}, ids)."""
+    generated, from ``state`` (default a new one).  Returns ({prompt /
+    decode ms per step, ...}, ids)."""
     from repro_torch.models import init_decode_state, make_serve_step
 
     b, prompt_s = prompts.shape
     serve = make_serve_step(cfg)
-    state = init_decode_state(cfg, b, prompt_s + gen_tokens, enc_out=enc_out,
-                              params=model, device="cuda")
+    if state is None:
+        state = init_decode_state(cfg, b, prompt_s + gen_tokens,
+                                  enc_out=enc_out, params=model,
+                                  device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for t in range(prompt_s):
@@ -3086,6 +3102,8 @@ def _run_qwen2(torch, counters, log):
     res["launches"] = counters.read()
     check(torch.equal(ids["ragged"], ids["uniform"]),
           "J: ragged and uniform decode generated other ids")
+    res["placed_decode"] = placed_decode(torch, model, cfg, prompts,
+                                         ids["ragged"], log)
     res["decode_ms_per_step"] = res["decode_ms_per_step_ragged"]
     res["generated_first_row"] = ids["ragged"][0].tolist()
     log({"qwen2": "serve", **res})
@@ -3099,6 +3117,36 @@ def _run_qwen2(torch, counters, log):
     torch.cuda.empty_cache()
     res["yardstick"] = attention_yardstick(torch, cfg, log)
     log({"phase_result": res})
+    return res
+
+
+def placed_decode(torch, model, cfg, prompts, want_ids, log):
+    """Phase N (iii): J's greedy decode through ``make_serve_step`` on the
+    model placed at a (1, 1) mesh (``models.convert.placement``, bound for
+    the call) from a decode state placed by the policy's serve specs
+    (``place_decode_state``): the same ids as the unplaced decode."""
+    from repro_torch.distributed.sharding import ShardingPolicy
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import init_decode_state, place_decode_state
+    from repro_torch.models.convert import placement
+
+    mesh = make_local_mesh(1, 1, device="cuda")
+    pl = placement(model, ShardingPolicy(mesh))
+    pl.bind(model)
+    try:
+        b, prompt_s = prompts.shape
+        state = place_decode_state(init_decode_state(
+            cfg, b, prompt_s + GEN_TOKENS, device="cuda"), cfg, pl)
+        out, ids = lm_generate(torch, model, cfg, prompts, GEN_TOKENS, None,
+                               "N placed decode", state=state)
+    finally:
+        del model.placement
+    res = {"mesh": dict(pl.sizes), "seq_shards": max(state.seq_shards),
+           "ids_equal_unplaced": bool(torch.equal(ids, want_ids)), **out,
+           "collectives": dict(pl.counts)}
+    check(res["ids_equal_unplaced"],
+          "N: the placed (1, 1) decode generated other ids than J's")
+    log({"placed_decode": "N " + QWEN2, **res})
     return res
 
 
@@ -3504,6 +3552,101 @@ def run_training(torch, counters, log):
     return res
 
 
+# phase N: the dry run (``repro_torch.launch.dryrun``) on the host's CPU
+# beside phases A-L: these archs at every shape on the single-pod
+# production mesh, base and opt, and the six quantixar-db cells
+N_ARCHS = ("qwen2-1.5b", "xlstm-1.3b")
+N_CELLS = 4 * len(N_ARCHS) + 6
+# phase L2's own cell for the dry run's peak (L2's settings, a (1, 1) mesh)
+N_L2_CELL = {"arch": QWEN2, "kind": "train", "batch": TRAIN_B,
+             "seq": TRAIN_S, "mesh": [1, 1], "variant": "base"}
+# the card's peak over the dry run's for the same cell
+N_PEAK_RATIO = (0.8, 1.2)
+
+
+def start_dryrun():
+    """Phase N's child processes, started now: the dry run of N_ARCHS and
+    the db cells on ``pod16x16`` in each variant (into OUT_DIR/dryrun),
+    and its prediction of phase L2's cell.  {name: (process, log path)}.
+    They run niced, on the upper half of the cores this process may use
+    (the lower half is left to the phases' own host work)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cpus = sorted(os.sched_getaffinity(0))
+    upper = cpus[len(cpus) // 2:] or cpus
+
+    def below():
+        os.nice(10)
+        os.sched_setaffinity(0, upper)
+    base = [sys.executable, "-W", "ignore", "-m", "repro_torch.launch.dryrun"]
+    cmds = {v: base + ["--arch", ",".join(N_ARCHS), "--mesh", "single",
+                       "--db", "--variant", v,
+                       "--out", os.path.join(OUT_DIR, "dryrun")]
+            for v in ("base", "opt")}
+    cmds["L2"] = base + ["--predict", json.dumps(N_L2_CELL)]
+    procs = {}
+    for name, cmd in cmds.items():
+        path = os.path.join(OUT_DIR, f"dryrun_{name}.log")
+        with open(path, "w") as f:
+            procs[name] = (subprocess.Popen(cmd, stdout=f,
+                                            stderr=subprocess.STDOUT,
+                                            env=env, cwd=ROOT,
+                                            preexec_fn=below), path)
+    return procs
+
+
+def stop_dryrun(procs) -> None:
+    for p, _ in procs.values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def run_dryrun(procs, l2, counters, log):
+    """Phase N (i) and (ii): wait for the dry run, hold every record of
+    its cells to ok or the reference's skip, and print its peak for L2's
+    cell beside the card's (``l2``: phase L2's result).  The dry run runs
+    on meta tensors in its own processes: this process's kernels launch no
+    time (``launches``, read around the wait)."""
+    counters.reset()
+    t0 = time.perf_counter()
+    codes = {name: p.wait() for name, (p, _) in procs.items()}
+    res = {"phase": "N", "wait_s": time.perf_counter() - t0,
+           "exit_codes": codes, "cells": {}, "launches": counters.read()}
+    for name in ("base", "opt"):
+        with open(procs[name][1]) as f:
+            tail = f.read().splitlines()[-3:]
+        check(codes[name] == 0, f"N: the dry run ({name}) exited "
+              f"{codes[name]}: {tail}")
+    tag_dir = os.path.join(OUT_DIR, "dryrun", "pod16x16")
+    for fn in sorted(os.listdir(tag_dir)):
+        with open(os.path.join(tag_dir, fn)) as f:
+            rec = json.load(f)
+        check(rec.get("ok") is True, f"N: {fn}: {rec.get('error')}")
+        res["cells"][rec["cell"]] = (
+            {"skipped": rec["skipped"]} if "skipped" in rec else
+            {k: rec.get(k) for k in ("peak_gib", "fits_80gb", "wall_s",
+                                     "aten_flops", "kernel_operations",
+                                     "model_flops")}
+            | {"collective_bytes": sum(rec["collectives"].get(k, 0) for k in
+                                       ("gather_bytes", "reduce_bytes"))})
+    check(len(res["cells"]) == 2 * N_CELLS,
+          f"N: {len(res['cells'])} dry-run records, not {2 * N_CELLS}")
+    with open(procs["L2"][1]) as f:
+        pred = json.loads(f.read().strip().splitlines()[-1])
+    check(pred.get("ok") is True, f"N: L2's cell: {pred.get('error')}")
+    ratio = l2["peak_gib"] / pred["peak_gib"]
+    res["L2_peak"] = {"card_gib": l2["peak_gib"],
+                      "dryrun_gib": pred["peak_gib"], "ratio": ratio,
+                      "dryrun_wall_s": pred["wall_s"],
+                      "dryrun_state_and_input_gib":
+                      pred["state_and_input_bytes"] / 2**30}
+    log({"dryrun_peak": "N L2 " + QWEN2, **res["L2_peak"]})
+    check(N_PEAK_RATIO[0] <= ratio <= N_PEAK_RATIO[1],
+          f"N: L2's card peak over the dry run's {ratio}")
+    log({"phase_result": res})
+    return res
+
+
 class Counters:
     """The kernels' launch counters, read as deltas since the last reset."""
 
@@ -3562,6 +3705,7 @@ def main(argv) -> int:
     t_start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
+    dryrun = {}     # phase N's child processes, once phase 1 is timed
     try:
         from repro_torch.data.synthetic import fashion_mnist_like, sift_like
         from repro_torch.kernels import _build
@@ -3633,6 +3777,7 @@ def main(argv) -> int:
                                  default=float))
             print(card)
             return 0
+        dryrun.update(start_dryrun())
         topk_k_sweep(torch, sift_cos, sift_raw, log)
         small_topk_sweep(torch, {"raw": sift_raw, "unit": sift_cos,
                                  "signs": signs}, log)
@@ -3670,10 +3815,12 @@ def main(argv) -> int:
         phase["J"] = run_qwen2(torch, counters, log)
         phase["K"] = run_families(torch, counters, log)
         phase["L"] = run_training(torch, counters, log)
+        phase["N"] = run_dryrun(dryrun, phase["L"]["L2"], counters, log)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     finally:
+        stop_dryrun(dryrun)
         log_f.close()
         import torch.distributed as dist
         if dist.is_initialized():       # phases I and L's world-1 group
@@ -3813,7 +3960,7 @@ def main(argv) -> int:
            for p in phase.values() if p["phase"] in "ABCD"},
         **{p: {k: v for k, v in phase[p].items()
                if k != "launches" and k not in ROW_KEYS}
-           for p in ("E", "F", "G", "H", "I", "J", "K", "L")}}
+           for p in ("E", "F", "G", "H", "I", "J", "K", "L", "N")}}
     print(json.dumps({"summary": summary}, default=float))
     print(card)
     print(json.dumps({"kernels": kernels}, default=float))

@@ -148,7 +148,9 @@ def flat_search(queries: torch.Tensor, corpus: torch.Tensor, k: int,
       (distances (Q,k) ascending, indices (Q,k) int32).
     """
     kk = min(k, corpus.shape[0])
-    if corpus.device.type == "cuda" and takes_fused(
+    # the meta device (the dry run's) takes the card's route, through the
+    # kernel's meta branch
+    if corpus.device.type in ("cuda", "meta") and takes_fused(
             metric, queries.shape[0], corpus.shape[0], k):
         if metric == "cosine":
             queries = normalize(queries)

@@ -23,6 +23,14 @@ reduce-scatters each gradient over the batch axes that split the batch,
 the FSDP of the reference's GSPMD program.  A weight sharded over
 ``model`` is gathered whole as well: every rank of a ``model`` group runs
 its unit on the whole weight, and keeps its own slice of the gradient.
+
+Serving runs on the same placement: ``models.model.decode_step`` gathers
+each unit as a train step does, and ``models.model.place_decode_state``
+cuts the decode state by ``serve_state_spec`` (rows over the batch axes;
+with ``shard_cache_seq`` each KV cache's slots over ``model``, whose
+attention ``SeqShard`` merges).  With ``sequence_parallel`` a train
+step's residual stream holds each ``model`` rank's slice of the sequence
+(``SeqParallel``).
 """
 
 from __future__ import annotations
@@ -182,6 +190,17 @@ class ShardingPolicy:
                     lambda _, spec: placements(spec, self.mesh))
 
     # -------------------------------------------------- decode/serve state
+    def serve_spec_tree(self, tree):
+        """The serve spec of every leaf of a decode state tree in the
+        reference's layout (``models.model.decode_state_shapes``)."""
+        return _map(tree, lambda path, leaf: self.serve_state_spec(
+            path, _shape(leaf)))
+
+    def serve_sharding_tree(self, tree):
+        """Each decode-state leaf's placements on the policy's mesh."""
+        return _map(self.serve_spec_tree(tree),
+                    lambda _, spec: placements(spec, self.mesh))
+
     def serve_state_spec(self, path: str, shape: Tuple[int, ...]) -> Spec:
         """Decode state: batch dim over the batch axes; stacked-unit leaves
         have the batch at dim 1 (dim 0 is the scanned unit axis)."""
@@ -361,8 +380,16 @@ class Placement:
         return list(_GatherUnit.apply(self, names, tuple(cast), modes,
                                       *params))
 
-    def model_parallel(self, cfg_local) -> "ModelParallel":
-        return ModelParallel(self, cfg_local)
+    def model_parallel(self, cfg_local, seq=None) -> "ModelParallel":
+        return ModelParallel(self, cfg_local, seq)
+
+    def seq_parallel(self) -> "SeqParallel":
+        """The sequence parallelism of a train step over ``model``."""
+        return SeqParallel(self)
+
+    def seq_shard(self) -> "SeqShard":
+        """A decode attention over a KV cache split over ``model``."""
+        return SeqShard(self)
 
     def global_norm(self, grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """sqrt of the sum of every element's square over the whole
@@ -508,18 +535,25 @@ class ModelParallel:
     entering column-parallel products (identity forward; its gradient, a
     partial sum on each rank, all-reduced), ``reduce`` sums a
     row-parallel product's partial outputs over the ranks (in fp32; the
-    backward passes the whole gradient on).  ``cfg`` is the block's config
-    on this rank's heads; ``attn`` / ``cross`` / ``mlp`` say which
-    sub-blocks run on their slices."""
+    backward passes the whole gradient on).  Under sequence parallelism
+    (``seq``) the pair is Megatron-SP's: ``copy`` all-gathers the
+    sequence (its backward reduce-scatters) and ``reduce`` reduce-scatters
+    it (its backward all-gathers).  ``cfg`` is the block's config on this
+    rank's heads; ``attn`` / ``cross`` / ``mlp`` say which sub-blocks run
+    on their slices."""
 
-    def __init__(self, pl: Placement, cfg_local):
-        self.pl, self.cfg = pl, cfg_local
+    def __init__(self, pl: Placement, cfg_local, seq=None):
+        self.pl, self.cfg, self.seq = pl, cfg_local, seq
         self.attn = self.cross = self.mlp = False
 
     def copy(self, x: torch.Tensor) -> torch.Tensor:
+        if self.seq is not None:
+            return self.seq.gather(x)
         return _CopyToModel.apply(x, self.pl)
 
     def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        if self.seq is not None:
+            return self.seq.scatter(x)
         return _ReduceFromModel.apply(x, self.pl)
 
 
@@ -550,3 +584,118 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism (train) and the sequence-split KV cache (decode)
+# ---------------------------------------------------------------------------
+
+class SeqParallel:
+    """Megatron-SP over ``model`` for a train step: between blocks each
+    ``model`` rank holds its slice of the sequence (dim 1), block ``index``
+    of ``n``.  ``gather`` all-gathers the slices (the backward
+    reduce-scatters the gradient, summing the ranks' partial ones);
+    ``scatter`` reduce-scatters partial sums to this rank's slice, in fp32
+    (the backward all-gathers); ``keep`` is this rank's slice of a tensor
+    every rank holds whole (a plain narrow)."""
+
+    def __init__(self, pl: Placement):
+        self.pl = pl
+        self.n = pl.sizes["model"]
+        self.index = pl._coord()["model"]
+
+    def bounds(self, s: int) -> Tuple[int, int]:
+        """(start, length) of this rank's slice of a sequence of ``s``."""
+        if s % self.n:
+            raise ValueError(f"sequence_parallel: S = {s} does not split "
+                             f"over {self.n} model ranks")
+        per = s // self.n
+        return self.index * per, per
+
+    def keep(self, x: torch.Tensor) -> torch.Tensor:
+        return x.narrow(1, *self.bounds(x.shape[1]))
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        return _SeqGather.apply(x, self.pl)
+
+    def scatter(self, x: torch.Tensor) -> torch.Tensor:
+        return _SeqScatter.apply(x, self.pl)
+
+
+def _seq_all_gather(x: torch.Tensor, pl: Placement) -> torch.Tensor:
+    """(B, s, ...) slices -> (B, n·s, ...) in rank order."""
+    n = pl.sizes["model"]
+    flat = x.contiguous().reshape(-1)
+    buf = torch.empty(n * flat.numel(), dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(buf, flat, group=pl.group("model"))
+    pl.counts["all_gather"] += 1
+    pl.counts["gather_bytes"] += flat.numel() * flat.element_size()
+    out = buf.view(n, *x.shape).movedim(0, 1)
+    return out.reshape(x.shape[0], n * x.shape[1], *x.shape[2:])
+
+
+def _seq_reduce_scatter(x: torch.Tensor, pl: Placement) -> torch.Tensor:
+    """(B, S, ...) partial sums -> this rank's (B, S / n, ...) of their sum
+    over ``model``, summed in fp32."""
+    n = pl.sizes["model"]
+    b, s = x.shape[:2]
+    parts = x.float().reshape(b, n, s // n, *x.shape[2:]).movedim(1, 0)
+    flat = parts.contiguous().reshape(-1)
+    out = torch.empty(flat.numel() // n, dtype=flat.dtype, device=x.device)
+    dist.reduce_scatter_tensor(out, flat, group=pl.group("model"))
+    pl.counts["reduce_scatter"] += 1
+    pl.counts["reduce_bytes"] += flat.numel() * flat.element_size()
+    return out.view(b, s // n, *x.shape[2:]).to(x.dtype)
+
+
+class _SeqGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pl):
+        ctx.pl = pl
+        return _seq_all_gather(x, pl)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq_reduce_scatter(g, ctx.pl), None
+
+
+class _SeqScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pl):
+        ctx.pl = pl
+        return _seq_reduce_scatter(x, pl)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq_all_gather(g, ctx.pl), None
+
+
+class SeqShard:
+    """Decode attention over a KV cache whose slots are split over
+    ``model`` (``shard_cache_seq``): this rank holds block ``index`` of
+    ``n``.  ``softmax_pv`` merges the ranks' partial softmax: the scores'
+    max over every rank (an all-reduce), then the sums of exp and the
+    weighted sums of V under that max (one all-reduce, fp32)."""
+
+    def __init__(self, pl: Placement):
+        self.pl = pl
+        self.n = pl.sizes["model"]
+        self.index = pl._coord()["model"]
+
+    def softmax_pv(self, sc: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """sc (B, nkv, g, 1, T_local) fp32 scores, v (B, T_local, nkv, dh)
+        -> (B, 1, nkv, g, dh) in v's dtype: softmax(sc) · v over every
+        rank's slots."""
+        group = self.pl.group("model")
+        m = sc.amax(-1, keepdim=True)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        pexp = torch.exp(sc - m)
+        l = pexp.sum(-1)                                 # (B, nkv, g, 1)
+        acc = torch.einsum("bngst,btnh->bsngh", pexp.to(v.dtype), v).float()
+        flat = torch.cat([l.reshape(-1), acc.reshape(-1)])
+        dist.all_reduce(flat, group=group)
+        self.pl.counts["all_reduce"] += 2
+        self.pl.counts["reduce_bytes"] += (m.numel() + flat.numel()) * 4
+        l = flat[:l.numel()].view(l.shape)
+        acc = flat[l.numel():].view(acc.shape)
+        return (acc / l.permute(0, 3, 1, 2)[..., None]).to(v.dtype)

@@ -4,11 +4,18 @@ A tensor on the CPU takes the kernel's plain version (``ref.py``); a tensor
 on a card launches the CUDA kernel, or raises: there is no environment
 switch and no fallback.  ``force_ref=True`` asks for the plain version
 explicitly, which only the tests and ``chip_smoke.py``'s comparison do.
+
+A tensor on the meta device (the dry run's abstract state) takes the meta
+branch of the kernels the dry run reaches (B5's two entries, B6, B7, B8 and
+its backward B8ᵀ): it returns empty outputs of the kernel's shapes and
+dtypes, launches nothing, and adds the kernel's operations (the formula of
+its bound in ``chip_smoke.py``) to ``meta_operations``, which a flop
+counter cannot see.  Any other device raises.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -24,12 +31,44 @@ from .hamming import hamming
 from .l2 import l2_distance
 from .l2 import l2_topk as _l2_topk
 from .pq_adc import pq_adc
-from .slstm import SLSTMSequence
+from .slstm import SLSTMSequence, slstm_meta as _slstm_meta
 from .slstm import slstm_sequence as _slstm_sequence
 
 
+#: {kernel: operations} of the meta branch's calls in this process (read
+#: and reset by the dry run)
+meta_operations: Dict[str, float] = {}
+
+
 def _plain(t: torch.Tensor, force_ref: bool) -> bool:
-    return force_ref or t.device.type == "cpu"
+    """Whether the call takes the plain version: on the CPU or under
+    ``force_ref``; False on a card; any other device raises (``_meta``
+    first where the kernel has a meta branch)."""
+    dev = t.device.type
+    if force_ref or dev == "cpu":
+        return True
+    if dev != "cuda":
+        raise ValueError(f"no kernel for a tensor on {t.device}")
+    return False
+
+
+def count_meta(name: str, operations: float) -> None:
+    meta_operations[name] = meta_operations.get(name, 0.0) + operations
+
+
+def _meta(name: str, operations: float, *outs):
+    """The meta branch: ``outs`` ((shape, dtype) each) as meta tensors, the
+    kernel's operations counted."""
+    count_meta(name, operations)
+    made = tuple(torch.empty(shape, dtype=dt, device="meta")
+                 for shape, dt in outs)
+    return made if len(made) > 1 else made[0]
+
+
+def _flat_operations(nq: int, n: int, d: int, mode: str) -> float:
+    """B5's products and epilogue (``chip_smoke.l2_distance_row``)."""
+    other = 2 * (nq + n) * d + 3 * nq * n if mode == "l2" else nq * n
+    return 2.0 * nq * n * d + other
 
 
 def beam_gather_distances(q: torch.Tensor, ids: torch.Tensor,
@@ -110,6 +149,9 @@ def beam_gather_hamming_masked(q: torch.Tensor, ids: torch.Tensor,
 def pq_adc_distances(lut: torch.Tensor, codes: torch.Tensor, *,
                      force_ref: bool = False) -> torch.Tensor:
     """lut (Q, m, k) × codes (N, m) -> (Q, N) float32: the PQ flat scan."""
+    if codes.device.type == "meta" and not force_ref:
+        nq, (n, m) = lut.shape[0], codes.shape
+        return _meta("pq_adc", float(nq * n * m), ((nq, n), torch.float32))
     if _plain(codes, force_ref):
         return ref.pq_adc_ref(lut, codes)
     return pq_adc(lut.float().contiguous(), codes)
@@ -118,6 +160,9 @@ def pq_adc_distances(lut: torch.Tensor, codes: torch.Tensor, *,
 def hamming_distances(q: torch.Tensor, x: torch.Tensor, *,
                       force_ref: bool = False) -> torch.Tensor:
     """q (Q, W) × x (N, W) int32 words -> (Q, N) int32: the BQ flat scan."""
+    if x.device.type == "meta" and not force_ref:
+        nq, (n, w) = q.shape[0], x.shape
+        return _meta("hamming", float(nq * n * w), ((nq, n), torch.int32))
     if _plain(x, force_ref):
         return ref.hamming_ref(q, x)
     return hamming(q.contiguous(), x)
@@ -127,6 +172,10 @@ def l2_distances(q: torch.Tensor, x: torch.Tensor, *,
                  force_ref: bool = False) -> torch.Tensor:
     """q (Q, D) × x (N, D) -> (Q, N) float32 squared L2, clamped at 0: the
     exact scan (flat index, flat route, delta segment)."""
+    if x.device.type == "meta" and not force_ref:
+        return _meta("l2_distance",
+                     _flat_operations(q.shape[0], *x.shape, "l2"),
+                     ((q.shape[0], x.shape[0]), torch.float32))
     if _plain(x, force_ref):
         return ref.l2_distance_ref(q, x)
     return l2_distance(q.float().contiguous(), x.float().contiguous(),
@@ -137,6 +186,10 @@ def dot_distances(q: torch.Tensor, x: torch.Tensor, *,
                   force_ref: bool = False) -> torch.Tensor:
     """q (Q, D) × x (N, D) -> (Q, N) float32 −q·x: the exact scan under
     dot and cosine (on normalized rows)."""
+    if x.device.type == "meta" and not force_ref:
+        return _meta("l2_distance",
+                     _flat_operations(q.shape[0], *x.shape, "dot"),
+                     ((q.shape[0], x.shape[0]), torch.float32))
     if _plain(x, force_ref):
         return ref.dot_distance_ref(q, x)
     return l2_distance(q.float().contiguous(), x.float().contiguous(),
@@ -150,6 +203,11 @@ def l2_topk(q: torch.Tensor, x: torch.Tensor, k: int, *, mode: str,
     (l2 | dot | cosine = 1.0 + dot), rows where ``mask`` is False at +inf:
     (distances (Q, k) ascending, int64 columns (Q, k)), ties to the lowest
     column.  The exact scan on the card, without the (Q, N) matrix."""
+    if x.device.type == "meta" and not force_ref:
+        kk = min(k, x.shape[0])
+        return _meta("l2_topk", _flat_operations(q.shape[0], *x.shape, mode),
+                     ((q.shape[0], kk), torch.float32),
+                     ((q.shape[0], kk), torch.int64))
     if _plain(x, force_ref):
         return ref.l2_topk_ref(q, x, k, mode, mask)
     return _l2_topk(q.float().contiguous(), x.float().contiguous(), k,
@@ -165,14 +223,20 @@ def slstm_sequence(gates_x: torch.Tensor, r: torch.Tensor, b: torch.Tensor,
     goes through ``SLSTMSequence``: B8's saving entry forward and B8ᵀ
     backward on the card, the plain forward and reverse loop on the CPU or
     under ``force_ref``; otherwise B8's serving entry (or its plain
-    version), which stores nothing for a backward."""
-    plain = _plain(gates_x, force_ref)
+    version), which stores nothing for a backward.  On the meta device,
+    B8's (and under grad B8ᵀ's) meta branch."""
+    if gates_x.device.type == "meta" and not force_ref:
+        plain = None
+    else:
+        plain = _plain(gates_x, force_ref)
     if torch.is_grad_enabled() and (gates_x.requires_grad or r.requires_grad
                                     or b.requires_grad):
         if not plain:
             gates_x = gates_x.contiguous()
             r, b = r.float().contiguous(), b.float().contiguous()
         return SLSTMSequence.apply(gates_x, r, b, n_heads, plain)
+    if plain is None:
+        return _slstm_meta(gates_x, n_heads, save=False)[0]
     if plain:
         return ref.slstm_sequence_ref(gates_x, r, b, n_heads)
     return _slstm_sequence(gates_x.contiguous(), r.float().contiguous(),

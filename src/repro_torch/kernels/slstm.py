@@ -207,16 +207,53 @@ def slstm_backward(dh: torch.Tensor, saved: torch.Tensor, r: torch.Tensor,
     return dgates, dpre
 
 
+def operations(bsz: int, s: int, d: int, n_heads: int) -> float:
+    """B8's (and B8ᵀ's) operations: the recurrent product of every step,
+    2 · B · S · 4d · blk (the formula of their bound in
+    ``chip_smoke.py``)."""
+    return 2.0 * bsz * s * 4 * d * (d // n_heads)
+
+
+def slstm_meta(gates_x: torch.Tensor, n_heads: int, save: bool):
+    """B8's meta branch: (h, saved) of the kernel's shapes and dtypes on the
+    meta device (saved (8, B, S, d) f32 where ``save``, as the saving entry
+    writes it), its operations counted in ``ops.meta_operations``; no
+    launch."""
+    from .ops import count_meta
+    bsz, s, d4 = gates_x.shape
+    d = d4 // 4
+    count_meta("slstm", operations(bsz, s, d, n_heads))
+    h = torch.empty((bsz, s, d), dtype=gates_x.dtype, device="meta")
+    saved = torch.empty((8, bsz, s, d) if save else (0,),
+                        dtype=torch.float32, device="meta")
+    return h, saved
+
+
+def slstm_backward_meta(dh: torch.Tensor, n_heads: int):
+    """B8ᵀ's meta branch: (dgates, dpre) of the kernel's shapes and dtypes
+    on the meta device, its operations counted; no launch."""
+    from .ops import count_meta
+    bsz, s, d = dh.shape
+    count_meta("slstm_backward", operations(bsz, s, d, n_heads))
+    dpre = torch.empty((bsz, s, 4 * d), dtype=torch.float32, device="meta")
+    dgates = dpre if dh.dtype == torch.float32 else torch.empty_like(
+        dpre, dtype=dh.dtype)
+    return dgates, dpre
+
+
 class SLSTMSequence(torch.autograd.Function):
     """h = the sLSTM sequence of (gates_x, r, b), differentiable in all
     three.  ``plain`` (CPU tensors, or ``force_ref``) runs the plain forward
-    and reverse loop of ``ref.py``; otherwise B8's saving entry forward and
-    B8ᵀ backward, which raise on a failed build or launch.  dr and db are
-    one product and one sum over the saved h and dpre after either."""
+    and reverse loop of ``ref.py``; None (meta tensors) B8's and B8ᵀ's meta
+    branches; otherwise B8's saving entry forward and B8ᵀ backward, which
+    raise on a failed build or launch.  dr and db are one product and one
+    sum over the saved h and dpre after any of them."""
 
     @staticmethod
-    def forward(ctx, gates_x, r, b, n_heads: int, plain: bool):
-        if plain:
+    def forward(ctx, gates_x, r, b, n_heads: int, plain):
+        if plain is None:
+            h, saved = slstm_meta(gates_x, n_heads, save=True)
+        elif plain:
             h, saved = ref.slstm_sequence_save_ref(gates_x, r, b, n_heads)
         else:
             h, saved = slstm_sequence_save(gates_x, r, b, n_heads=n_heads)
@@ -227,7 +264,9 @@ class SLSTMSequence(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dh):
         r, saved = ctx.saved_tensors
-        if ctx.plain:
+        if ctx.plain is None:
+            dgates, dpre = slstm_backward_meta(dh, ctx.n_heads)
+        elif ctx.plain:
             dgates, dpre = ref.slstm_sequence_backward_ref(
                 dh, saved, r, ctx.n_heads, ctx.dtype)
         else:

@@ -37,7 +37,6 @@ card anything but ``--device cpu`` raises).
 from __future__ import annotations
 
 import argparse
-import math
 import time
 from typing import Dict, Optional
 
@@ -107,26 +106,14 @@ def _batch_rows(mesh, policy: ShardingPolicy, global_batch: int) -> slice:
     return slice(idx * per, (idx + 1) * per)
 
 
-def _batch_group(mesh, policy: ShardingPolicy):
-    """The process group the batch is split over: the batch axis's, the
-    whole world where the batch axes are every axis of size above 1, else
-    the ranks that share this rank's coordinates on the other axes (one
-    ``new_group`` for each such set, made by every rank)."""
-    if len(policy.batch_axes) == 1:
-        return mesh.get_group(policy.batch_axes[0])
+def _batch_groups(mesh, policy: ShardingPolicy) -> tuple:
+    """The process groups the batch is split over: one a batch axis of
+    size above 1, in the mesh's axis order.  A sum over the batch is a sum
+    over each in turn, the order in which a placed model's backward sums
+    its gradients (``sharding._reduce_grads``)."""
     sizes = mesh_axis_sizes(mesh)
-    if all(sizes[ax] == 1 for ax in sizes if ax not in policy.batch_axes):
-        return dist.group.WORLD
-    names = list(mesh.mesh_dim_names)
-    keep = [names.index(a) for a in policy.batch_axes]
-    n = math.prod(sizes[a] for a in policy.batch_axes)
-    ranks = mesh.mesh.movedim(keep, list(range(len(keep)))).reshape(n, -1)
-    mine = None
-    for col in ranks.T.tolist():
-        g = dist.new_group(col)
-        if dist.get_rank() in col:
-            mine = g
-    return mine
+    return tuple(mesh.get_group(a) for a in mesh.mesh_dim_names
+                 if a in policy.batch_axes and sizes[a] > 1)
 
 
 def opt_config(steps: int, lr: float) -> AdamWConfig:
@@ -153,10 +140,14 @@ def train(cfg: ModelConfig, *, steps: int, global_batch: int, seq_len: int,
           ckpt_dir: Optional[str] = None, checkpoint_every: int = 0,
           mesh=None, lr: float = 3e-4, log_every: int = 1,
           simulate_failure_at: int = -1, seed: int = 0,
-          grad_compress: bool = False, device="cuda") -> dict:
+          grad_compress: bool = False, device="cuda",
+          policy: Optional[ShardingPolicy] = None) -> dict:
     """Train ``cfg`` for ``steps`` steps of ``global_batch`` x ``seq_len``
-    tokens.  Returns {"metrics": [{"step", "loss", "grad_norm"}, ...],
-    "seconds", "final_loss", "start_step", "state"}."""
+    tokens.  ``policy``: the sharding policy on ``mesh`` (default
+    ``ShardingPolicy(mesh)``; the dry run's cells pass theirs, e.g.
+    ``dp_only`` or ``head_proj_model_only``).  Returns {"metrics":
+    [{"step", "loss", "grad_norm"}, ...], "seconds", "final_loss",
+    "start_step", "state"}."""
     dev = resolve_device(device)
     if mesh is None:
         world = dist.get_world_size() if dist.is_initialized() else 1
@@ -164,13 +155,16 @@ def train(cfg: ModelConfig, *, steps: int, global_batch: int, seq_len: int,
     if mesh.device_type != dev.type:
         raise ValueError(f"a {mesh.device_type} mesh for a train state on "
                          f"{dev}")
-    policy = ShardingPolicy(mesh)
+    if policy is None:
+        policy = ShardingPolicy(mesh)
+    elif policy.mesh is not mesh:
+        raise ValueError("the policy is for another mesh")
     rows = _batch_rows(mesh, policy, global_batch)
     split = rows != slice(0, global_batch)
-    group = _batch_group(mesh, policy) if split else None
+    groups = _batch_groups(mesh, policy) if split else None
     opt_cfg = opt_config(steps, lr)
     step_fn = make_train_step(cfg, opt_cfg, compress=grad_compress,
-                              group=group)
+                              groups=groups)
     store = CheckpointStore(ckpt_dir) if ckpt_dir else None
     writer = dist.get_rank() == 0
 

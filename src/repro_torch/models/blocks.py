@@ -83,13 +83,18 @@ def apply_block_train(p: Block, x: torch.Tensor, cfg: ModelConfig,
                       causal: bool = True,
                       enc_out: Optional[torch.Tensor] = None,
                       enc_pos: Optional[torch.Tensor] = None,
-                      force_ref: bool = False, tp=None
+                      force_ref: bool = False, tp=None, sp=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (x, aux loss); only the MoE blocks have an aux loss.
     ``force_ref`` runs an sLSTM layer's plain recurrence.  ``tp``: the
     block's ``ModelParallel`` on a placed model, whose ``attn`` / ``cross``
     / ``mlp`` sub-blocks then run on this rank's heads or d_ff slice (their
-    parameters read as those slices), summed over ``model``."""
+    parameters read as those slices), summed over ``model``.  ``sp``: the
+    step's ``SeqParallel``, where ``x`` is this rank's slice of the
+    sequence: a tensor-parallel sub-block gathers and reduce-scatters the
+    sequence (``tp`` carries the pair), any other sub-block runs on the
+    gathered sequence and keeps its slice; norms and residual adds run on
+    the slice.  ``positions`` are the whole sequence's."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.apply_norm(p.norm1, x, cfg)
     if block_type in ATTN_BLOCKS:
@@ -99,8 +104,8 @@ def apply_block_train(p: Block, x: torch.Tensor, cfg: ModelConfig,
                 p.attn, tp.copy(h), tp.cfg, positions, causal=causal,
                 window=window))
         else:
-            x = x + L.attention_full(p.attn, h, cfg, positions,
-                                     causal=causal, window=window)
+            x = x + _whole_seq(sp, lambda t: L.attention_full(
+                p.attn, t, cfg, positions, causal=causal, window=window), h)
         if hasattr(p, "cross") and enc_out is not None:
             h = L.apply_norm(p.cross_norm, x, cfg)
             if tp is not None and tp.cross:
@@ -115,18 +120,35 @@ def apply_block_train(p: Block, x: torch.Tensor, cfg: ModelConfig,
                                          kv_override=kv)
         h = L.apply_norm(p.norm2, x, cfg)
         if block_type.endswith("moe"):
-            delta, aux = L.apply_moe(p.moe, h, cfg)
+            delta, aux = _whole_seq(sp, lambda t: L.apply_moe(p.moe, t, cfg),
+                                    h)
             return x + delta, aux
-        return x + L.apply_mlp(p.mlp, h, cfg,
-                               tp=tp if tp is not None and tp.mlp
-                               else None), aux
+        if tp is not None and tp.mlp:
+            return x + L.apply_mlp(p.mlp, h, cfg, tp=tp), aux
+        return x + _whole_seq(sp, lambda t: L.apply_mlp(p.mlp, t, cfg),
+                              h), aux
     if block_type == "rglru":
-        x = x + R.apply_rglru(p.rglru, h, cfg)
+        x = x + _whole_seq(sp, lambda t: R.apply_rglru(p.rglru, t, cfg), h)
         h = L.apply_norm(p.norm2, x, cfg)
-        return x + L.apply_mlp(p.mlp, h, cfg), aux
+        return x + _whole_seq(sp, lambda t: L.apply_mlp(p.mlp, t, cfg),
+                              h), aux
     if block_type == "mlstm":
-        return x + R.apply_mlstm(p.mlstm, h, cfg), aux
-    return x + R.apply_slstm(p.slstm, h, cfg, force_ref=force_ref), aux
+        return x + _whole_seq(sp, lambda t: R.apply_mlstm(p.mlstm, t, cfg),
+                              h), aux
+    return x + _whole_seq(sp, lambda t: R.apply_slstm(
+        p.slstm, t, cfg, force_ref=force_ref), h), aux
+
+
+def _whole_seq(sp, fn, h: torch.Tensor):
+    """``fn(h)``; under sequence parallelism (``sp``) ``fn`` of the whole
+    sequence (``h`` gathered over ``model``) and this rank's slice of its
+    output (the first of a tuple's)."""
+    if sp is None:
+        return fn(h)
+    out = fn(sp.gather(h))
+    if isinstance(out, tuple):
+        return (sp.keep(out[0]),) + tuple(out[1:])
+    return sp.keep(out)
 
 
 def _cross_kv(p_attn: L.Attention, enc_out: torch.Tensor, cfg: ModelConfig,
@@ -176,16 +198,20 @@ def block_state_init(cfg: ModelConfig, block_type: str, batch: int,
 def apply_block_decode(p: Block, x_t: torch.Tensor, state: Any,
                        pos: torch.Tensor, cfg: ModelConfig, block_type: str,
                        cross_kv: Optional[Tuple[torch.Tensor,
-                                                torch.Tensor]] = None
-                       ) -> Tuple[torch.Tensor, Any]:
+                                                torch.Tensor]] = None,
+                       tp=None, seq=None) -> Tuple[torch.Tensor, Any]:
     """x_t (B, 1, d); pos (B,). Returns (x_t, new_state).  A windowed
-    block whose cache holds no more than its window uses it as a ring."""
+    block whose cache holds no more than its window uses it as a ring.
+    ``tp``: the block's ``ModelParallel`` on a placed model (its dense MLP
+    on this rank's slice of d_ff); ``seq``: the ``SeqShard`` of a cache
+    whose slots are split over ``model``."""
     h = L.apply_norm(p.norm1, x_t, cfg)
     if block_type in ATTN_BLOCKS:
         w = block_window(cfg, block_type)
-        ring = w > 0 and state.k.shape[1] <= w
+        n_seq = 1 if seq is None else seq.n
+        ring = w > 0 and state.k.shape[1] * n_seq <= w
         attn, ck, cv = L.attention_decode(p.attn, h, state.k, state.v, pos,
-                                          cfg, window=w, ring=ring)
+                                          cfg, window=w, ring=ring, seq=seq)
         x_t = x_t + attn
         if hasattr(p, "cross") and cross_kv is not None:
             h = L.apply_norm(p.cross_norm, x_t, cfg)
@@ -194,7 +220,8 @@ def apply_block_decode(p: Block, x_t: torch.Tensor, state: Any,
         if block_type.endswith("moe"):
             delta, _ = L.apply_moe(p.moe, h, cfg)
         else:
-            delta = L.apply_mlp(p.mlp, h, cfg)
+            delta = L.apply_mlp(p.mlp, h, cfg,
+                                tp=tp if tp is not None and tp.mlp else None)
         return x_t + delta, KVCache(k=ck, v=cv)
     if block_type == "rglru":
         delta, new_r = R.apply_rglru_decode(p.rglru, h[:, 0], state, cfg)

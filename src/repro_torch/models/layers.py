@@ -46,8 +46,13 @@ def _param(shape, device) -> nn.Parameter:
 
 
 def constrain_batch(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The JAX package pins the batch dim to mesh axes here; the port runs
-    on one device, so this is the identity."""
+    """The JAX package pins the batch dim to the mesh's batch axes here
+    (and with ``sequence_parallel`` the sequence dim to ``model``) for
+    GSPMD to follow.  The port places by hand: each rank is given its rows
+    of the batch (``launch.train``), and under sequence parallelism
+    ``forward`` cuts the residual stream to the rank's slice of the
+    sequence once, after the embedding (``sharding.SeqParallel``).  So the
+    tensor here already has its place, and this is the identity."""
     return x
 
 
@@ -328,39 +333,52 @@ def _extent_attention(qg, k, v, q_pos, k_pos, window, chunk):
 
 
 def _cache_write(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor,
-                 uniform: bool) -> torch.Tensor:
+                 uniform: bool, offset: int = 0,
+                 total: Optional[int] = None) -> torch.Tensor:
     """cache (B, S, nkv, dh) with row b's slot[b] replaced by new[b] (a new
     tensor, as the reference's functional update).  Ragged: a slot past the
     end writes nothing (the reference's scatter drops it).  Uniform: every
     row writes slot[0], clamped into [0, S-1] (the reference's
-    ``dynamic_update_slice`` clamps its start)."""
-    b, s_cache = cache.shape[:2]
+    ``dynamic_update_slice`` clamps its start).  A cache split over ranks
+    holds slots [offset, offset + S) of ``total``: a slot elsewhere writes
+    nothing here."""
+    b, s_local = cache.shape[:2]
     if uniform:
-        slot = torch.clamp(slot[:1], 0, s_cache - 1).expand(b)
-    hit = torch.arange(s_cache, device=cache.device)[None, :] == slot[:, None]
+        slot = torch.clamp(slot[:1], 0, (total or s_local) - 1).expand(b)
+    hit = (torch.arange(s_local, device=cache.device)[None, :] + offset
+           == slot[:, None])
     return torch.where(hit[:, :, None, None], new[:, None].to(cache.dtype),
                        cache)
 
 
 def attention_decode(p: Attention, x: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, pos: torch.Tensor,
-                     cfg: ModelConfig, *, window: int = 0, ring: bool = False
+                     cfg: ModelConfig, *, window: int = 0, ring: bool = False,
+                     seq=None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token decode with a KV cache.  x (B, 1, d); cache_k/v (B,
     S_cache, nkv, dh); pos (B,) int the current positions.  ``ring=True``
     uses the cache as a circular window buffer (slot pos % S_cache).
-    Returns (out (B, 1, d), new cache_k, new cache_v)."""
+    Returns (out (B, 1, d), new cache_k, new cache_v).
+
+    ``seq`` (a ``SeqShard``): the cache's slots are split over ``seq.n``
+    ranks and this one holds block ``seq.index``; the new token's K/V is
+    written only by the rank that holds its slot, each rank scores its
+    slots, and ``seq.softmax_pv`` merges the ranks' partial softmax sums
+    (the flash-decode merge)."""
     b = x.shape[0]
     nq, nkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = nq // nkv
-    s_cache = cache_k.shape[1]
+    s_local = cache_k.shape[1]
+    n_seq, index = (1, 0) if seq is None else (seq.n, seq.index)
+    s_cache, off = s_local * n_seq, index * s_local
     q, k_new, v_new = _project_qkv(p, x, cfg, pos[:, None])
     slot = torch.remainder(pos, s_cache) if ring else pos
     uniform = cfg.decode_pos_mode == "uniform"
-    cache_k = _cache_write(cache_k, k_new[:, 0], slot, uniform)
-    cache_v = _cache_write(cache_v, v_new[:, 0], slot, uniform)
+    cache_k = _cache_write(cache_k, k_new[:, 0], slot, uniform, off, s_cache)
+    cache_v = _cache_write(cache_v, v_new[:, 0], slot, uniform, off, s_cache)
 
-    idx = torch.arange(s_cache, device=x.device)[None, :]
+    idx = torch.arange(off, off + s_local, device=x.device)[None, :]
     pcol = pos[:, None].long()
     if ring:
         # slot i holds absolute position pos - ((pos - i) mod S); valid if
@@ -379,8 +397,11 @@ def attention_decode(p: Attention, x: torch.Tensor, cache_k: torch.Tensor,
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     sc = sc + torch.where(valid, zero, torch.full_like(zero, NEG_INF))[
         :, None, None, None, :]
-    w = torch.softmax(sc, dim=-1).to(q.dtype)
-    out = torch.einsum("bngst,btnh->bsngh", w, cache_v.to(q.dtype))
+    if seq is None:
+        w = torch.softmax(sc, dim=-1).to(q.dtype)
+        out = torch.einsum("bngst,btnh->bsngh", w, cache_v.to(q.dtype))
+    else:
+        out = seq.softmax_pv(sc, cache_v.to(q.dtype))
     out = out.reshape(b, 1, nq * dh) @ p.wo.to(x.dtype)
     return out, cache_k, cache_v
 

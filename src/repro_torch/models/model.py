@@ -23,7 +23,22 @@ biases stay fp32, the fp32 masters stay the parameters), and on a placed
 model (``model.placement``, as ``launch.train.train`` makes it) the unit's
 blocks gathered over the mesh, after that cast.  The root's tensors (embed,
 head, the final norms) and the tail's are gathered uncast, as the reference
-casts only its scanned units.
+casts only its scanned units.  ``decode_step`` on a placed model gathers
+each unit's weights the same way (its dense MLPs tensor-parallel, its
+attention whole) and reads a decode state placed by ``place_decode_state``:
+each rank holds its rows of every leaf and, with ``shard_cache_seq``, its
+slots of each KV cache, whose attention the ``model`` ranks merge
+(``sharding.SeqShard``).  With ``sequence_parallel`` on a placed model
+whose ``model`` axis is above 1, the residual stream of a train step holds
+this rank's slice of the sequence between blocks (``sharding.SeqParallel``:
+Megatron's all-gather / reduce-scatter pair in place of the
+tensor-parallel copy / sum; blocks without tensor parallelism gather the
+sequence and keep their slice), and ``forward`` returns that slice's
+logits.
+
+``abstract_params`` and ``abstract_decode_state`` build the model and the
+decode state on the meta device (the dry run's): shapes and dtypes, no
+storage.
 """
 
 from __future__ import annotations
@@ -114,6 +129,12 @@ class Model(nn.Module):
                        remat=remat)
 
 
+def abstract_params(cfg: ModelConfig) -> Model:
+    """The model on the meta device: every parameter's shape and dtype, no
+    storage (the dry run's; ``init_params_placed`` fills a meta model)."""
+    return Model(cfg, "meta")
+
+
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                 device="cuda") -> Model:
     """A model with random weights drawn from ``generator`` (which must live
@@ -177,25 +198,28 @@ _TP_SLICES = {"attn": {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "bq": 0, "bk": 0,
 _TP_PARTIAL = {"attn": ("q_norm", "k_norm"), "cross": ("q_norm", "k_norm")}
 
 
-def _tp_plan(block, cfg: ModelConfig, placement):
+def _tp_plan(block, cfg: ModelConfig, placement, subs=None, seq=None):
     """(the block's ``ModelParallel``, the parameters kept as their model
     slices, those whose gradient is a partial sum over ``model``), or None
     where the block runs whole on every model rank.  An attention block's
     attention (self and cross) runs on this rank's heads when the heads
     split evenly and the spec shards each product as Megatron's pair needs;
     its dense MLP on this rank's slice of d_ff likewise.  MoE, RG-LRU and
-    the xLSTM blocks gather their tensors whole."""
+    the xLSTM blocks gather their tensors whole.  ``subs``: the sub-blocks
+    that may run tensor-parallel (default all; decode takes the MLP only);
+    ``seq``: the ``SeqParallel`` of a sequence-parallel step."""
     m = placement.sizes.get("model", 1)
     if m == 1 or getattr(block, "block_type", None) not in B.ATTN_BLOCKS:
         return None
     heads = cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0
     tp = placement.model_parallel(cfg.with_overrides(
         n_heads=cfg.n_heads // m, n_kv_heads=cfg.n_kv_heads // m,
-        d_head=cfg.head_dim))
+        d_head=cfg.head_dim), seq=seq)
     local, partial = set(), set()
     for sub, dims in _TP_SLICES.items():
         mod = getattr(block, sub, None)
-        if mod is None or (sub != "mlp" and not heads):
+        if mod is None or (sub != "mlp" and not heads) or (
+                subs is not None and sub not in subs):
             continue
         params = {k: p for k, p in mod._parameters.items() if p is not None}
         if not all(placement.shard_dims(placement.name_of(p)).get("model")
@@ -211,13 +235,17 @@ def _tp_plan(block, cfg: ModelConfig, placement):
 
 
 @contextlib.contextmanager
-def computing_weights(modules, cfg: ModelConfig, placement, cast: bool):
+def computing_weights(modules, cfg: ModelConfig, placement, cast: bool, *,
+                      tp_subs=None, seq=None):
     """Within the block, each parameter of ``modules`` (their own and
     their sub-modules') reads as the tensor the unit computes with: cast
     where ``cast`` and ``_cast_dtype`` say, and on a placed model gathered
     whole, or over ``data`` only where a tensor-parallel product takes its
-    ``model`` slice (``_tp_plan``).  Differentiable back to the
-    parameters.  Yields {id(module): its ``ModelParallel``} for the modules
+    ``model`` slice (``_tp_plan``, restricted to the sub-blocks
+    ``tp_subs``).  Differentiable back to the parameters: under ``seq`` (a
+    sequence-parallel step) every tensor read whole computes on this
+    rank's slice of the sequence, so its gradient is a partial sum over
+    ``model``.  Yields {id(module): its ``ModelParallel``} for the modules
     that run tensor-parallel."""
     slots = [(m, k, p) for mod in modules for m in mod.modules()
              for k, p in m._parameters.items() if p is not None]
@@ -226,12 +254,14 @@ def computing_weights(modules, cfg: ModelConfig, placement, cast: bool):
     if placement is not None and not placement.trivial:
         local, partial = set(), set()
         for mod in modules:
-            plan = _tp_plan(mod, cfg, placement)
+            plan = _tp_plan(mod, cfg, placement, tp_subs, seq)
             if plan is not None:
                 plans[id(mod)] = plan[0]
                 local |= plan[1]
                 partial |= plan[2]
         params = [p for _, _, p in slots]
+        if seq is not None:
+            partial = {id(p) for p in params} - local
         new = placement.gather(params, dtypes,
                                local=[id(p) in local for p in params],
                                partial=[id(p) in partial for p in params])
@@ -308,19 +338,21 @@ def _apply_unit(blocks, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, causal: bool,
                 enc_out: Optional[torch.Tensor],
                 enc_pos: Optional[torch.Tensor], force_ref: bool,
-                placement=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                placement=None, seq=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One pattern unit: (x, the unit's aux loss), on the weights the unit
     computes with (``computing_weights``: gathered and cast here, so a
     recompute in the backward gathers them again)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = L.constrain_batch(x, cfg)
-    with computing_weights(blocks, cfg, placement, cast=True) as tps:
+    with computing_weights(blocks, cfg, placement, cast=True,
+                           seq=seq) as tps:
         for blk in blocks:
             x, a = B.apply_block_train(blk, x, cfg, blk.block_type,
                                        positions, causal=causal,
                                        enc_out=enc_out, enc_pos=enc_pos,
                                        force_ref=force_ref,
-                                       tp=tps.get(id(blk)))
+                                       tp=tps.get(id(blk)), sp=seq)
             x = L.constrain_batch(x, cfg)
             aux = aux + a
     return x, aux
@@ -332,7 +364,8 @@ def _apply_stack(layers, n_units: int, p: int, x: torch.Tensor,
                  enc_out: Optional[torch.Tensor] = None,
                  enc_pos: Optional[torch.Tensor] = None,
                  force_ref: bool = False, remat: bool = True,
-                 placement=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                 placement=None, seq=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's scan over ``n_units`` pattern units of ``p`` blocks,
     then the tail's blocks (without remat and uncast, as the reference
     applies them).  Under grad with ``remat`` each unit is recomputed in
@@ -342,18 +375,19 @@ def _apply_stack(layers, n_units: int, p: int, x: torch.Tensor,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for u in range(n_units):
         args = (layers[u * p:(u + 1) * p], x, cfg, positions, causal,
-                enc_out, enc_pos, force_ref, placement)
+                enc_out, enc_pos, force_ref, placement, seq)
         x, a = (checkpoint(_apply_unit, *args, use_reentrant=False) if rc
                 else _apply_unit(*args))
         aux = aux + a
     tail = layers[n_units * p:]
-    with computing_weights(tail, cfg, placement, cast=False) as tps:
+    with computing_weights(tail, cfg, placement, cast=False,
+                           seq=seq) as tps:
         for blk in tail:
             x, a = B.apply_block_train(blk, x, cfg, blk.block_type,
                                        positions, causal=causal,
                                        enc_out=enc_out, enc_pos=enc_pos,
                                        force_ref=force_ref,
-                                       tp=tps.get(id(blk)))
+                                       tp=tps.get(id(blk)), sp=seq)
             aux = aux + a
     return x, aux
 
@@ -373,21 +407,39 @@ def encode(params: Model, frames: torch.Tensor, cfg: ModelConfig, *,
         return L.apply_norm(params.enc_final_norm, x, cfg)
 
 
+def seq_parallel(params: Model, cfg: ModelConfig):
+    """The ``SeqParallel`` of a train step on ``params`` under ``cfg``, or
+    None: ``sequence_parallel`` on a placed decoder-only model whose policy
+    splits tensors over a ``model`` axis above 1 (``dp_only`` folds
+    ``model`` into the batch, and an encoder-decoder model runs without
+    it: the flag is a layout, and the step's result is the same)."""
+    pl = getattr(params, "placement", None)
+    if (not cfg.sequence_parallel or pl is None or cfg.is_enc_dec
+            or pl.policy.model_size <= 1):
+        return None
+    return pl.seq_parallel()
+
+
 def forward(params: Model, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-            *, force_ref: bool = False, remat: bool = True
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            *, force_ref: bool = False, remat: bool = True,
+            last_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Prefill / scoring / training forward.  batch: tokens (B, S) [+ frames
     (B, S_enc, d) for encoder-decoder models] on the model's device.
-    Returns (logits (B, S, V) fp32, aux loss).  ``force_ref`` runs the sLSTM
-    layers' plain recurrence instead of the kernel; ``remat`` (under grad)
-    recomputes each pattern unit in the backward."""
+    Returns (logits (B, S, V) fp32, aux loss); under ``seq_parallel`` the
+    logits of this rank's slice of S only (``SeqParallel.bounds``), and
+    with ``last_only`` (a prefill's next token) those of the last position
+    only, (B, 1, V).  ``force_ref`` runs the sLSTM layers' plain recurrence
+    instead of the kernel; ``remat`` (under grad) recomputes each pattern
+    unit in the backward."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
     placement = getattr(params, "placement", None)
+    seq = seq_parallel(params, cfg)
     root = _Root(params)
-    with computing_weights([root], cfg, placement, cast=False):
-        x = embed_tokens(params, tokens, cfg)
+    with computing_weights([root], cfg, placement, cast=False, seq=seq):
+        x = embed_tokens(params, tokens if seq is None
+                         else seq.keep(tokens), cfg)
         enc_out = enc_pos = None
         if cfg.is_enc_dec:
             enc_out = encode(params, batch["frames"], cfg, remat=remat)
@@ -396,7 +448,9 @@ def forward(params: Model, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                               len(cfg.block_pattern), x, cfg, positions,
                               causal=True, enc_out=enc_out, enc_pos=enc_pos,
                               force_ref=force_ref, remat=remat,
-                              placement=placement)
+                              placement=placement, seq=seq)
+        if last_only:
+            x = x[:, -1:]
         return logits_from_hidden(params, x, cfg), aux
 
 
@@ -421,6 +475,10 @@ class DecodeState(NamedTuple):
     pos: torch.Tensor         # (B,) int32 next position to write
     # encoder-decoder: one (k, v) (B, T, nkv, dh) per scanned unit
     cross_kv: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None
+    # a placed state (``place_decode_state``): per decoder layer, the
+    # number of ``model`` ranks its KV cache's slots are split over (1:
+    # whole, or no cache)
+    seq_shards: Optional[Tuple[int, ...]] = None
 
 
 @torch.no_grad()
@@ -441,12 +499,32 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
                       dtype: Optional[torch.dtype] = None, *,
                       enc_out: Optional[torch.Tensor] = None,
                       params: Optional[Model] = None,
-                      device="cuda") -> DecodeState:
+                      device="cuda", placement=None) -> DecodeState:
     """Zero caches and states for ``batch`` sequences of up to
     ``cache_len`` tokens; with an encoder-decoder model's ``enc_out`` and
-    ``params``, the cross K/V too."""
+    ``params``, the cross K/V too.  With ``placement`` (the served model's)
+    only this rank's blocks are made, a layer at a time: the state
+    ``place_decode_state`` would cut from the whole one, which is never
+    held (encoder-decoder models: place a whole state instead)."""
     device = resolve_device(device)
     dtype = dtype or cfg.activation_dtype
+    if placement is not None:
+        if cfg.is_enc_dec:
+            raise ValueError("an encoder-decoder state is placed whole: "
+                             "place_decode_state")
+        want = place_decode_state(abstract_decode_state(
+            cfg, batch, cache_len), cfg, placement)
+        states = []
+        for bt, st in zip(layer_types(cfg), want.block_states):
+            made = B.block_state_init(cfg, bt, st[0].shape[0], cache_len,
+                                      dtype, device)
+            states.append(type(made)(*(
+                t if t.shape == w.shape else torch.zeros(
+                    w.shape, dtype=t.dtype, device=device)
+                for t, w in zip(made, st))))
+            del made
+        return want._replace(block_states=states, pos=torch.zeros(
+            want.pos.shape, dtype=torch.int32, device=device))
     states = [B.block_state_init(cfg, bt, batch, cache_len, dtype, device)
               for bt in layer_types(cfg)]
     cross_kv = None
@@ -458,24 +536,167 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
                        cross_kv=cross_kv)
 
 
+def abstract_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
+                          with_cross_len: int = 0) -> DecodeState:
+    """The decode state on the meta device (the dry run's), with an
+    encoder-decoder model's cross K/V of ``with_cross_len`` frames."""
+    st = init_decode_state(cfg, batch, cache_len, device="meta")
+    if with_cross_len:
+        kv = torch.empty((batch, with_cross_len, cfg.n_kv_heads,
+                          cfg.head_dim), dtype=cfg.activation_dtype,
+                         device="meta")
+        st = st._replace(cross_kv=[(kv, kv)] * cfg.n_units)
+    return st
+
+
+def decode_leaves(state: DecodeState, cfg: ModelConfig):
+    """Each tensor of a decode state: (its address in the port's state,
+    the path of the reference leaf that holds it, its index along the
+    leaf's stacked unit dim or None, the tensor).  The reference stacks the
+    units' states (``block_states/<i>/<field>``, or ``block_states/units/
+    <i>/<field>`` beside ``block_states/tail/<i>/<field>`` where the model
+    has a tail) and the cross K/V (``cross_kv/0``, ``cross_kv/1``)."""
+    p = len(cfg.block_pattern)
+    scanned = cfg.n_units * p
+    tail = bool(cfg.tail_pattern)
+    for j, st in enumerate(state.block_states):
+        if j < scanned:
+            head, u = ("units/" if tail else "") + str(j % p), j // p
+        else:
+            head, u = f"tail/{j - scanned}", None
+        for field, t in zip(st._fields, st):
+            yield (("block_states", j, field),
+                   f"block_states/{head}/{field}", u, t)
+    yield ("pos",), "pos", None, state.pos
+    for u, kv in enumerate(state.cross_kv or ()):
+        for i, t in enumerate(kv):
+            yield ("cross_kv", u, i), f"cross_kv/{i}", u, t
+
+
+def decode_state_shapes(state: DecodeState, cfg: ModelConfig
+                        ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """{reference leaf path: (its shape, dtype)}: the reference's decode
+    state tree of this state (a stacked leaf's shape leads with its unit
+    count)."""
+    out: Dict[str, Any] = {}
+    units: Dict[str, int] = {}
+    for _, path, u, t in decode_leaves(state, cfg):
+        if u is not None:
+            units[path] = units.get(path, 0) + 1
+        out[path] = (tuple(t.shape), t.dtype)
+    return {k: ((units[k],) + shape if k in units else shape, dt)
+            for k, (shape, dt) in out.items()}
+
+
+def _nest(flat: Dict[str, Any]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for path, v in flat.items():
+        *head, last = path.split("/")
+        node = tree
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return tree
+
+
+def decode_state_specs(state: DecodeState, cfg: ModelConfig, policy
+                       ) -> Dict[tuple, Tuple[Any, ...]]:
+    """{port address: spec} of each tensor of a (whole) decode state: the
+    spec ``policy.serve_state_spec`` gives its reference leaf (through
+    ``serve_spec_tree``), less the unit dim of a stacked leaf."""
+    shapes = decode_state_shapes(state, cfg)
+    specs = policy.serve_spec_tree(_nest({k: v[0]
+                                          for k, v in shapes.items()}))
+    out = {}
+    for key, path, u, _ in decode_leaves(state, cfg):
+        spec = specs
+        for k in path.split("/"):
+            spec = spec[k]
+        out[key] = tuple(spec[1:] if u is not None else spec)
+    return out
+
+
+def place_decode_state(state: DecodeState, cfg: ModelConfig,
+                       placement) -> DecodeState:
+    """This rank's block of a whole decode state, placed by the policy of
+    ``placement`` (the served model's): each tensor's rows over the batch
+    axes where they divide the batch and, with ``shard_cache_seq``, each KV
+    cache's slots over ``model`` (``decode_state_specs``).  The result
+    records each layer's split of its cache (``seq_shards``)."""
+    specs = decode_state_specs(state, cfg, placement.policy)
+    sizes, coord = placement.sizes, placement._coord()
+
+    def block(key, t):
+        for dim, ax in enumerate(specs[key]):
+            for a in (ax if isinstance(ax, tuple) else (ax,)):
+                if a is not None and sizes[a] > 1:
+                    n = t.shape[dim] // sizes[a]
+                    t = t.narrow(dim, coord[a] * n, n)
+        return t.clone()
+
+    layers = []
+    shards = []
+    for j, st in enumerate(state.block_states):
+        layers.append(type(st)(*(block(("block_states", j, f), t)
+                                 for f, t in zip(st._fields, st))))
+        spec = specs.get(("block_states", j, "k"), ())
+        shards.append(sizes["model"] if len(spec) > 1 and
+                      spec[1] == "model" and sizes.get("model", 1) > 1
+                      else 1)
+    cross = None if state.cross_kv is None else [
+        tuple(block(("cross_kv", u, i), t) for i, t in enumerate(kv))
+        for u, kv in enumerate(state.cross_kv)]
+    return DecodeState(block_states=layers, pos=block(("pos",), state.pos),
+                       cross_kv=cross, seq_shards=tuple(shards))
+
+
 @torch.no_grad()
 def decode_step(params: Model, state: DecodeState, tokens: torch.Tensor,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, DecodeState]:
     """tokens (B, 1) -> (logits (B, 1, V) fp32, new state).  A scanned
     layer of unit u decodes with unit u's cross K/V; the tail's layers, as
     the reference's, with none.  Plain PyTorch (the JAX package has no
-    kernel on this path)."""
+    kernel on this path).
+
+    On a placed model each unit's weights are gathered before it runs, as
+    ``forward`` gathers them (cast by ``bf16_weight_gather``), its dense
+    MLPs on this rank's slice of d_ff (``ModelParallel``) and its attention
+    on the whole projections; ``state`` then holds this rank's rows (and,
+    where ``seq_shards`` splits a cache, its slots: the ``model`` ranks'
+    partial softmax sums are merged, ``sharding.SeqShard``)."""
+    placement = getattr(params, "placement", None)
+    if placement is None:
+        return _decode_layers(params, state, tokens, cfg, None)
+    with computing_weights([_Root(params)], cfg, placement, cast=False):
+        return _decode_layers(params, state, tokens, cfg, placement)
+
+
+def _decode_layers(params: Model, state: DecodeState, tokens: torch.Tensor,
+                   cfg: ModelConfig, placement
+                   ) -> Tuple[torch.Tensor, DecodeState]:
     x = embed_tokens(params, tokens, cfg)
     p = len(cfg.block_pattern)
     scanned = cfg.n_units * p
+    shards = state.seq_shards or (1,) * len(params.layers)
     new_states = []
-    for j, (blk, st) in enumerate(zip(params.layers, state.block_states)):
-        cross = None
-        if state.cross_kv is not None and j < scanned:
-            cross = state.cross_kv[j // p]
-        x, ns = B.apply_block_decode(blk, x, st, state.pos, cfg,
-                                     blk.block_type, cross_kv=cross)
-        new_states.append(ns)
+    groups = [list(range(u * p, (u + 1) * p)) for u in range(cfg.n_units)]
+    groups += [[j] for j in range(scanned, len(params.layers))]
+    for idx in groups:
+        blocks = [params.layers[j] for j in idx]
+        ctx = (computing_weights(blocks, cfg, placement,
+                                 cast=idx[0] < scanned, tp_subs=("mlp",))
+               if placement is not None else contextlib.nullcontext({}))
+        with ctx as tps:
+            for j, blk in zip(idx, blocks):
+                cross = None
+                if state.cross_kv is not None and j < scanned:
+                    cross = state.cross_kv[j // p]
+                seq = (placement.seq_shard() if shards[j] > 1 else None)
+                x, ns = B.apply_block_decode(
+                    blk, x, state.block_states[j], state.pos, cfg,
+                    blk.block_type, cross_kv=cross, tp=tps.get(id(blk)),
+                    seq=seq)
+                new_states.append(ns)
     logits = logits_from_hidden(params, x, cfg)
     return logits, state._replace(block_states=new_states,
                                   pos=state.pos + 1)

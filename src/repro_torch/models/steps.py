@@ -10,6 +10,7 @@ encoder-decoder model's cross K/V), then the next token.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -19,7 +20,8 @@ from ..optim import adamw
 from ..optim.compression import compress_decompress
 from .config import ModelConfig
 from .convert import decay_mask, leaf_groups
-from .model import DecodeState, Model, decode_step, forward
+from .model import (DecodeState, Model, abstract_params, decode_step,
+                    forward, seq_parallel)
 
 MOE_AUX_WEIGHT = 0.01
 
@@ -66,33 +68,60 @@ def make_loss_fn(cfg: ModelConfig, *, force_ref: bool = False):
 
 
 def _data_parallel_loss(model: Model, batch: Dict[str, torch.Tensor],
-                        cfg: ModelConfig, group):
-    """This rank's slice of a batch split over ``group``: (the loss whose
-    gradient, averaged over the ranks, is the global loss's; the global
-    loss, ce and aux).  The CE is the global masked mean (the masked sums
-    and the mask counts summed over ranks), the aux loss the ranks' mean."""
-    world = dist.get_world_size(group)
+                        cfg: ModelConfig, groups, seq=None):
+    """This rank's slice of a batch split over ``groups`` (None: the batch
+    is whole): (the loss whose gradient, averaged over the ranks, is the
+    global loss's; the global loss, ce and aux).  The CE is the global
+    masked mean (the masked sums and the mask counts summed over ranks),
+    the aux loss the ranks' mean.  Under sequence parallelism (``seq``)
+    the logits are this rank's slice of the sequence: the CE sums are
+    summed over ``model`` too, and the aux loss, which every ``model`` rank
+    computes whole, enters each rank's loss divided by their number (the
+    backward sums the ranks' gradients)."""
+    world = _ranks(groups)
     logits, aux = forward(model, batch, cfg)
-    total, count = masked_ce_sum(logits, batch["targets"], _mask(batch))
+    targets, mask = batch["targets"], _mask(batch)
+    if seq is not None:
+        targets, mask = seq.keep(targets), seq.keep(mask)
+    total, count = masked_ce_sum(logits, targets, mask)
     sums = torch.stack([total.detach(), count, aux.detach()])
-    dist.all_reduce(sums, group=group)
+    _sum_over(sums, groups)
+    n_seq = 1
+    if seq is not None:
+        ce_sums = sums[:2].contiguous()
+        dist.all_reduce(ce_sums, group=seq.pl.group("model"))
+        sums = torch.cat([ce_sums, sums[2:]])
+        n_seq = seq.n
     denom = torch.clamp_min(sums[1], 1.0)
-    local = world * total / denom + MOE_AUX_WEIGHT * aux
+    local = world * total / denom + MOE_AUX_WEIGHT * aux / n_seq
     ce, aux_mean = sums[0] / denom, sums[2] / world
     return local, ce + MOE_AUX_WEIGHT * aux_mean, ce, aux_mean
 
 
-def _average_grads(grads: Dict[str, Optional[torch.Tensor]], group) -> None:
-    """Every gradient averaged over ``group``, in place (one all_reduce a
-    dtype over the flattened gradients): the replicated model's data
-    parallelism (a placed model's backward reduces its own)."""
-    world = dist.get_world_size(group)
+def _ranks(groups) -> int:
+    """The number of ranks that split the batch over ``groups``."""
+    return math.prod(dist.get_world_size(g) for g in groups or ())
+
+
+def _sum_over(t: torch.Tensor, groups) -> None:
+    """``t`` summed over each of ``groups`` in turn, in place."""
+    for g in groups or ():
+        dist.all_reduce(t, group=g)
+
+
+def _average_grads(grads: Dict[str, Optional[torch.Tensor]],
+                   groups) -> None:
+    """Every gradient averaged over ``groups``, in place (a sum over each
+    group in turn of the flattened gradients of a dtype, then one
+    division): the replicated model's data parallelism (a placed model's
+    backward reduces its own, over the same axes in the same order)."""
+    world = _ranks(groups)
     by_dtype: Dict[torch.dtype, list] = {}
     for g in grads.values():
         by_dtype.setdefault(g.dtype, []).append(g)
     for gs in by_dtype.values():
         flat = torch.cat([g.reshape(-1) for g in gs])
-        dist.all_reduce(flat, group=group)
+        _sum_over(flat, groups)
         flat /= world
         off = 0
         for g in gs:
@@ -101,7 +130,7 @@ def _average_grads(grads: Dict[str, Optional[torch.Tensor]], group) -> None:
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *,
-                    compress: bool = False, group=None):
+                    compress: bool = False, groups=None):
     """train_step(state, batch) -> (state, metrics): the loss's value and
     gradient, then ``adamw.apply_updates`` in place on the model's fp32
     parameters (weight decay by the reference leaf, ``decay_mask``).
@@ -111,13 +140,17 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *,
     ``compress``: the step takes and returns ``(state, ef)``, and the
     gradients go through ``compress_decompress`` (int8, one scale per
     reference leaf, error feedback ``ef``) before the update, as the
-    reference's ``--grad-compress`` step.  ``group``: a process group whose
-    ranks each hold a slice of the global batch; the loss is the global
-    masked mean.  On a placed model (``model.placement``) the backward
-    reduce-scatters each gradient to the rank's block (``Placement``), the
-    compression's scales and the clipping norm are the whole gradient's
+    reference's ``--grad-compress`` step.  ``groups``: the process groups
+    (one a batch axis, ``launch.train._batch_groups``) whose ranks each
+    hold a slice of the global batch; the loss is the global masked
+    mean.  With ``sequence_parallel`` on a placed model the ``model``
+    ranks each hold a slice of the sequence (``models.model.seq_parallel``)
+    and the loss sums over them too.  On a placed model
+    (``model.placement``) the backward reduce-scatters each gradient to
+    the rank's block (``Placement``), the compression's scales and the
+    clipping norm are the whole gradient's
     (a max and a sum over the mesh), and AdamW updates the blocks; on a
-    replicated one every gradient is averaged over ``group`` (after the
+    replicated one every gradient is averaged over ``groups`` (after the
     compression, each rank's own, as before) before it is clipped."""
     loss_fn = make_loss_fn(cfg)
     masks: list = []     # (decay, leaves): the same for every model of cfg
@@ -132,13 +165,14 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *,
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
-        if group is None:
+        seq = seq_parallel(model, cfg)
+        if groups is None and seq is None:
             loss, aux_m = loss_fn(model, batch)
             loss.backward()
             ce, aux = aux_m["ce"], aux_m["aux"]
         else:
             local, loss, ce, aux = _data_parallel_loss(model, batch, cfg,
-                                                       group)
+                                                       groups, seq)
             local.backward()
         grads = {k: torch.zeros_like(p) if p.grad is None else p.grad
                  for k, p in params.items()}
@@ -150,8 +184,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *,
         norm = None
         if placement is not None:
             norm = placement.global_norm(grads)
-        elif group is not None:
-            _average_grads(grads, group)
+        elif groups is not None:
+            _average_grads(grads, groups)
         _, opt, gnorm = adamw.apply_updates(params, grads, state.opt,
                                             opt_cfg, decay=decay, norm=norm)
         metrics = {"ce": ce.detach(), "aux": aux.detach(),
@@ -176,6 +210,15 @@ def init_train_state(cfg: ModelConfig, *, generator: torch.Generator,
     else:
         model = init_params_placed(cfg, generator=generator,
                                    placement_of=placement_of, device=device)
+    return TrainState(model=model,
+                      opt=adamw.init(dict(model.named_parameters())))
+
+
+def abstract_train_state(cfg: ModelConfig) -> TrainState:
+    """The train state on the meta device (the dry run's): the model of
+    ``abstract_params`` and AdamW's zero moments of its shapes, no
+    storage."""
+    model = abstract_params(cfg)
     return TrainState(model=model,
                       opt=adamw.init(dict(model.named_parameters())))
 
