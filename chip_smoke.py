@@ -58,11 +58,17 @@ them sharded, behind the HTTP server), the distributed search through
            and ``state_dict`` / ``from_state_dict`` on the card; the coarse
            probe runs B5's matrix entry and its top-k (k = nprobe is past
            the fused entry's fast k on 1,024 centroids), the probed lists
-           B1's list-major entry (``beam_gather_lists``), and each is held
-           to its plain version and timed on the phase's own inputs (the
-           probes' queries and centroids, the probes and lists), the
-           list-major entry bit for bit against B1's gather entry over the
-           same candidates, which it replaced;
+           B1's fused list-major entry (``beam_gather_lists_topk``: the
+           candidates' distances and their top-k in one launch a batch;
+           one batch at k = IVF_WIDE_K, past FUSED_MAX_K, takes the matrix
+           entry ``beam_gather_lists`` and ``topk_smallest``, its first K
+           hits the fused entry's), and each is held to its plain version
+           and timed on the phase's own inputs (the probes' queries and
+           centroids, the probes and lists): on all 10 batches the fused
+           entry bit for bit against ``topk_smallest`` of the matrix
+           entry, timed against that path, and the matrix entry bit for
+           bit against B1's gather entry over the same candidates; G's
+           search once under the profiler gives its device and wall ms;
   phase H  phase E's exact collection schema at ``shards=4, replicas=2``
            over phase A's corpus by string id (eight engines on the card),
            held hit for hit to a single-engine collection over the same
@@ -127,8 +133,12 @@ them sharded, behind the HTTP server), the distributed search through
            ``torch.no_grad()``;
   phase N  the dry run (``repro_torch.launch.dryrun``), in child processes
            on the host's CPU, started once phase 1's kernel rows are timed
-           (niced, on the upper half of the cores this process may use)
-           and run beside phases A-L: qwen2-1.5b and
+           (niced, on the upper half of the physical cores this process may
+           use, while this process's threads keep to the lower half until
+           the children exit, so no timed phase shares a core with them)
+           and run beside phases A-E; phase G waits for them to exit
+           (`settle_dryrun`), so its search and every later phase run
+           with no child beside them: qwen2-1.5b and
            xlstm-1.3b at every shape on the single-pod production mesh
            (16 x 16, a fake process group, meta tensors), base and opt, and
            the six quantixar-db cells, every record ok or the reference's
@@ -251,7 +261,8 @@ PHASE_KERNELS = {
           "hamming", "l2_distance"),
     "E": ("beam_gather", "pair_gather", "l2_topk", "l2_distance"),
     "F": ("slstm",),
-    "G": ("beam_gather_lists", "l2_distance", "l2_topk"),
+    "G": ("beam_gather_lists_topk", "beam_gather_lists", "l2_distance",
+          "l2_topk"),
     "H": ("l2_topk",),
     "I": ("l2_topk", "l2_distance", "pq_adc", "hamming"),
     "L": ("slstm", "slstm_backward")}
@@ -259,13 +270,15 @@ PHASE_KERNELS = {
 # and B4's
 SOURCES = {"l2_topk": "l2_distance",
            "beam_gather_hamming_masked": "beam_gather_hamming",
-           "beam_gather_lists": "beam_gather"}
+           "beam_gather_lists": "beam_gather",
+           "beam_gather_lists_topk": "beam_gather"}
 # a kernel row's launches: the counters of every entry of its source that
 # ran it (B4's kernel runs in phase D through its fused entry only, B1's in
-# phase G through its list-major entry only)
+# phase G through its list-major entries only)
 ENTRIES = {"beam_gather_hamming": ("beam_gather_hamming",
                                    "beam_gather_hamming_masked"),
-           "beam_gather": ("beam_gather", "beam_gather_lists")}
+           "beam_gather": ("beam_gather", "beam_gather_lists",
+                           "beam_gather_lists_topk")}
 # B4's fused entry in phase 1: PAD on this share of the slots (never
 # fresh) and fresh on this share of the rest, at L > 1 (L = 1, the entry
 # point's call, is all fresh)
@@ -368,6 +381,9 @@ IVF_RECALL_FLOOR = 0.80
 # B1 at IVF's shape: its plain version would gather (Q, C, D) rows (24.6 GB
 # at Q = 1,024), so it is held on this many of the batch's queries
 IVF_PLAIN_Q = 64
+# one G batch at a k past FUSED_MAX_K: the search takes B1's matrix
+# list-major entry and topk_smallest there (the fused entry at k = K)
+IVF_WIDE_K = 200
 # B5's two routes on a small corpus (small_topk_sweep): (Q, N, mode,
 # corpus, ks): G's coarse probe (1,024 centroids), C and D's delta scans (5,000
 # rows padded to 8,192: reconstructions in l2, BQ signs in dot), one
@@ -404,8 +420,12 @@ DIST_RECALL_FLOOR = 0.999
 # tolerance)
 PQ_DIMS_RTOL = 1e-5
 # a phase's kernel rows, which its summary leaves to the kernels line
-ROW_KEYS = ("b1_row", "lists_row", "probe_row", "shard_rows",
+ROW_KEYS = ("b1_row", "lists_row", "topk_row", "probe_row", "shard_rows",
             "pq_row", "hamming_row", "l2_rows")
+# B7's word counts in phase 1 (Q = 1,024 x one 65,536-row chunk): each of
+# its register path's widths; W = 8 (256 bits) on BQ's own words, the
+# others on seeded random words
+HAMMING_WIDTHS = (1, 2, 4, 8, 16)
 
 
 class SmokeFailure(Exception):
@@ -925,7 +945,19 @@ def quant_kernel_checks(torch, codes, lut, words, q_words, log,
     for q_n, rows_n in ((nq, FLAT_CHUNK), (64, n)):
         rows.append(hamming_row(torch, q_words[:q_n], [
             words[i * rows_n:(i + 1) * rows_n]
-            for i in range(max(1, min(SETS, n // rows_n)))], log))
+            for i in range(max(1, min(SETS, n // rows_n)))], log,
+            words_from="bq"))
+    # B7's other register-path widths at the flat route's shape, on
+    # seeded random words (every bit pattern; integer results: exact)
+    for w_n in HAMMING_WIDTHS:
+        if w_n == w:
+            continue
+        qw = torch.randint(-2 ** 31, 2 ** 31, (nq, w_n), generator=gen,
+                           device="cuda", dtype=torch.int32)
+        rows.append(hamming_row(torch, qw, [
+            torch.randint(-2 ** 31, 2 ** 31, (FLAT_CHUNK, w_n), generator=gen,
+                          device="cuda", dtype=torch.int32)
+            for _ in range(SETS)], log, words_from="random"))
     return rows
 
 
@@ -1815,57 +1847,148 @@ def run_api(torch, corpus, queries, gt, new_rows, phase_a, counters, log):
 # phase G: IVF on the card
 # ---------------------------------------------------------------------------
 
-def ivf_lists_rows(torch, eng, queries, log):
-    """B1's list-major entry where phase G runs it, and B1's gather entry
-    on the same candidates, which it replaced (the yardstick).  SETS
-    batches of QUERY_BATCH queries run with the entry's inputs kept
+def profiled_ms(torch, fn):
+    """(wall ms, device ms, {event name: (device ms, count)}) of ``fn()``
+    under ``torch.profiler``, synchronised: device ms sums every device
+    event (kernels, copies, sets) the call starts, as
+    scripts/profile_torch.py reads a span; the call's own timing, host
+    included, is the wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ms, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    return wall, sum(ms for ms, _ in by_name.values()), by_name
+
+
+def ivf_lists_rows(torch, eng, queries, profile, log):
+    """B1's list-major entries where phase G runs them, and B1's gather
+    entry on the same candidates (the yardstick both replaced).  G's 10
+    batches of QUERY_BATCH queries run with the fused entry's inputs kept
     (queries, the (Q, nprobe) probes, the lists, their live lengths, the
-    prepped corpus).  On the first batch the entry must equal B1's gather
-    entry over the candidate block lists[probe] (PAD clamped to row 0, as
-    B1 reads it) bit for bit on every live slot and be +inf on every PAD
-    slot; on its first IVF_PLAIN_Q queries both are held to their plain
-    versions.  Both are timed at their device time over the batches as
-    input sets, in this call.  Each row's bound_ms counts what its own
-    function needs: B1's the unique rows a batch touches, its ids and
-    queries read once and its output written once, or 3 operations a
-    candidate element, PAD slots included; the entry's the same rows,
-    queries and output with the probe and the lists (and their lengths)
-    in place of the ids, or 3 operations a live slot's element only, for
-    it computes nothing on PAD.  The entry's row also carries B1's bound
-    at this shape (bound_b1_ms, share_b1), the yardstick both rows meet.
-    Returns (the entry's row, B1's row)."""
-    from repro_torch.core.ivf import PAD
+    prepped corpus).  On every batch the fused entry
+    (``beam_gather_lists_topk``, k = K) must equal ``topk_smallest`` of the
+    matrix entry's (Q, P * M) output bit for bit, every distance and the
+    column of every finite one, and its columns must map through
+    ``_slot_ids`` to the matrix route's ids.  On the first batch the matrix
+    entry must equal B1's gather entry over the candidate block
+    lists[probe] (PAD clamped to row 0, as B1 reads it) bit for bit on
+    every live slot and be +inf on every PAD slot; on its first
+    IVF_PLAIN_Q queries all three are held to their plain versions.
+
+    Timed in this call: the fused entry's wrapper (its schedule, the
+    kernel, the merge of the P lists' keys and their decoding; ``ms``) and
+    its C entry alone on the same schedule (``kernel_ms``), both over the
+    10 batches as input sets, against the path it replaced, the matrix
+    entry + ``topk_smallest`` + ``_slot_ids`` (``route_ms``), and the
+    fused path the search runs, wrapper + ``_slot_ids`` (``path_ms``); the
+    matrix entry and B1's gather entry over the first SETS batches.
+    ``profile`` is `profiled_ms` of G's 10-batch search (wall ms, device
+    ms, its device events): the fused kernel's device ms and launches in
+    it (``in_path_ms``) and the search's wall and device ms go on the
+    fused entry's row.
+
+    Bounds: the fused entry's, the larger of its bytes (the unique rows a
+    batch reads, queries, probe, lists and their lengths once, the (Q, P,
+    k) int64 candidates written once) over the memory rate and 3
+    operations a live slot's element over the fp32 rate (it computes
+    nothing on PAD), the mean over the batches; the matrix entry's the
+    same with its (Q, P * M) output in place of the candidates; B1's the
+    unique rows, its ids and queries once and its output, or 3 operations
+    a candidate element, PAD slots included (bound_b1_ms, share_b1 on the
+    matrix entry's row too).  Returns (the fused entry's row, the matrix
+    entry's, B1's)."""
+    from repro_torch.core.ivf import PAD, _slot_ids
+    from repro_torch.kernels import _launch
     from repro_torch.kernels import beam_gather as bg
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.ref import topk_smallest
 
-    orig = ops.beam_gather_lists_distances
+    orig = ops.beam_gather_lists_topk
     calls = []
 
-    def keep(q, probe, lists, list_len, corpus, **kw):
-        calls.append((q, probe, lists, list_len, corpus))
-        return orig(q, probe, lists, list_len, corpus, **kw)
+    def keep(q, probe, lists, list_len, corpus, k, **kw):
+        calls.append((q, probe, lists, list_len, corpus, k))
+        return orig(q, probe, lists, list_len, corpus, k, **kw)
 
-    ops.beam_gather_lists_distances = keep
+    n_batches = -(-len(queries) // QUERY_BATCH)
+    ops.beam_gather_lists_topk = keep
     try:
-        for lo in range(0, SETS * QUERY_BATCH, QUERY_BATCH):
+        for lo in range(0, len(queries), QUERY_BATCH):
             eng.search(queries[lo: lo + QUERY_BATCH], K)
     finally:
-        ops.beam_gather_lists_distances = orig
+        ops.beam_gather_lists_topk = orig
     torch.cuda.synchronize()
-    check(len(calls) == SETS,
-          f"G: {len(calls)} beam_gather_lists calls for {SETS} batches")
-    _, _, lists, list_len, corpus = calls[0]
+    check(len(calls) == n_batches and all(c[5] == K for c in calls),
+          f"G: {len(calls)} beam_gather_lists_topk calls for {n_batches} "
+          f"batches")
+    _, _, lists, list_len, corpus, _ = calls[0]
     sets = [(q.float().contiguous(), p.to(torch.int32).contiguous())
             for q, p, *_ in calls]
-    # the candidate block the card path no longer builds, for B1
-    cands = [lists[p.long()].reshape(p.shape[0], -1) for _, p in sets]
-    b1_sets = [(q, c.clamp_min(0).contiguous()) for (q, _), c in
-               zip(sets, cands)]
     q, probe = sets[0]
     nq, nprobe = probe.shape
     nlist, m = lists.shape
     length, d = nprobe * m, corpus.shape[1]
-    got = bg.beam_gather_lists(q, probe, lists, list_len, corpus)
+    kl = min(K, m)
+
+    # every batch: the fused entry against topk_smallest of the matrix
+    # entry, and the bytes and live slots of the bounds (each batch's own,
+    # then their mean)
+    bounds = []
+    for i, (qi, pi) in enumerate(sets):
+        fd, fc = bg.beam_gather_lists_topk(qi, pi, lists, list_len, corpus,
+                                           K)
+        mat = bg.beam_gather_lists(qi, pi, lists, list_len, corpus)
+        wd, wc = topk_smallest(mat, K)
+        fin = torch.isfinite(wd)
+        check(torch.equal(fd.view(torch.int32), wd.view(torch.int32))
+              and torch.equal(fc[fin], wc[fin]),
+              f"G: beam_gather_lists_topk differs from topk_smallest of "
+              f"beam_gather_lists on batch {i}")
+        check(torch.equal(_slot_ids(lists, pi, fc)[fin],
+                          _slot_ids(lists, pi, wc)[fin]),
+              f"G: the fused entry's ids differ on batch {i}")
+        if i == 0:
+            digest = output_digest(fd)
+            got = mat
+        del mat, wd, wc, fd, fc
+        cand = lists[pi.long()].reshape(pi.shape[0], -1)
+        n_live = int((cand != PAD).sum())
+        uniq = int(torch.unique(cand.clamp_min(0)).numel())
+        del cand
+        bq = pi.shape[0]
+        rows_q = uniq * d * 4 + bq * d * 4
+        common = rows_q + bq * nprobe * 4 + nlist * (m + 1) * 4
+        bounds.append({
+            # B1: its ids and output, every candidate element computed
+            "b1": bound(rows_q + 2 * bq * length * 4, bq * length * d * 3),
+            # the matrix entry: the probe, lists and output, live slots
+            "lists": bound(common + bq * length * 4, n_live * d * 3),
+            # the fused entry: the probe, lists and its candidates
+            "topk": bound(common + bq * nprobe * kl * 8, n_live * d * 3),
+            "uniq": uniq, "live": n_live})
+
+    def mean_bound(key):
+        return (sum(b[key][0] for b in bounds) / len(bounds),
+                bounds[0][key][1])
+
+    uniq = sum(b["uniq"] for b in bounds) / len(bounds)
+    n_live = sum(b["live"] for b in bounds) / len(bounds)
+
+    # the matrix entry against B1 on the first batch
+    cands = [lists[p.long()].reshape(p.shape[0], -1) for _, p in sets[:SETS]]
+    b1_sets = [(qi, c.clamp_min(0).contiguous()) for (qi, _), c in
+               zip(sets, cands)]
     b1 = bg.beam_gather(q, b1_sets[0][1], corpus, mode="l2")
     torch.cuda.synchronize()
     live = cands[0] != PAD
@@ -1874,9 +1997,10 @@ def ivf_lists_rows(torch, eng, queries, log):
           f"{int((got[live] != b1[live]).sum())} live slots")
     check(bool(torch.isinf(got[~live]).all()),
           "G: beam_gather_lists is finite on a PAD slot")
-    digest = output_digest(got)
-    del b1
-    # both held to their plain versions on the first IVF_PLAIN_Q queries
+    lists_digest = output_digest(got)
+    del b1, cands
+    # all three held to their plain versions on the first IVF_PLAIN_Q
+    # queries
     sub_q, sub_p = q[:IVF_PLAIN_Q].contiguous(), probe[:IVF_PLAIN_Q].contiguous()
     sub_ids = b1_sets[0][1][:IVF_PLAIN_Q].contiguous()
     sub_live = live[:IVF_PLAIN_Q]
@@ -1888,7 +2012,21 @@ def ivf_lists_rows(torch, eng, queries, log):
           and torch.equal(torch.isinf(got[:IVF_PLAIN_Q]), torch.isinf(want)),
           f"G: beam_gather_lists at IVF's shape: max err {float(err.max())}")
     lists_err = float(err.max())
-    del want, err
+    del want, err, got
+    fd, _ = bg.beam_gather_lists_topk(sub_q, sub_p, lists, list_len, corpus,
+                                      K)
+    pd, pc = ref.beam_gather_lists_topk_ref(sub_q, sub_p, lists, list_len,
+                                            corpus, K)
+    fin = torch.isfinite(pd)
+    pnorm = corpus.norm(dim=1)[_slot_ids(lists, sub_p, pc).long().clamp_min(0)]
+    err = (fd - pd)[fin].abs()
+    check(torch.equal(torch.isinf(fd), torch.isinf(pd)) and bool(
+        (err <= RTOL * pd[fin].abs() + (ATOL_PER_NORM * sub_q.norm(
+            dim=1)[:, None] * pnorm)[fin]).all()),
+          f"G: beam_gather_lists_topk at IVF's shape: max err "
+          f"{float(err.max())}")
+    topk_err = float(err.max())
+    del fd, pd, pc, pnorm, err
     b1_sub = bg.beam_gather(sub_q, sub_ids, corpus, mode="l2")
     want = ref.beam_gather_l2_ref(sub_q, sub_ids, corpus)
     torch.cuda.synchronize()
@@ -1896,7 +2034,7 @@ def ivf_lists_rows(torch, eng, queries, log):
     check(bool((err <= RTOL * want.abs() + atol).all()),
           f"G: beam_gather at IVF's shape: max err {float(err.max())}")
     b1_err = float(err.max())
-    del want, err, b1_sub, norms, atol, got
+    del want, err, b1_sub, norms, atol
 
     # the schedule: tiles a batch and the rows they read
     tq = bg.tile_q(d)
@@ -1906,28 +2044,89 @@ def ivf_lists_rows(torch, eng, queries, log):
     tiles = lst < nlist
     tile_rows = int(list_len.long()[lst[tiles]].sum())
     pad_share = float((~live).float().mean())
-    n_live = sum(int((c != PAD).sum()) for c in cands) / len(cands)
-    uniq = sum(int(torch.unique(c.clamp_min(0)).numel()) for c in cands) \
-        / len(cands)
-    del cands, live
-    nbytes = uniq * d * 4 + nq * d * 4 + nq * length * 4 + nq * length * 4
-    b_ms, b_by = bound(nbytes, nq * length * d * 3)
-    live_ms, live_by = bound(uniq * d * 4 + nq * d * 4 + nq * nprobe * 4
-                             + nlist * (m + 1) * 4 + nq * length * 4,
-                             n_live * d * 3)
+    del live
+    (b_ms, b_by), (live_ms, live_by), (topk_ms, topk_by) = (
+        mean_bound("b1"), mean_bound("lists"), mean_bound("topk"))
     shape = {"inputs": "G search batches", "mode": "l2", "Q": nq,
              "L": length, "P": nprobe, "M": m, "nlist": nlist, "D": d,
              "N": corpus.shape[0], "pad_share": pad_share,
              "unique_rows": uniq, "live_slots": n_live,
              "checked_Q": IVF_PLAIN_Q, "library_ms": None}
-    t_lists = timing(torch, [lambda q=q, p=p: bg.beam_gather_lists(
-        q, p, lists, list_len, corpus) for q, p in sets])
-    t_b1 = timing(torch, [lambda q=q, c=c: bg.beam_gather(
-        q, c, corpus, mode="l2") for q, c in b1_sets])
+
+    # the fused entry's C entry alone, on each batch's schedule (the lists
+    # longest first, as its wrapper takes them)
+    order = bg.longest_first(list_len)
+    scheds = [(qi, pi, *bg.list_tiles(pi, nlist, tq, order))
+              for qi, pi in sets]
+    cand = torch.empty((nq, nprobe, kl), dtype=torch.int64, device="cuda")
+
+    def kernel_only(qi, pi, entries, starts, tile_end):
+        _launch.launch("beam_gather_lists_topk", bg._topk_fn(), qi.device,
+                       qi.data_ptr(), entries.data_ptr(), starts.data_ptr(),
+                       tile_end.data_ptr(), order.data_ptr(),
+                       lists.data_ptr(), list_len.data_ptr(),
+                       corpus.data_ptr(),
+                       cand.data_ptr(), qi.shape[0], nprobe, m, d,
+                       corpus.shape[0], nlist, K)
+
+    def route(qi, pi):
+        return _slot_ids(lists, pi, topk_smallest(bg.beam_gather_lists(
+            qi, pi, lists, list_len, corpus), K)[1])
+
+    def fused(qi, pi):
+        return _slot_ids(lists, pi, bg.beam_gather_lists_topk(
+            qi, pi, lists, list_len, corpus, K)[1])
+
+    t_topk = timing(torch, [lambda qi=qi, pi=pi: bg.beam_gather_lists_topk(
+        qi, pi, lists, list_len, corpus, K) for qi, pi in sets])
+    t_kernel = timing(torch, [lambda s=s: kernel_only(*s) for s in scheds],
+                      prefix="kernel_")
+    t_route = timing(torch, [lambda qi=qi, pi=pi: route(qi, pi)
+                             for qi, pi in sets], prefix="route_")
+    t_path = timing(torch, [lambda qi=qi, pi=pi: fused(qi, pi)
+                            for qi, pi in sets], prefix="path_")
+    t_lists = timing(torch, [lambda qi=qi, pi=pi: bg.beam_gather_lists(
+        qi, pi, lists, list_len, corpus) for qi, pi in sets[:SETS]])
+    t_b1 = timing(torch, [lambda qi=qi, c=c: bg.beam_gather(
+        qi, c, corpus, mode="l2") for qi, c in b1_sets])
+    del cand, scheds
+
+    # G's profiled search (run_ivf's, before any delta row): the fused
+    # kernel's ms in it
+    wall, dev, by_name = profile
+    mine = [v for n, v in by_name.items()
+            if "beam_gather_lists_topk_kernel" in n]
+    in_path, in_path_n = sum(v[0] for v in mine), sum(v[1] for v in mine)
+    check(in_path_n == n_batches, f"G: the profiled search shows "
+          f"{in_path_n} beam_gather_lists_topk_kernel launches for "
+          f"{n_batches} batches")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    topk_row = {
+        "name": "beam_gather_lists_topk", **shape, "k": K, "kl": kl,
+        "bound_ms": topk_ms, "bound_us": topk_ms * 1e3, "bound_by": topk_by,
+        "max_abs_err": topk_err, "digest": digest,
+        "bit_equal_to_topk_of_lists": True, "batches_checked": n_batches,
+        **t_topk, **t_kernel, **t_route, **t_path,
+        "plain_ms": time_ms(torch, lambda: ref.beam_gather_lists_topk_ref(
+            sub_q, sub_p, lists, list_len, corpus, K), reps=5, warmup=1),
+        "plain_timer": "call", "plain_Q": IVF_PLAIN_Q,
+        "tile_q": tq, "tiles": int(tiles.sum()),
+        "tile_fill": float(count[tiles].float().mean()) / tq,
+        "row_bytes_read": tile_rows * d * 4,
+        "in_path_ms": in_path, "in_path_launches": in_path_n,
+        "search_wall_ms": wall, "search_device_ms": dev,
+        "search_batches": n_batches,
+        "search_top_device_ms": [[n[:80], v[0]] for n, v in top]}
+    topk_row["share"] = topk_ms / topk_row["ms"]
+    topk_row["kernel_share"] = topk_ms / topk_row["kernel_ms"]
+    topk_row["launches_x_gap_ms"] = n_batches * (topk_row["kernel_ms"]
+                                                 - topk_ms)
+    log(topk_row)
     lists_row = {
         "name": "beam_gather_lists", **shape, "bound_ms": live_ms,
         "bound_us": live_ms * 1e3, "bound_by": live_by,
-        "bound_b1_ms": b_ms, "max_abs_err": lists_err, "digest": digest, "bit_equal_to_beam_gather": True, **t_lists,
+        "bound_b1_ms": b_ms, "max_abs_err": lists_err,
+        "digest": lists_digest, "bit_equal_to_beam_gather": True, **t_lists,
         "b1_ms": t_b1["ms"], "b1_call_ms": t_b1["call_ms"],
         "plain_ms": time_ms(torch, lambda: ref.beam_gather_lists_ref(
             sub_q, sub_p, lists, list_len, corpus), reps=5, warmup=1),
@@ -1952,7 +2151,7 @@ def ivf_lists_rows(torch, eng, queries, log):
     log(b1_row)
     del calls, sets, b1_sets
     torch.cuda.empty_cache()
-    return lists_row, b1_row
+    return topk_row, lists_row, b1_row
 
 
 @contextlib.contextmanager
@@ -2057,22 +2256,49 @@ def run_ivf(torch, corpus, queries, gt, new_rows, counters, log):
     check(ids.shape == (len(queries), K) and (ids >= 0).all(),
           "G: search returned unfilled slots")
     res["qps"] = len(queries) / secs
+    res["search_wall_ms_unprofiled"] = secs * 1e3
     res["recall_at_10"] = recall_at_k(ids, gt)
     res["search_launches"] = {k: v - before[k]
                               for k, v in counters.read().items()}
-    check(res["search_launches"]["beam_gather_lists"] > 0
-          and res["search_launches"]["beam_gather"] == 0,
-          f"G: the search ran B1's gather entry "
-          f"{res['search_launches']['beam_gather']} times, its list-major "
-          f"entry {res['search_launches']['beam_gather_lists']}")
+
+    # the same 10 batches once more under the profiler, before any delta
+    # row: the search's wall and device ms (scripts/profile_torch.py's G
+    # search span)
+    def search_batches():
+        for lo in range(0, len(queries), QUERY_BATCH):
+            eng.search(queries[lo: lo + QUERY_BATCH], K)
+
+    profile = profiled_ms(torch, search_batches)
+    n_batches = -(-len(queries) // QUERY_BATCH)
+    sl = res["search_launches"]
+    check(sl["beam_gather_lists_topk"] == n_batches
+          and sl["beam_gather_lists"] == 0 and sl["beam_gather"] == 0,
+          f"G: the search ran B1's fused list-major entry "
+          f"{sl['beam_gather_lists_topk']} times for {n_batches} batches, "
+          f"its matrix entry {sl['beam_gather_lists']}, its gather entry "
+          f"{sl['beam_gather']}")
     log({"search": {"phase": "G", "qps": res["qps"],
                     "recall_at_10": res["recall_at_10"]}})
     check(res["recall_at_10"] >= IVF_RECALL_FLOOR,
           f"G: recall@10 {res['recall_at_10']} under {IVF_RECALL_FLOOR}")
 
-    # persistence: the state loads on the card and answers the same
+    # past FUSED_MAX_K: the matrix entry and topk_smallest, whose first K
+    # hits are the fused entry's
     probe = queries[:QUERY_BATCH]
     want = eng.search(probe, K)
+    before = counters.read()
+    wide = eng.search(probe, IVF_WIDE_K)
+    wl = {k: v - before[k] for k, v in counters.read().items()}
+    check(wl["beam_gather_lists"] == 1 and wl["beam_gather_lists_topk"] == 0,
+          f"G: k = {IVF_WIDE_K} ran the matrix entry "
+          f"{wl['beam_gather_lists']} times, the fused one "
+          f"{wl['beam_gather_lists_topk']}")
+    check(np.array_equal(wide[1][:, :K], want[1])
+          and np.array_equal(wide[0][:, :K], want[0]),
+          f"G: the first {K} of k = {IVF_WIDE_K}'s hits differ from k = "
+          f"{K}'s")
+
+    # persistence: the state loads on the card and answers the same
     t0 = time.perf_counter()
     eng2 = QuantixarEngine.from_state_dict(cfg, eng.state_dict())
     res["state_round_trip_s"] = time.perf_counter() - t0
@@ -2122,8 +2348,10 @@ def run_ivf(torch, corpus, queries, gt, new_rows, counters, log):
         and c[2:] == (IVF_NPROBE, "l2") for c in probes),
           f"G: {len(probes)} coarse probes for {SETS} batches")
     res["probe_row"] = ivf_probe_row(torch, probes, log)
-    res["lists_row"], res["b1_row"] = ivf_lists_rows(torch, eng, queries,
-                                                     log)
+    res["topk_row"], res["lists_row"], res["b1_row"] = ivf_lists_rows(
+        torch, eng, queries, profile, log)
+    res["search_device_ms"] = res["topk_row"]["search_device_ms"]
+    res["search_wall_ms"] = res["topk_row"]["search_wall_ms"]
     log({"phase_result": {k: v for k, v in res.items()
                           if k not in ROW_KEYS}})
     del eng
@@ -3564,15 +3792,50 @@ N_L2_CELL = {"arch": QWEN2, "kind": "train", "batch": TRAIN_B,
 N_PEAK_RATIO = (0.8, 1.2)
 
 
-def start_dryrun():
+def core_halves(cpus):
+    """(lower, upper): ``cpus`` split into two halves of whole physical
+    cores (hyperthread siblings kept together, read from sysfs), so that
+    the two halves share no core; where the siblings cannot be read, the
+    lower and upper half of the list."""
+    groups = {}
+    for c in cpus:
+        try:
+            with open(f"/sys/devices/system/cpu/cpu{c}/topology/"
+                      "thread_siblings_list") as f:
+                key = f.read().strip()
+        except OSError:
+            key = str(c)
+        groups.setdefault(key, []).append(c)
+    cores = sorted(groups.values())
+    if len(cores) < 2:
+        return cpus, cpus
+    half = len(cores) // 2
+    return ([c for g in cores[:half] for c in g],
+            [c for g in cores[half:] for c in g])
+
+
+def pin_threads(cpus) -> None:
+    """Set the CPU affinity of every thread of this process (its tasks in
+    /proc/self/task) to ``cpus``."""
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            os.sched_setaffinity(int(tid), cpus)
+        except OSError:             # a thread that ended meanwhile
+            pass
+
+
+def start_dryrun(torch):
     """Phase N's child processes, started now: the dry run of N_ARCHS and
     the db cells on ``pod16x16`` in each variant (into OUT_DIR/dryrun),
     and its prediction of phase L2's cell.  {name: (process, log path)}.
-    They run niced, on the upper half of the cores this process may use
-    (the lower half is left to the phases' own host work)."""
+    They run niced, on the upper half of the physical cores this process
+    may use (`core_halves`), and until the last of them exits this
+    process's threads run on the lower half (torch's CPU threads as many),
+    so no timed phase shares a core with them; a watcher thread then gives
+    them every core back and records when (``pin_record``)."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     cpus = sorted(os.sched_getaffinity(0))
-    upper = cpus[len(cpus) // 2:] or cpus
+    lower, upper = core_halves(cpus)
 
     def below():
         os.nice(10)
@@ -3591,7 +3854,52 @@ def start_dryrun():
                                             stderr=subprocess.STDOUT,
                                             env=env, cwd=ROOT,
                                             preexec_fn=below), path)
+    pin_record["threads"] = torch.get_num_threads()
+    pin_threads(lower)
+    torch.set_num_threads(min(pin_record["threads"], len(lower)))
+    t0 = time.perf_counter()
+
+    def release():
+        for p, _ in procs.values():
+            p.wait()
+        pin_threads(cpus)
+        pin_record.update(pinned_s=time.perf_counter() - t0,
+                          main_cpus=lower, child_cpus=upper)
+
+    watch = threading.Thread(target=release, daemon=True)
+    watch.start()
+    pin_record["watcher"] = watch
     return procs
+
+
+# phase N: the watcher thread of `start_dryrun`, torch's CPU threads
+# before it, and how long this process ran on the lower half of its cores
+# beside the dry run's children (set when they have all exited)
+pin_record = {}
+
+
+def restore_threads(torch) -> None:
+    """Once the dry run's children have exited, give torch its CPU threads
+    back (a thread count is the calling thread's setting: the main thread
+    restores it, between phases)."""
+    if "pinned_s" in pin_record and \
+            torch.get_num_threads() != pin_record["threads"]:
+        torch.set_num_threads(pin_record["threads"])
+
+
+def settle_dryrun(torch, before, log) -> None:
+    """Wait for the dry run's children (if they still run), then give
+    torch its CPU threads back, so that phase ``before`` and every later
+    phase share the host with no child; log how long the wait took."""
+    watch = pin_record.get("watcher")
+    if watch is None:
+        return
+    t0 = time.perf_counter()
+    watch.join()
+    restore_threads(torch)
+    log({"dryrun_settled": {"before": before,
+                            "wait_s": time.perf_counter() - t0,
+                            "pinned_s": pin_record["pinned_s"]}})
 
 
 def stop_dryrun(procs) -> None:
@@ -3601,7 +3909,7 @@ def stop_dryrun(procs) -> None:
             p.wait()
 
 
-def run_dryrun(procs, l2, counters, log):
+def run_dryrun(torch, procs, l2, counters, log):
     """Phase N (i) and (ii): wait for the dry run, hold every record of
     its cells to ok or the reference's skip, and print its peak for L2's
     cell beside the card's (``l2``: phase L2's result).  The dry run runs
@@ -3610,8 +3918,11 @@ def run_dryrun(procs, l2, counters, log):
     counters.reset()
     t0 = time.perf_counter()
     codes = {name: p.wait() for name, (p, _) in procs.items()}
+    pin_record.pop("watcher").join()
     res = {"phase": "N", "wait_s": time.perf_counter() - t0,
-           "exit_codes": codes, "cells": {}, "launches": counters.read()}
+           "exit_codes": codes, "cells": {}, "launches": counters.read(),
+           "main_pinned": dict(pin_record)}
+    restore_threads(torch)
     for name in ("base", "opt"):
         with open(procs[name][1]) as f:
             tail = f.read().splitlines()[-3:]
@@ -3666,6 +3977,8 @@ class Counters:
                      "l2_distance": (l2, "launches"),
                      "l2_topk": (l2, "topk_launches"),
                      "beam_gather_lists": (beam_gather, "lists_launches"),
+                     "beam_gather_lists_topk": (beam_gather,
+                                                "topk_launches"),
                      "slstm": (slstm, "launches"),
                      "slstm_backward": (slstm, "backward_launches")}
 
@@ -3697,6 +4010,8 @@ def main(argv) -> int:
     log_f = open(log_path, "w")
 
     def log(obj):
+        if isinstance(obj, dict):       # seconds since the script started
+            obj = {**obj, "t_s": time.perf_counter() - t_start}
         line = json.dumps(obj, default=float)
         print(line, flush=True)
         log_f.write(line + "\n")
@@ -3777,7 +4092,8 @@ def main(argv) -> int:
                                  default=float))
             print(card)
             return 0
-        dryrun.update(start_dryrun())
+        dryrun.update(start_dryrun(torch))
+        log({"dryrun_started": sorted(dryrun)})
         topk_k_sweep(torch, sift_cos, sift_raw, log)
         small_topk_sweep(torch, {"raw": sift_raw, "unit": sift_cos,
                                  "signs": signs}, log)
@@ -3797,25 +4113,35 @@ def main(argv) -> int:
                 ("B", fm, fm_q, gt_fm, fm_new, "l2"),
                 ("C", sift, sift_q, gt_sift, sift_new, "cosine"),
                 ("D", sift, sift_q, gt_sift, sift_new, "cosine")):
+            restore_threads(torch)
             phase[name] = run_collection(torch, name, corpus, q, gt, new,
                                          metric, counters, log)
         rows.append(phase["D"]["fused_step"])
+        restore_threads(torch)
         phase["E"] = run_api(torch, sift, sift_q, gt_sift, sift_new,
                              phase["A"], counters, log)
+        settle_dryrun(torch, "G", log)
         phase["G"] = run_ivf(torch, sift, sift_q, gt_sift, sift_new,
                              counters, log)
+        restore_threads(torch)
         phase["H"] = run_cluster(torch, sift, sift_q, gt_sift, counters,
                                  log)
+        restore_threads(torch)
         phase["I"] = run_distributed(torch, sift, sift_q, quant_state,
                                      counters, log)
         del sift, sift_q, sift_new, fm, fm_q, fm_new, gt_sift, gt_fm
         torch.cuda.empty_cache()
+        restore_threads(torch)
         phase["F"], slstm_rows = run_xlstm(torch, counters, log)
         rows += slstm_rows
+        restore_threads(torch)
         phase["J"] = run_qwen2(torch, counters, log)
+        restore_threads(torch)
         phase["K"] = run_families(torch, counters, log)
+        restore_threads(torch)
         phase["L"] = run_training(torch, counters, log)
-        phase["N"] = run_dryrun(dryrun, phase["L"]["L2"], counters, log)
+        phase["N"] = run_dryrun(torch, dryrun, phase["L"]["L2"], counters,
+                                log)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3868,7 +4194,15 @@ def main(argv) -> int:
     # its list-major entry's on the same batches (at_ivf_lists, also its
     # own row, beam_gather_lists, with B1's b1_ms beside it: G runs B1
     # through that entry only; its bound_ms counts the live slots only,
-    # bound_b1_ms is B1's at the same shape); l2_topk's its rows on G's coarse probes
+    # bound_b1_ms is B1's at the same shape) and its fused top-k entry's
+    # (at_ivf_topk, also its own row, beam_gather_lists_topk: G's search
+    # runs it once a batch at k = 10, the matrix entry only past
+    # FUSED_MAX_K: one batch at IVF_WIDE_K; ms is the wrapper's device time,
+    # kernel_ms its C entry's alone, route_ms the matrix entry +
+    # topk_smallest + _slot_ids it replaced, path_ms the wrapper +
+    # _slot_ids, in_path_ms the kernel's ms in G's profiled search, whose
+    # device and wall ms it carries); hamming's rows at each of
+    # HAMMING_WIDTHS (at_widths); l2_topk's its rows on G's coarse probes
     # (at_ivf_probe: Q=1024 x the 1,024 centroids, l2, k=nprobe=32, with
     # route_ms, the matrix route flat_search takes there) and on one of H's
     # shards (at_shard: Q=1024 and 32 x ~250k unit rows, cosine, k=10).
@@ -3880,9 +4214,12 @@ def main(argv) -> int:
         "beam_gather": (pick("beam_gather", mode="dot", D=128, L=256), "A",
                         "beam_gather.py:98",
                         {"at_ivf": phase["G"]["b1_row"],
-                         "at_ivf_lists": phase["G"]["lists_row"]}),
+                         "at_ivf_lists": phase["G"]["lists_row"],
+                         "at_ivf_topk": phase["G"]["topk_row"]}),
         "beam_gather_lists": (phase["G"]["lists_row"], "G",
                               "beam_gather.py:98"),
+        "beam_gather_lists_topk": (phase["G"]["topk_row"], "G",
+                                   "beam_gather.py:98"),
         "pair_gather": (pick("pair_gather", mode="dot", D=128, C=60,
                              row0_frac=0.0), "A",
                         "bulk_prune.py:47"),
@@ -3897,7 +4234,10 @@ def main(argv) -> int:
                    {"at_dims_split": phase["I"]["pq_row"]}),
         "hamming": (pick("hamming", N=FLAT_CHUNK, W=BQ_BITS // 32), "D",
                     "hamming.py:33",
-                    {"at_dims_split": phase["I"]["hamming_row"]}),
+                    {"at_dims_split": phase["I"]["hamming_row"],
+                     "at_widths": [r for r in rows if r["name"] == "hamming"
+                                   and r["N"] == FLAT_CHUNK
+                                   and r["Q"] == QUERY_BATCH]}),
         "l2_distance": (pick("l2_distance", mode="dot", D=128, Q=32,
                              N=FLAT_CHUNK), "E", "l2.py:62",
                         {"at_dims_split": phase["I"]["l2_rows"]}),
@@ -3939,7 +4279,10 @@ def main(argv) -> int:
             **{k: r[k] for k in ("call_ms", "plain_call_ms",
                                  "library_call_ms", "bound_fp32_ms",
                                  "bound_b1_ms", "share_b1", "b1_ms",
-                                 "route_ms",
+                                 "route_ms", "route_call_ms", "kernel_ms",
+                                 "kernel_call_ms", "kernel_share",
+                                 "path_ms", "launches_x_gap_ms",
+                                 "search_device_ms", "search_wall_ms",
                                  "path", "floor_ms", "digest",
                                  "in_path_ms", "in_path_launches",
                                  "fresh_share", "share", "rel_l2",

@@ -14,8 +14,10 @@ under a ~5 % mask (the flat route) it prints, as one JSON line each:
   device_ms  summed duration of every device event (kernels, copies, sets)
              that starts in the span, and busy = device_ms / wall_ms (one
              stream, so the events do not overlap);
-  <kernel>_ms  each of the port's CUDA kernels' share (beam_gather and
-             beam_gather_lists: B1's gather and list-major entries,
+  <kernel>_ms  each of the port's CUDA kernels' share (beam_gather,
+             beam_gather_lists and beam_gather_lists_topk: B1's gather
+             entry and its list-major entries, the matrix one and the fused
+             top-k one,
              pair_gather, beam_gather_adc, beam_gather_hamming (both of
              B4's entries), pq_adc, hamming, l2_distance, l2_topk: B5's
              matrix and fused entries), and <kernel>_launches its count;
@@ -40,9 +42,14 @@ under a ~5 % mask (the flat route) it prints, as one JSON line each:
 ``--phase G`` builds and searches phase G's IVF engine instead (cosine,
 nlist 1,024, nprobe 32; the build spans are "kmeans" and "lists", the
 last span empty): the search span gives B1's list-major entry's ms over
-the probed lists (``beam_gather_lists``) against the coarse probe's
-(``l2_distance``: the matrix route, k = nprobe past the fused entry's fast
-k), the candidates' top-k (``topk_ms``) and the host's.
+the probed lists (``beam_gather_lists_topk``, the fused top-k entry at k =
+10; ``beam_gather_lists`` and the candidates' top-k, ``topk_ms``, in a
+tree without it) against the coarse probe's (``l2_distance``: the matrix
+route, k = nprobe past the fused entry's fast k) and the host's.  The
+search span holds the process's first searches, right after the build
+(each kernel's and torch operation's first use in the process), so G also
+prints a "search_again" span: the same batches once more, warm, as
+``chip_smoke.py``'s G profiles them.
 
 ``--phase H`` profiles phase H's sharded collection instead: the same
 corpus by string id in an exact cosine collection at 4 shards x 2
@@ -156,6 +163,7 @@ IVF_NLIST, IVF_NPROBE = 1024, 32
 # parts no other kernel's name contains
 KERNELS = {"beam_gather": ("beam_gather_f32_kernel",),
            "beam_gather_lists": ("beam_gather_lists_kernel",),
+           "beam_gather_lists_topk": ("beam_gather_lists_topk_kernel",),
            "pair_gather": ("pair_gather_f32_kernel",),
            "beam_gather_adc": ("beam_gather_adc_kernel",),
            "beam_gather_hamming": ("beam_gather_hamming_kernel",),
@@ -935,6 +943,13 @@ def main() -> int:
                 torch.cuda.synchronize()
             if fused is not None:
                 ops.beam_gather_hamming_masked = fused
+        if args.phase == "G":
+            with record_function("span::search_again"):
+                for lo in range(0, len(q), QUERY_BATCH):
+                    eng.search(q[lo: lo + QUERY_BATCH], K, ef=EF,
+                               expansion_width=WIDTH)
+                if on_card:
+                    torch.cuda.synchronize()
         with record_function("span::flat_route"):
             eng.search(q[:QUERY_BATCH], K, mask=mask5)
             if on_card:

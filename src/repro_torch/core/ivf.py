@@ -23,13 +23,18 @@ each round fixes one more closing: at most ``nlist`` rounds of O(N) work.
 `_ivf_search` on the CPU follows the reference step by step (norm-expansion
 distances, tie-stable top-k).  On the card the coarse probe is the exact
 scan ``flat_search`` over the centroids, and the candidates' distances are
-B1's list-major entry ``beam_gather_lists`` (diff-square-sum, bit for bit
-B1 ``beam_gather`` over ``lists[probe]``), which reads each probed list once
-a tile of the queries that probe it and takes the lists' live lengths
+B1's list-major entries (diff-square-sum, bit for bit B1 ``beam_gather``
+over ``lists[probe]``), which read each probed list once a tile of the
+queries that probe it and take the lists' live lengths
 (``IVFIndex.list_len``) in place of the (Q, nprobe·max_list) block of
-candidate ids; a kept slot's id is read back from the probe and the lists.
-So ids match the CPU's except at near-ties and distances within B1's
-tolerance.
+candidate ids.  Where the top-k is at most ``FUSED_MAX_K`` (100,
+`lists_take_fused`) one launch of the fused entry ``beam_gather_lists_topk``
+keeps each (query, list)'s k smallest and one selection merges them: the
+(Q, nprobe·max_list) distances are never written.  Past it the matrix
+entry ``beam_gather_lists`` writes them and ``topk_smallest`` selects; the
+two give the same bits.  A kept slot's id is read back from the probe and
+the lists.  So ids match the CPU's except at near-ties and distances
+within B1's tolerance.
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ from ..kernels import ops
 from ..kernels.beam_gather import MAX_LIST_SLOTS
 from ..kernels.ref import PAD, topk_smallest
 from .distances import normalize
-from .flat import flat_search
+from .flat import FUSED_MAX_K, flat_search
 from .pq import _fit_one_subspace, _sq_dists
 
 #: bytes of one query chunk's candidate block: the (Q, C) distances on the
@@ -181,6 +186,36 @@ def live_lengths(lists: torch.Tensor) -> torch.Tensor:
     return torch.where(lists != PAD, pos, 0).amax(1)
 
 
+def lists_take_fused(k: int, c: int) -> bool:
+    """Whether the card's IVF search of top-k over c candidates a query
+    takes the fused entry ``beam_gather_lists_topk`` (else the matrix entry
+    ``beam_gather_lists`` and ``topk_smallest``): min(k, c) up to
+    ``FUSED_MAX_K``, the exact scan's limit too."""
+    return 0 < min(k, c) <= FUSED_MAX_K
+
+
+def list_candidates(q: torch.Tensor, probe: torch.Tensor,
+                    lists: torch.Tensor, list_len: torch.Tensor,
+                    corpus: torch.Tensor, k: int, fused: bool
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One query chunk of the card's search over its probed lists: the k
+    smallest candidate distances (+inf on PAD slots and past each list's
+    live length) and their columns of the (Q, nprobe·max_list) candidate
+    block, by the fused entry or by the matrix entry and ``topk_smallest``
+    (the same bits; CPU tensors take the plain versions)."""
+    if fused:
+        return ops.beam_gather_lists_topk(q, probe, lists, list_len, corpus,
+                                          k)
+    d = ops.beam_gather_lists_distances(q, probe, lists, list_len, corpus)
+    return topk_smallest(d, k)
+
+
+def hit_ids(dk: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The search's ids: -1 where the distance is +inf (a PAD slot, a slot
+    past its list's length, or no candidate left)."""
+    return torch.where(torch.isfinite(dk), ids, torch.full_like(ids, -1))
+
+
 def _slot_ids(lists: torch.Tensor, probe: torch.Tensor,
               idx: torch.Tensor) -> torch.Tensor:
     """The ids at columns ``idx`` (Q, k) of the (Q, nprobe·max_list)
@@ -226,7 +261,13 @@ def _ivf_search(corpus: torch.Tensor, queries: torch.Tensor,
     else:
         cand = lists[probe].reshape(nq, -1)
     # 3. exact distances to the candidates, a chunk of queries at a time
-    row_bytes = c * 4 * (1 if card else corpus.shape[1])
+    # (on the card the fused entry holds nprobe lists of min(kk, max_list)
+    # keys a query, the matrix entry c distances)
+    fused = card and lists_take_fused(k, c)
+    if fused:
+        row_bytes = probe.shape[1] * min(kk, lists.shape[1]) * 8
+    else:
+        row_bytes = c * 4 * (1 if card else corpus.shape[1])
     step = max(1, min(IVF_BLOCK_BYTES // max(row_bytes, 1),
                       MAX_LIST_SLOTS // max(c, 1)))
     out_d, out_i = [], []
@@ -234,10 +275,8 @@ def _ivf_search(corpus: torch.Tensor, queries: torch.Tensor,
         qc = q[lo: lo + step]
         if card:
             pc = probe[lo: lo + step]
-            # +inf on PAD slots and past each list's live length
-            d = ops.beam_gather_lists_distances(qc, pc, lists, list_len,
-                                                corpus)
-            dk, idx = topk_smallest(d, kk)
+            dk, idx = list_candidates(qc, pc, lists, list_len, corpus, kk,
+                                      fused)
             ids = _slot_ids(lists, pc, idx)
         else:
             cc = cand[lo: lo + step]
@@ -248,8 +287,7 @@ def _ivf_search(corpus: torch.Tensor, queries: torch.Tensor,
             dk, idx = topk_smallest(d, kk)
             ids = cc.gather(1, idx)
         out_d.append(dk)
-        out_i.append(torch.where(torch.isfinite(dk), ids,
-                                 torch.full_like(ids, -1)))
+        out_i.append(hit_ids(dk, ids))
     if not out_d:
         return (q.new_zeros((0, kk)),
                 torch.zeros((0, kk), dtype=torch.int32, device=q.device))

@@ -88,6 +88,57 @@
 // Entries must lie in [0, nlist) (probe) and ids other than PAD in
 // [0, N), clamped there as above; Q * P * M must stay under 2^31 (int32
 // output offsets; the wrapper checks).
+//
+// ---------------------------------------------------------------------------
+// Third entry, beam_gather_lists_topk_f32: the second with the candidates'
+// top-k fused in, what core/ivf.py's card path runs for k <= 100.
+//
+// Computes: topk_smallest (core/flat.py) of the second entry's (Q, P * M)
+// output without writing it: for each (query, rank j) entry the kl =
+// min(k, M) smallest 64-bit keys (order-preserving float bits above the
+// column j * M + r) of its list's slots, +inf on PAD and past list_len,
+// into cand (Q, P, kl); the wrapper merges a query's P * kl keys with one
+// selection.  Its distances are the second entry's, bit for bit (the same
+// per-thread tree), so they are B1's.
+//
+// What bounds it on an H100: at G's shape (Q 1,024, P 32, M 1,465, D 128)
+// the fp32 work on the live slots, ~32 M pairs x 128 x 3 flops, 0.19 ms at
+// 67 TFLOP/s, against ~0.16 ms of bytes (the unique rows once, the
+// queries, probe, lists and the (Q, P, k) keys).  The second entry's
+// stage split (scripts/lists_stage_cycles.py, PERF.md) puts the time in
+// the arithmetic, not the copies: rows alone 32 % of it, the +inf fill
+// and the stores 11 %; the (Q, P * M) matrix it writes (192 MB) and the
+// top-k over it took three times the kernel.  Tensor cores stay out for
+// the reason above.
+//
+// Design: the second entry's schedule and tiles (a block a list and 32 of
+// its queries, 8 past D = 356), the lists taken longest first (the wrapper's
+// `order`), so that the grid's tail is its shortest blocks, and no
+// __syncthreads in the loop:
+//  - a producer warp fills a ring of 2-4 stages of rows (2 where two blocks
+//    fit an SM, as at D = 128): per live row one bulk asynchronous copy
+//    (cp.async.bulk: 16-byte aligned rows, D % 4 == 0) completing its
+//    bytes on the stage's "full" mbarrier, lane 0 first arriving with the
+//    stage's byte count; other rows by 4-byte cp.async and
+//    cp.async.mbarrier.arrive; it refills a stage once the consumer warps
+//    arrive on its "empty" mbarrier;
+//  - eight consumer warps run the second entry's register tile (4 queries
+//    x 2 rows a thread, B1's tree) on each arrived stage and release it;
+//    warps whose queries all lie past a partial tile's last leave at once;
+//  - each consumer warp keeps its queries' lists of kl keys in registers
+//    across its lanes: the first 32 slots of a list of at most 32 keys
+//    sorted by a bitonic network, then a slot whose key is below the
+//    list's kl-th survives (a ballot) and the survivors go in one at a
+//    time (an insertion by ballot and shuffle), each raising the kl-th,
+//    which drops the survivors above it (l2_topk's threshold rule).  At the
+//    end a list with fewer live slots than kl takes +inf keys at the
+//    columns from list_len on, the next smallest.
+// Past D = 796 the rows come from global memory (no ring).  k up to 32
+// keeps one chunk of keys a lane, up to 128 four.  Tried and measured
+// slower on G's batches (PERF.md): one selector warp fed the consumers'
+// distance tiles through shared memory (the selection then ran serially),
+// a radix-selected first bound, merging a ballot's survivors at once, and
+// the warp's queries' insertions interleaved round by round.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -548,4 +599,483 @@ extern "C" int beam_gather_lists_f32(const float* q, const int32_t* entries,
   return vec ? launch_lists<1, 1, true, false, false>(LISTS_ARGS, 0, s)
              : launch_lists<1, 1, false, false, false>(LISTS_ARGS, 0, s);
 #undef LISTS_ARGS
+}
+
+// ---------------------------------------------------------------------------
+// beam_gather_lists_topk_f32: the list-major entry with the candidates'
+// top-k fused in (see the note at the top)
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int kTopkConsumers = kListThreads;  // warps 0-7: the arithmetic
+constexpr int kTopkProducer = kListWarps;     // warp 8: the rows' copies
+constexpr int kTopkThreads = kTopkConsumers + 32;
+constexpr int kTopkMaxRing = 4;
+constexpr int kTopkChunks = 4;   // a query's list: up to 32 * 4 keys
+constexpr long long kEmptyKey = 0x7FFFFFFFFFFFFFFFLL;   // above every key
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(b)),
+               "r"(count));
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* b, int parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred P;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2;\n"
+      "selp.b32 %0, 1, 0, P;\n}\n"
+      : "=r"(ok)
+      : "r"(smem_u32(b)), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+// a phase that has not completed in 2^35 clocks (~17 s) is a deadlock:
+// trap, so that the launch fails instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* b, int parity) {
+  if (mbar_try_wait(b, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(b, parity))
+    if (clock64() - t0 > (1ll << 35)) __trap();
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(b))
+               : "memory");
+}
+
+// arrive, and expect `bytes` more of asynchronous copies this phase
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(b)),
+               "r"(bytes)
+               : "memory");
+}
+
+// one bulk asynchronous copy global -> shared (16-byte aligned ends, a
+// multiple of 16 bytes), completing its bytes on mbarrier b
+__device__ __forceinline__ void bulk_g2s(float* dst, const float* src,
+                                         int bytes, uint64_t* b) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(b))
+      : "memory");
+}
+
+// mbarrier b counts one arrival when this thread's earlier cp.async copies
+// have landed (its initial count includes that arrival)
+__device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* b) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   smem_u32(b))
+               : "memory");
+}
+
+// the consumer warps meet here (barrier 0 is __syncthreads')
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kTopkConsumers) : "memory");
+}
+
+// float bits -> int32 in the same order: -0.0 below +0.0, NaN above +inf
+__device__ __forceinline__ int ordered(float d) {
+  const int b = __float_as_int(d);
+  return b ^ ((b >> 31) & 0x7FFFFFFF);
+}
+
+// core/flat.py's topk_smallest key: the float's bits in order in the high
+// word, the column in the low word
+__device__ __forceinline__ long long order_key(float d, int col) {
+  return (static_cast<long long>(ordered(d)) << 32) |
+         static_cast<long long>(static_cast<uint32_t>(col));
+}
+
+// the warp's 32 keys (one a lane) in ascending order across the lanes: a
+// bitonic sort, 15 exchange steps by shuffle
+__device__ __forceinline__ long long warp_sort(long long x, int lane) {
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1)
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const long long y = __shfl_xor_sync(0xffffffffu, x, j);
+      const bool keep_min = ((lane & j) == 0) == ((lane & k) == 0);
+      x = keep_min ? (y < x ? y : x) : (y > x ? y : x);
+    }
+  return x;
+}
+
+// a warp's ascending list of up to 32 * KC keys, position 32 c + lane in
+// v[c] of that lane; unused positions hold kEmptyKey
+template <int KC>
+struct WarpList {
+  long long v[KC];
+
+  // the key at position p, in every lane
+  __device__ __forceinline__ long long at(int p) const {
+    long long x = v[0];
+#pragma unroll
+    for (int c = 1; c < KC; ++c)
+      if (c == (p >> 5)) x = v[c];
+    return __shfl_sync(0xffffffffu, x, p & 31);
+  }
+
+  // insert key (the same in every lane, not in the list): the keys below
+  // it keep their places, the rest move up one
+  __device__ __forceinline__ void insert(long long key, int lane) {
+    int pos = 0;
+#pragma unroll
+    for (int c = 0; c < KC; ++c)
+      pos += __popc(__ballot_sync(0xffffffffu, v[c] < key));
+    long long last[KC], up[KC];
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+      last[c] = __shfl_sync(0xffffffffu, v[c], 31);
+      up[c] = __shfl_up_sync(0xffffffffu, v[c], 1);
+    }
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+      const long long prev = lane > 0 ? up[c] : (c > 0 ? last[c - 1] : key);
+      const int p = 32 * c + lane;
+      v[c] = p < pos ? v[c] : (p == pos ? key : prev);
+    }
+  }
+};
+
+// TQ of the fused entry: the wide tile where its ring of two stages fits in
+// shared memory, else the narrow one (the matrix entry's rule)
+inline int topk_tile_q(int D) { return list_tile_q(D); }
+
+// dynamic shared memory: the queries and the ring of rows
+inline size_t topk_smem(int tq, int tr, int D, int ring) {
+  return static_cast<size_t>(tq + ring * tr) * list_stride(D) * sizeof(float);
+}
+
+// kStage cuts the kernel for scripts/lists_stage_cycles.py: 0 the schedule
+// alone, 1 and the ring, 2 and the arithmetic (no selection), 3 the whole
+// kernel (the only one the entry launches)
+template <int A, int B, bool kVec, bool kOne, bool kStaged, int KC,
+          int kStage>
+__global__ void __launch_bounds__(kTopkThreads,
+                                  A * B > 1 && KC == 1 ? 2 : 1)
+beam_gather_lists_topk_kernel(const float* __restrict__ q,
+                              const int32_t* __restrict__ entries,
+                              const int32_t* __restrict__ starts,
+                              const int32_t* __restrict__ tile_end,
+                              const int32_t* __restrict__ order,
+                              const int32_t* __restrict__ lists,
+                              const int32_t* __restrict__ list_len,
+                              const float* __restrict__ corpus,
+                              long long* __restrict__ cand, int P, int M,
+                              int D, int N, int nlist, int kl, int ring_n) {
+  constexpr int TQ = kListWarps * A;
+  constexpr int TR = 32 * B;
+  extern __shared__ float4 topk_smem4[];
+  __shared__ int ent_s[TQ];
+  __shared__ __align__(8) uint64_t full[kTopkMaxRing];
+  __shared__ __align__(8) uint64_t empty[kTopkMaxRing];
+
+  // the block's list and tile: the first place in `order` whose tile_end
+  // exceeds the block's index (the lists longest first, so the grid's
+  // last blocks are its shortest)
+  const int blk = blockIdx.x;
+  int lo = 0, hi = nlist;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (tile_end[mid] > blk) hi = mid; else lo = mid + 1;
+  }
+  if (lo == nlist) return;                       // past the last tile
+  const int lst = order[lo];
+  const int first = starts[lst], count = starts[lst + 1] - first;
+  const int t = blk - (tile_end[lo] - (count + TQ - 1) / TQ);
+  const int ne = min(TQ, count - t * TQ);
+  const int R = min(max(list_len[lst], 0), M);
+  const int32_t* ids = lists + static_cast<size_t>(lst) * M;
+  const int n_stages = (R + TR - 1) / TR;
+  // the consumer warps that hold a query of this tile; the others leave
+  const int n_active = min(kListWarps, (ne + A - 1) / A);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int stride = list_stride(D);
+  float* q_s = reinterpret_cast<float*>(topk_smem4);
+  float* ring = q_s + TQ * stride;
+
+  if (kStaged && tid == 0) {
+    for (int s = 0; s < ring_n; ++s) {
+      mbar_init(&full[s], kVec ? 1 : 32);
+      mbar_init(&empty[s], n_active);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (int i = tid; i < TQ; i += kTopkThreads)
+    ent_s[i] = i < ne ? entries[first + t * TQ + i] : -1;
+  __syncthreads();
+  if (kStage == 0) return;
+
+  if (warp == kTopkProducer) {
+    // ------------------------------------------------------- producer
+    if (!kStaged) return;
+    for (int s = 0; s < n_stages; ++s) {
+      const int slot = s % ring_n, ph = (s / ring_n) & 1;
+      mbar_wait(&empty[slot], ph ^ 1);
+      float* stage = ring + slot * TR * stride;
+      const int r0 = s * TR, nr = min(TR, R - r0);
+      if constexpr (kVec) {
+        // one bulk copy a live row, its bytes expected first
+        int id[B], n_live = 0;
+#pragma unroll
+        for (int b = 0; b < B; ++b) {
+          const int i = lane + 32 * b;
+          id[b] = i < nr ? ids[r0 + i] : kPad;
+          n_live += __popc(__ballot_sync(0xffffffffu, id[b] != kPad));
+        }
+        if (lane == 0) mbar_expect_tx(&full[slot], n_live * D * 4);
+        __syncwarp();
+#pragma unroll
+        for (int b = 0; b < B; ++b)
+          if (id[b] != kPad)
+            bulk_g2s(stage + (lane + 32 * b) * stride,
+                     corpus +
+                         static_cast<size_t>(min(max(id[b], 0), N - 1)) * D,
+                     D * 4, &full[slot]);
+      } else {
+        // rows that bulk copies cannot take: 4-byte cp.async, then one
+        // arrival a lane once its copies have landed
+        for (int i = lane; i < nr * D; i += 32) {
+          const int r = i / D, c = i - r * D;
+          const int id = ids[r0 + r];
+          if (id == kPad) continue;
+          cp_async4_ca(stage + r * stride + c,
+                       corpus + static_cast<size_t>(min(max(id, 0), N - 1)) * D
+                           + c);
+        }
+        cp_async_arrive_noinc(&full[slot]);
+      }
+    }
+    return;
+  }
+
+  // --------------------------------------------------------- consumers
+  if (kStaged) {
+    for (int i = tid; i < TQ * D; i += kTopkConsumers) {
+      const int qt = i / D, d = i - qt * D;
+      q_s[qt * stride + d] =
+          qt < ne ? q[static_cast<size_t>(ent_s[qt] / P) * D + d] : 0.f;
+    }
+    consumers_sync();
+  }
+  if (warp >= n_active) return;
+
+  const float* qr[A];
+  int qent[A], colbase[A];
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    const int qt = warp * A + a;
+    qent[a] = ent_s[qt];
+    colbase[a] = qent[a] >= 0 ? (qent[a] % P) * M : 0;
+    qr[a] = kStaged ? q_s + qt * stride
+                    : q + static_cast<size_t>(qt < ne ? qent[a] / P : 0) * D;
+  }
+  WarpList<KC> top[A];
+  long long thr[A];
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+#pragma unroll
+    for (int c = 0; c < KC; ++c) top[a].v[c] = kEmptyKey;
+    thr[a] = kEmptyKey;
+  }
+
+  for (int s = 0; s < n_stages; ++s) {
+    const int r0 = s * TR;
+    const int slot = kStaged ? s % ring_n : 0;
+    const float* stage = ring + slot * TR * stride;
+    if (kStaged) mbar_wait(&full[slot], (s / ring_n) & 1);
+    const float* xr[B];
+    int rid[B];
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const int r = r0 + lane + 32 * b;
+      rid[b] = r < R ? ids[r] : kPad;
+      xr[b] = kStaged ? stage + (lane + 32 * b) * stride
+                      : corpus + static_cast<size_t>(
+                                     min(max(rid[b], 0), N - 1)) * D;
+    }
+    float res[A][B];
+    if (kStage >= 2)
+      pair_tile<A, B, kVec, kOne, kStaged>(qr, xr, D, res,
+                                     std::make_integer_sequence<int, 32>{});
+    if (kStaged) {                 // the stage's rows are read: release it
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[slot]);
+    }
+    if (kStage == 2) {
+      // keep the arithmetic: a store where a distance has NaN bits of the
+      // run's own choosing, which none has
+#pragma unroll
+      for (int a = 0; a < A; ++a)
+#pragma unroll
+        for (int b = 0; b < B; ++b)
+          if (__float_as_int(res[a][b]) == (0x7fc00000 | kl)) cand[0] = 0;
+    }
+    if (kStage < 3) continue;
+    // the selection: a slot enters its query's list if its key is below
+    // the list's kl-th; the lanes' survivors go in one at a time, each
+    // raising the kl-th, which drops the survivors above it.  A list of at
+    // most 32 keys starts as the first 32 slots sorted across the warp
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+      if (qent[a] < 0) continue;
+#pragma unroll
+      for (int b = 0; b < B; ++b) {
+        const int r = r0 + lane + 32 * b;
+        const float v = rid[b] == kPad ? plus_inf() : res[a][b];
+        const long long key = order_key(v, colbase[a] + r);
+        if (KC == 1 && s == 0 && b == 0) {
+          const long long sorted = warp_sort(r < R ? key : kEmptyKey, lane);
+          top[a].v[0] = lane < kl ? sorted : kEmptyKey;
+          thr[a] = top[a].at(kl - 1);
+          continue;
+        }
+        unsigned m = __ballot_sync(0xffffffffu, r < R && key < thr[a]);
+        while (m) {
+          const int src = __ffs(m) - 1;
+          top[a].insert(__shfl_sync(0xffffffffu, key, src), lane);
+          thr[a] = top[a].at(kl - 1);
+          m = (m & (m - 1)) &
+              __ballot_sync(0xffffffffu, r < R && key < thr[a]);
+        }
+      }
+    }
+  }
+  if (kStage < 3) return;
+
+  // each query's kl keys; a list with fewer live slots than kl takes its
+  // next smallest keys, +inf at the columns from R on
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    if (qent[a] < 0) continue;
+    int filled = 0;
+#pragma unroll
+    for (int c = 0; c < KC; ++c)
+      filled += __popc(__ballot_sync(0xffffffffu, top[a].v[c] != kEmptyKey));
+    long long* o = cand + static_cast<size_t>(qent[a]) * kl;
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+      const int p = 32 * c + lane;
+      if (p < kl)
+        o[p] = top[a].v[c] != kEmptyKey
+                   ? top[a].v[c]
+                   : order_key(plus_inf(), colbase[a] + R + p - filled);
+    }
+  }
+}
+
+template <int A, int B, bool kVec, bool kOne, bool kStaged, int KC,
+          int kStage = 3>
+int launch_topk(const float* q, const int32_t* entries, const int32_t* starts,
+                const int32_t* tile_end, const int32_t* order,
+                const int32_t* lists,
+                const int32_t* list_len, const float* corpus,
+                long long* cand, int P, int M, int D, int N, int nlist,
+                int kl, int ring_n, int blocks, size_t smem,
+                cudaStream_t s) {
+  auto kernel =
+      beam_gather_lists_topk_kernel<A, B, kVec, kOne, kStaged, KC, kStage>;
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+  kernel<<<blocks, kTopkThreads, smem, s>>>(q, entries, starts, tile_end,
+                                            order, lists, list_len, corpus,
+                                            cand, P, M, D, N, nlist, kl,
+                                            ring_n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the ring's depth: the deepest (2 to 4 stages) that keeps two blocks an
+// SM where two fit with two stages, else the deepest that fits one
+inline int topk_ring(int tq, int tr, int D) {
+  const size_t two = (kListSmemMax + 1024) / 2 - 1024;
+  int best = 0;
+  for (int r = 2; r <= kTopkMaxRing; ++r)
+    if (topk_smem(tq, tr, D, r) <= two) best = r;
+  if (best) return best;
+  for (int r = 2; r <= kTopkMaxRing; ++r)
+    if (topk_smem(tq, tr, D, r) <= kListSmemMax) best = r;
+  return best;
+}
+
+template <int KC>
+int dispatch_topk(const float* q, const int32_t* entries,
+                  const int32_t* starts, const int32_t* tile_end,
+                  const int32_t* order, const int32_t* lists,
+                  const int32_t* list_len,
+                  const float* corpus, long long* cand, int P, int M, int D,
+                  int N, int nlist, int kl, int blocks, bool vec,
+                  cudaStream_t s) {
+#define TOPK_ARGS q, entries, starts, tile_end, order, lists, list_len, \
+    corpus, cand, P, M, D, N, nlist, kl
+  const int tq = topk_tile_q(D);
+  if (tq == kListWarps * kWideA) {
+    const int tr = 32 * kWideB;
+    const int rn = topk_ring(tq, tr, D);
+    const size_t smem = topk_smem(tq, tr, D, rn);
+    if (rn < 2) return static_cast<int>(cudaErrorInvalidValue);
+    if (vec && D == 128)
+      return launch_topk<kWideA, kWideB, true, true, true, KC>(
+          TOPK_ARGS, rn, blocks, smem, s);
+    return vec ? launch_topk<kWideA, kWideB, true, false, true, KC>(
+                     TOPK_ARGS, rn, blocks, smem, s)
+               : launch_topk<kWideA, kWideB, false, false, true, KC>(
+                     TOPK_ARGS, rn, blocks, smem, s);
+  }
+  const int rn = topk_ring(tq, 32, D);
+  if (rn >= 2) {
+    const size_t smem = topk_smem(tq, 32, D, rn);
+    return vec ? launch_topk<1, 1, true, false, true, KC>(TOPK_ARGS, rn,
+                                                          blocks, smem, s)
+               : launch_topk<1, 1, false, false, true, KC>(TOPK_ARGS, rn,
+                                                           blocks, smem, s);
+  }
+  // too wide to stage: the same tile from global memory, no ring
+  return vec ? launch_topk<1, 1, true, false, false, KC>(TOPK_ARGS, 1,
+                                                         blocks, 0, s)
+             : launch_topk<1, 1, false, false, false, KC>(TOPK_ARGS, 1,
+                                                          blocks, 0, s);
+#undef TOPK_ARGS
+}
+
+}  // namespace
+
+// cand (Q, P, kl) int64: for each (query, rank j) entry the kl = min(k, M)
+// smallest topk_smallest keys of its list's slots (columns j * M + r, +inf
+// on PAD and past list_len).  The schedule is the second entry's with the
+// lists taken in `order` (tile_end summed in that order); the ring's
+// depth is topk_ring's
+extern "C" int beam_gather_lists_topk_f32(
+    const float* q, const int32_t* entries, const int32_t* starts,
+    const int32_t* tile_end, const int32_t* order, const int32_t* lists,
+    const int32_t* list_len, const float* corpus, long long* cand, int Q,
+    int P, int M, int D, int N, int nlist, int k, void* stream) {
+  if (Q <= 0 || P <= 0 || M <= 0) return static_cast<int>(cudaSuccess);
+  const int kl = k < M ? k : M;
+  const int64_t tq = topk_tile_q(D);
+  const int64_t blocks = (static_cast<int64_t>(Q) * P + tq - 1) / tq + nlist;
+  if (D <= 0 || N <= 0 || nlist <= 0 || kl < 1 ||
+      kl > 32 * kTopkChunks || static_cast<int64_t>(Q) * P > INT32_MAX ||
+      static_cast<int64_t>(P) * M > INT32_MAX || blocks > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec =
+      (D & 3) == 0 && (reinterpret_cast<uintptr_t>(corpus) & 15) == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nb = static_cast<int>(blocks);
+  if (kl <= 32)
+    return dispatch_topk<1>(q, entries, starts, tile_end, order, lists,
+                            list_len, corpus, cand, P, M, D, N, nlist, kl,
+                            nb, vec, s);
+  return dispatch_topk<kTopkChunks>(q, entries, starts, tile_end, order,
+                                     lists, list_len, corpus, cand, P, M, D,
+                                     N, nlist, kl, nb, vec, s);
 }

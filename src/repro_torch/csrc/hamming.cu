@@ -19,9 +19,17 @@
 // Here a block takes 32 queries x 1,024 corpus rows: the queries' words sit
 // in shared memory (every lane reads the same word: a broadcast, no bank
 // conflict), and each of the 256 threads walks 4 rows, loads each row's
-// W words into registers once (two 16-byte loads at W = 8), and for each of
-// the 32 queries XORs, popcounts and writes out[q, n] (lanes on consecutive
-// n: coalesced stores).  Integer arithmetic: the result is exact.
+// W words into registers once, and for each of the 32 queries XORs,
+// popcounts and writes out[q, n] (lanes on consecutive n: coalesced
+// stores).  The register path is compiled for kW in {1, 2, 4, 8, 16} words
+// and takes every W up to 16: a W between two of them runs at the next
+// (the row's words past W are zeros in registers, the queries' zeros in
+// shared memory, and popc(0 ^ 0) adds nothing).  Rows load as 16-byte
+// vectors where W = kW is a multiple of 4 and the corpus is 16-byte
+// aligned (W = 4: one load, W = 8: two, the database's 256-bit codes, and
+// the "dims" layout's 128-bit halves), else a word at a time into
+// registers.  Past 16 words a row is read from memory once per query.
+// Integer arithmetic: the result is exact.
 //
 // The kernel allocates nothing, launches on the caller's stream and returns
 // cudaGetLastError().
@@ -36,17 +44,22 @@ constexpr int kRowsPerThread = 4;
 constexpr int kRowsPerBlock = kThreads * kRowsPerThread;
 constexpr int kTQ = 32;
 
-// kW == 8 (256 bits, the repo's database config): the row's words held in
-// registers (two 16-byte loads); kW == 0: any W, read from memory per query
-template <int kW>
+// kW > 0: the row's W <= kW words held in registers (kVec: kW / 4 16-byte
+// loads, W == kW; else a word at a time, zeros past W), each query's words
+// padded with zeros to kW in shared memory; kW == 0: any W, the row read
+// from memory per query
+template <int kW, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 hamming_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ x,
                int32_t* __restrict__ out, int Q, int N, int W) {
   extern __shared__ uint32_t q_s[];
   const int q0 = blockIdx.y * kTQ;
   const int nq = min(kTQ, Q - q0);
-  for (int e = threadIdx.x; e < nq * W; e += kThreads)
-    q_s[e] = q[static_cast<size_t>(q0) * W + e];
+  const int qw_n = kW > 0 ? kW : W;            // shared words a query
+  for (int e = threadIdx.x; e < nq * qw_n; e += kThreads) {
+    const int qq = e / qw_n, w = e - qq * qw_n;
+    q_s[e] = w < W ? q[static_cast<size_t>(q0 + qq) * W + w] : 0u;
+  }
   __syncthreads();
 
   const int n_begin = static_cast<int>(blockIdx.x) * kRowsPerBlock;
@@ -57,14 +70,19 @@ hamming_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ x,
     int32_t* o = out + static_cast<size_t>(q0) * N + n;
     if constexpr (kW > 0) {
       uint32_t r[kW];
-      const uint4* row4 = reinterpret_cast<const uint4*>(row);
+      if constexpr (kVec) {
+        const uint4* row4 = reinterpret_cast<const uint4*>(row);
 #pragma unroll
-      for (int j = 0; j < kW / 4; ++j) {
-        const uint4 v = __ldg(row4 + j);
-        r[4 * j] = v.x;
-        r[4 * j + 1] = v.y;
-        r[4 * j + 2] = v.z;
-        r[4 * j + 3] = v.w;
+        for (int j = 0; j < kW / 4; ++j) {
+          const uint4 v = __ldg(row4 + j);
+          r[4 * j] = v.x;
+          r[4 * j + 1] = v.y;
+          r[4 * j + 2] = v.z;
+          r[4 * j + 3] = v.w;
+        }
+      } else {
+#pragma unroll
+        for (int w = 0; w < kW; ++w) r[w] = w < W ? __ldg(row + w) : 0u;
       }
       for (int qq = 0; qq < nq; ++qq) {
         const uint32_t* qw = q_s + qq * kW;
@@ -84,18 +102,19 @@ hamming_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict__ x,
   }
 }
 
-template <int kW>
+template <int kW, bool kVec>
 int launch(const uint32_t* q, const uint32_t* x, int32_t* out, int Q, int N,
            int W, cudaStream_t s) {
   const dim3 grid((N + kRowsPerBlock - 1) / kRowsPerBlock,
                   (Q + kTQ - 1) / kTQ);
   if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(kTQ) * W * sizeof(uint32_t);
+  const size_t smem =
+      static_cast<size_t>(kTQ) * (kW > 0 ? kW : W) * sizeof(uint32_t);
   if (smem > 48 * 1024)
-    cudaFuncSetAttribute(hamming_kernel<kW>,
+    cudaFuncSetAttribute(hamming_kernel<kW, kVec>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
-  hamming_kernel<kW><<<grid, kThreads, smem, s>>>(q, x, out, Q, N, W);
+  hamming_kernel<kW, kVec><<<grid, kThreads, smem, s>>>(q, x, out, Q, N, W);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -107,7 +126,22 @@ extern "C" int hamming_u32(const uint32_t* q, const uint32_t* x, int32_t* out,
   if (W <= 0 || static_cast<size_t>(kTQ) * W * 4 > 200 * 1024)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (W == 8 && (reinterpret_cast<uintptr_t>(x) & 15) == 0)
-    return launch<8>(q, x, out, Q, N, W, s);
-  return launch<0>(q, x, out, Q, N, W, s);
+  // the register path's width: the least of 1, 2, 4, 8, 16 words that
+  // holds W; 16-byte loads where it is W itself, a multiple of 4, and the
+  // rows are aligned
+  const int kw = W <= 1 ? 1 : W <= 2 ? 2 : W <= 4 ? 4 : W <= 8 ? 8
+               : W <= 16 ? 16 : 0;
+  const bool vec = kw == W && (W & 3) == 0 &&
+                   (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  switch (kw) {
+    case 1: return launch<1, false>(q, x, out, Q, N, W, s);
+    case 2: return launch<2, false>(q, x, out, Q, N, W, s);
+    case 4: return vec ? launch<4, true>(q, x, out, Q, N, W, s)
+                       : launch<4, false>(q, x, out, Q, N, W, s);
+    case 8: return vec ? launch<8, true>(q, x, out, Q, N, W, s)
+                       : launch<8, false>(q, x, out, Q, N, W, s);
+    case 16: return vec ? launch<16, true>(q, x, out, Q, N, W, s)
+                        : launch<16, false>(q, x, out, Q, N, W, s);
+    default: return launch<0, false>(q, x, out, Q, N, W, s);
+  }
 }

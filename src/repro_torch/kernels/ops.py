@@ -22,6 +22,7 @@ import torch
 from . import ref
 from .beam_gather import beam_gather
 from .beam_gather import beam_gather_lists as _beam_gather_lists
+from .beam_gather import beam_gather_lists_topk as _beam_gather_lists_topk
 from .beam_gather_adc import beam_gather_adc as _beam_gather_adc
 from .beam_gather_hamming import beam_gather_hamming as _beam_gather_hamming
 from .beam_gather_hamming import \
@@ -97,6 +98,24 @@ def beam_gather_lists_distances(q: torch.Tensor, probe: torch.Tensor,
     return _beam_gather_lists(q.float().contiguous(),
                               probe.to(torch.int32).contiguous(), lists,
                               list_len, corpus)
+
+
+def beam_gather_lists_topk(q: torch.Tensor, probe: torch.Tensor,
+                           lists: torch.Tensor, list_len: torch.Tensor,
+                           corpus: torch.Tensor, k: int, *,
+                           force_ref: bool = False
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`beam_gather_lists_distances`' inputs and k -> the k smallest of
+    each query's candidate distances (distances ascending, int64 columns of
+    the (Q, P * M) candidate block, ties to the lowest column), without the
+    block's distances on the card: the IVF search's candidates and their
+    top-k in one launch."""
+    if _plain(corpus, force_ref):
+        return ref.beam_gather_lists_topk_ref(q, probe, lists, list_len,
+                                              corpus, k)
+    return _beam_gather_lists_topk(q.float().contiguous(),
+                                   probe.to(torch.int32).contiguous(), lists,
+                                   list_len, corpus, k)
 
 
 def pair_gather_distances(ids: torch.Tensor, corpus: torch.Tensor, *,

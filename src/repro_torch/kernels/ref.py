@@ -114,6 +114,17 @@ def beam_gather_lists_ref(q: torch.Tensor, probe: torch.Tensor,
     return torch.where(live, d, float("inf"))
 
 
+def beam_gather_lists_topk_ref(q: torch.Tensor, probe: torch.Tensor,
+                               lists: torch.Tensor, list_len: torch.Tensor,
+                               corpus: torch.Tensor, k: int
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused list-major entry's plain version: `topk_smallest` of
+    `beam_gather_lists_ref`'s (Q, P * M) matrix at min(k, P * M); returns
+    (distances, int64 columns)."""
+    d = beam_gather_lists_ref(q, probe, lists, list_len, corpus)
+    return topk_smallest(d, min(k, d.shape[1]))
+
+
 def beam_gather_dot_ref(q: torch.Tensor, ids: torch.Tensor,
                         corpus: torch.Tensor) -> torch.Tensor:
     """q (Q, D) × ids (Q, L) × corpus (N, D) -> (Q, L) negated inner product."""

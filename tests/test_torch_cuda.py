@@ -382,13 +382,22 @@ def test_pq_adc_flat_route_shape(cuda, n):
     assert torch.equal(got, want)
 
 
-# W = 8 (256 bits) takes the register path, every other W the generic loop
+# every W up to 16 takes the register path (16-byte loads at W = 4, 8, 16
+# on aligned rows, a word at a time at W = 1, 2, 3, 5, on rows 4 bytes off
+# a 16-byte boundary and past W = kW), past 16 words the generic loop
+@pytest.mark.parametrize("aligned", [True, False])
 @pytest.mark.parametrize("nq,n,w", [(1024, 5000, 8), (33, 129, 4),
-                                    (2, 50, 16), (1, 1, 1), (40, 3000, 3)])
-def test_hamming(cuda, nq, n, w):
+                                    (2, 50, 16), (1, 1, 1), (40, 3000, 3),
+                                    (64, 2000, 2), (50, 1000, 5),
+                                    (1024, 4100, 4), (16, 700, 17)])
+def test_hamming(cuda, nq, n, w, aligned):
     rng = np.random.RandomState(nq * n + w)
     q = _words(rng, nq, w).to(cuda)
     x = _words(rng, n, w).to(cuda)
+    if not aligned:
+        flat = torch.zeros(n * w + 1, dtype=torch.int32, device=cuda)
+        x = flat[1:].view(n, w).copy_(x)
+        assert x.is_contiguous() and x.data_ptr() % 16 == 4
     got = _same_counts(hm_mod, lambda: ops.hamming_distances(q, x))
     want = ops.hamming_distances(q, x, force_ref=True)
     assert torch.equal(got, want)
@@ -1017,7 +1026,8 @@ def _near_tie_ids(got_d, got_i, want_d, want_i, atol):
 def test_ivf_engine_on_card_matches_cpu(cuda, quant, metric):
     """An IVF engine built on the CPU and loaded on the card (the same
     centroids and lists) returns the CPU hits: the coarse probe on B5's
-    fused entry, the probed lists on B1's list-major entry (diff-square-sum
+    fused entry, the probed lists on B1's fused list-major entry (k = 10:
+    ``beam_gather_lists_topk``; diff-square-sum
     where the CPU takes the norm expansion: ids equal up to near-ties,
     distances within B1's tolerance), the delta scan and the ~5 % flat
     route."""
@@ -1034,7 +1044,7 @@ def test_ivf_engine_on_card_matches_cpu(cuda, quant, metric):
     cpu.add(x[2900:])
     card = QuantixarEngine.from_state_dict(cfg, cpu.state_dict(),
                                            device="cuda")
-    bg0, tk0 = bg_mod.lists_launches, l2_mod.topk_launches
+    bg0, tk0 = bg_mod.topk_launches, l2_mod.topk_launches
     mask = np.random.RandomState(0).rand(3000) < 0.05
     norms = np.linalg.norm(x, axis=1).max() * np.linalg.norm(q, axis=1).max()
     for queries, kw in ((q, {}), (x[2900:2950], {}), (q, {"mask": mask}),
@@ -1042,7 +1052,7 @@ def test_ivf_engine_on_card_matches_cpu(cuda, quant, metric):
         (gd, gi), (wd, wi) = (card.search(queries, 10, **kw),
                               cpu.search(queries, 10, **kw))
         _near_tie_ids(gd, gi, wd, wi, atol=1e-5 * norms)
-    assert bg_mod.lists_launches > bg0 and l2_mod.topk_launches > tk0
+    assert bg_mod.topk_launches > bg0 and l2_mod.topk_launches > tk0
 
 
 @pytest.mark.parametrize("slack", [1.5, 1.02, 0.5])
@@ -1169,11 +1179,88 @@ def test_beam_gather_lists_bit_equal_to_b1(cuda, case, aligned):
                                atol=2e-4 * d)
 
 
+LISTS_CASES = [
+    (70, 3, 9, 200, 3000, 128, True, ()),         # skewed: 3 tiles, list 0
+    (40, 2, 12, 150, 2000, 128, False, (3, 5)),   # unprobed, empty lists
+    (9, 6, 6, 77, 500, 128, False, (2,)),         # nprobe = nlist
+    (1, 4, 7, 300, 900, 128, False, ()),          # one query
+    (20, 3, 6, 90, 400, 784, True, (2,)),         # the narrow tile
+    (25, 3, 6, 90, 400, 130, True, (4,)),         # the 4-byte path
+    (6, 2, 4, 40, 300, 1000, False, ()),          # too wide to stage
+    (5, 2, 4, 40, 300, 16, True, ()),             # fewer float4s than lanes
+]
+
+
+@pytest.mark.parametrize("k", [1, 10, 33, 100])
+@pytest.mark.parametrize("case", LISTS_CASES)
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("integer", [False, True])
+def test_beam_gather_lists_topk_bit_equal(cuda, case, aligned, integer, k):
+    """B1's fused list-major entry equals ``topk_smallest`` of the matrix
+    entry's output bit for bit: every distance, and the column of every
+    finite one (k = 33 and 100 keep four chunks of keys a warp, 1 and 10
+    one; k = 100 passes the live slots of the 40- and 77-slot lists).  On
+    integer rows and queries every sum is exact, so it also equals its
+    plain version bit for bit, ties to the lower column; on float ones the
+    distances hold the plain version's tolerance.  Its counter moves by one,
+    the matrix entry's not at all."""
+    from repro_torch.core.ivf import live_lengths
+    q, probe, lists, corpus = _lists_case(sum(case[:6]) + k, *case)
+    if integer:
+        rng = np.random.RandomState(k)
+        corpus = rng.randint(-2, 3, corpus.shape).astype(np.float32)
+        q = rng.randint(-2, 3, q.shape).astype(np.float32)
+    d = corpus.shape[1]
+    x, qt = ((torch.as_tensor(corpus, device=cuda),
+              torch.as_tensor(q, device=cuda)) if aligned
+             else (_unaligned(corpus, cuda), _unaligned(q, cuda)))
+    pt, lt = (torch.as_tensor(a, device=cuda) for a in (probe, lists))
+    ll = live_lengths(lt)
+    l0, t0 = bg_mod.lists_launches, bg_mod.topk_launches
+    got_d, got_c = ops.beam_gather_lists_topk(qt, pt, lt, ll, x, k)
+    torch.cuda.synchronize()
+    assert (bg_mod.lists_launches, bg_mod.topk_launches) == (l0, t0 + 1)
+    kk = min(k, probe.shape[1] * lists.shape[1])
+    assert got_d.shape == got_c.shape == (len(q), kk)
+    mat = ops.beam_gather_lists_distances(qt, pt, lt, ll, x)
+    want_d, want_c = topk_smallest(mat, kk)
+    fin = torch.isfinite(want_d)
+    assert torch.equal(got_d.view(torch.int32), want_d.view(torch.int32))
+    assert torch.equal(got_c[fin], want_c[fin])
+    plain_d, plain_c = ops.beam_gather_lists_topk(qt, pt, lt, ll, x, k,
+                                                  force_ref=True)
+    if integer:
+        assert torch.equal(got_d.view(torch.int32),
+                           plain_d.view(torch.int32))
+        assert torch.equal(got_c[fin], plain_c[fin])
+    else:
+        assert torch.equal(torch.isinf(got_d), torch.isinf(plain_d))
+        torch.testing.assert_close(got_d[fin], plain_d[fin], rtol=2e-4,
+                                   atol=2e-4 * d)
+
+
+def test_beam_gather_lists_topk_refuses(cuda):
+    """The fused entry keeps at most MAX_TOPK keys a (query, list): past
+    that (min(k, M) > 128) and below k = 1 it refuses before any launch;
+    the search sends it k <= FUSED_MAX_K only."""
+    from repro_torch.core.ivf import live_lengths
+    q, probe, lists, corpus = _lists_case(5, 4, 2, 4, 200, 300, 32, False)
+    t = [torch.as_tensor(a, device=cuda) for a in (q, probe, lists, corpus)]
+    ll = live_lengths(t[2])
+    t0 = bg_mod.topk_launches
+    for k in (0, bg_mod.MAX_TOPK + 1):
+        with pytest.raises(ValueError, match="beam_gather_lists_topk"):
+            bg_mod.beam_gather_lists_topk(t[0], t[1], t[2], ll, t[3], k)
+    assert bg_mod.topk_launches == t0
+
+
 def test_ivf_search_on_card_equals_the_b1_route(cuda):
-    """``_ivf_search`` on the card (B1's list-major entry, ids read back
-    from the probe and the lists) returns the route it replaced bit for
-    bit: the candidate block lists[probe], B1's gather entry, +inf on PAD,
-    the tie-stable top-k and the block's ids; one query chunk or many."""
+    """``_ivf_search`` on the card (B1's list-major entries: the fused one
+    at k = 10 and 50, the matrix one and ``topk_smallest`` at k = 150, past
+    FUSED_MAX_K; ids read back from the probe and the lists) returns the
+    route they replaced bit for bit: the candidate block lists[probe], B1's
+    gather entry, +inf on PAD, the tie-stable top-k and the block's ids; one
+    query chunk or many."""
     from repro_torch.core import ivf as ivf_mod
     rng = np.random.RandomState(11)
     x = rng.randn(6000, 64).astype(np.float32)
@@ -1183,8 +1270,8 @@ def test_ivf_search_on_card_equals_the_b1_route(cuda):
     idx.build_lists(x)
     corpus = torch.as_tensor(x, device=cuda)
     q = corpus[:300] + 0.05 * torch.randn(300, 64, device=cuda)
-    b0 = bg_mod.lists_launches
-    for k in (10, 50):
+    b0, t0 = bg_mod.lists_launches, bg_mod.topk_launches
+    for k in (10, 50, 150):
         got_d, got_i = ivf_mod._ivf_search(corpus, q, idx.centroids,
                                            idx.lists, k, cfg.nprobe,
                                            idx.list_len)
@@ -1200,7 +1287,7 @@ def test_ivf_search_on_card_equals_the_b1_route(cuda):
         assert torch.equal(got_d.view(torch.int32),
                            want_d.view(torch.int32))
         assert torch.equal(got_i, want_i)
-    assert bg_mod.lists_launches == b0 + 2
+    assert (bg_mod.lists_launches, bg_mod.topk_launches) == (b0 + 1, t0 + 2)
     whole = ivf_mod._ivf_search(corpus, q, idx.centroids, idx.lists, 10,
                                 cfg.nprobe)
     saved, ivf_mod.IVF_BLOCK_BYTES = ivf_mod.IVF_BLOCK_BYTES, 1

@@ -9,8 +9,15 @@ The kernel's schedule (``list_tiles``, ``tile_of_block``) covers every
 (query, rank) entry once; the search's id recovery from (probe, idx // M,
 idx % M) equals the candidate block's; ``IVFIndex.list_len`` is derived,
 never serialized; ``flat_search``'s dispatch on the card (fused entry or
-matrix route) is checked by shape.  The CUDA kernel itself runs only on a
-card: tests/test_torch_cuda.py.
+matrix route) is checked by shape.  The fused entry's plain version
+(``beam_gather_lists_topk``: each query's k smallest candidates without the
+(Q, P * M) distances on the card) is held to an independent stable sort of
+the candidate block's distances on every case, at k = 1, 10, 100 and past
+the live slots, on float and on tied integer inputs; its columns map
+through ``_slot_ids`` to the block's ids, +inf to id -1; and the search's
+dispatch between the two entries (``lists_take_fused``) is checked by
+shape.  The CUDA kernels themselves run only on a card:
+tests/test_torch_cuda.py.
 """
 
 import jax.numpy as jnp
@@ -22,7 +29,8 @@ from repro.kernels import ref as jref
 from repro.kernels.beam_gather import beam_gather_kernel
 from repro_torch.core import IVFConfig, IVFIndex
 from repro_torch.core import flat as flat_mod
-from repro_torch.core.ivf import PAD, _slot_ids, live_lengths
+from repro_torch.core.ivf import (PAD, _slot_ids, hit_ids, list_candidates,
+                                  lists_take_fused, live_lengths)
 from repro_torch.kernels import beam_gather as bg_mod
 from repro_torch.kernels import ops, ref
 
@@ -68,11 +76,16 @@ CASES = {
 }
 
 
-def _case(name):
+def _case(name, integer=False):
+    """A case's (q, probe, lists, corpus); ``integer``: small integer rows
+    and queries, so that distances tie often and every sum is exact."""
     nq, nprobe, nlist, m, n, d, skew, empty, pad_inside = CASES[name]
     rng = np.random.RandomState(sum(map(ord, name)))
     corpus = rng.randn(n, d).astype(np.float32)
     q = rng.randn(nq, d).astype(np.float32)
+    if integer:
+        corpus = rng.randint(-2, 3, (n, d)).astype(np.float32)
+        q = rng.randint(-2, 3, (nq, d)).astype(np.float32)
     lists = _lists(rng, nlist, m, n, empty, pad_inside)
     probe = _probe(rng, nq, nprobe, nlist, skew)
     return q, probe, lists, corpus
@@ -126,22 +139,34 @@ def test_plain_honours_list_len():
     assert torch.equal(got[~past], want[~past])
 
 
+@pytest.mark.parametrize("longest_first", [False, True])
 @pytest.mark.parametrize("tq", [8, 32])
 @pytest.mark.parametrize("name", ["skewed", "unprobed_and_empty",
                                   "nprobe_is_nlist", "one_query"])
-def test_schedule_covers_every_entry_once(name, tq):
-    """``list_tiles`` and the kernel's block search (``tile_of_block``):
-    every (query, rank) entry lands in exactly one block, whose list is the
-    entry's probed list, a block takes at most tq entries of one list,
-    blocks past the last tile take none, and the grid bounds the tiles."""
+def test_schedule_covers_every_entry_once(name, tq, longest_first):
+    """``list_tiles`` and the kernels' block search (``tile_of_block``),
+    the lists by id (the matrix entry) or longest first (the fused entry,
+    ``longest_first``): every (query, rank) entry lands in exactly one
+    block, whose list is the entry's probed list, a block takes at most tq
+    entries of one list, blocks past the last tile take none, the grid
+    bounds the tiles, and in the fused order no list's tiles start before
+    a longer list's."""
     _, probe, lists, _ = _case(name)
     nlist = lists.shape[0]
     p = torch.as_tensor(probe)
-    entries, starts, tile_end = bg_mod.list_tiles(p, nlist, tq)
+    list_len = live_lengths(torch.as_tensor(lists))
+    order = bg_mod.longest_first(list_len) if longest_first else None
+    entries, starts, tile_end = bg_mod.list_tiles(p, nlist, tq, order)
     assert entries.dtype == starts.dtype == tile_end.dtype == torch.int32
     n_blocks = bg_mod.list_blocks(p.numel(), nlist, tq)
     assert int(tile_end[-1]) <= n_blocks
-    lst, first, count = bg_mod.tile_of_block(starts, tile_end, tq, n_blocks)
+    lst, first, count = bg_mod.tile_of_block(starts, tile_end, tq, n_blocks,
+                                             order)
+    if longest_first:
+        assert order.dtype == torch.int32
+        assert sorted(order.tolist()) == list(range(nlist))
+        live_len = list_len[lst[lst < nlist]]
+        assert bool((live_len[1:] <= live_len[:-1]).all())
     assert bool((count <= tq).all()) and bool((count[lst == nlist] == 0).all())
     assert bool((count[lst < nlist] > 0).all())
     seen = np.zeros(p.numel(), dtype=int)
@@ -234,3 +259,122 @@ def test_card_dispatch_by_shape(nq, n, k, fused):
     (tests/test_torch_cuda.py)."""
     assert flat_mod.takes_fused("l2", nq, n, k) is fused
     assert flat_mod.takes_fused("hamming", nq, n, k) is False
+
+
+def _stable_topk(d, k):
+    """The k smallest of each row of d (Q, C) by a stable sort in numpy,
+    ties to the lower column: (values, columns), independent of
+    ``topk_smallest``'s 64-bit keys."""
+    order = np.argsort(d, axis=1, kind="stable")[:, :k]
+    return np.take_along_axis(d, order, 1), order
+
+
+# k = 1, 10, 100, and past every list's live slots (the longest list a
+# case holds is at most M < 1,000)
+TOPK_KS = (1, 10, 100, 1000)
+
+
+@pytest.mark.parametrize("integer", [False, True])
+@pytest.mark.parametrize("k", TOPK_KS)
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_topk_plain_equals_the_candidate_block_sorted(name, k, integer):
+    """The fused entry's plain version is the k smallest of the matrix
+    entry's candidate distances (B1's plain version over lists[probe], +inf
+    on PAD and past list_len), by a stable sort: every distance bit for bit,
+    and the column of every finite one, ties to the lower column.  Past the
+    live slots the rest are +inf."""
+    q, probe, lists, corpus = _case(name, integer)
+    t = [torch.as_tensor(a) for a in (q, probe, lists, corpus)]
+    list_len = live_lengths(t[2])
+    got_d, got_c = ops.beam_gather_lists_topk(t[0], t[1], t[2], list_len,
+                                              t[3], k)
+    c = probe.shape[1] * lists.shape[1]
+    assert got_d.shape == got_c.shape == (len(q), min(k, c))
+    assert got_c.dtype == torch.int64
+    mat = ref.beam_gather_lists_ref(t[0], t[1], t[2], list_len, t[3])
+    want_d, want_c = _stable_topk(mat.numpy(), min(k, c))
+    assert np.array_equal(got_d.numpy().view(np.int32),
+                          want_d.view(np.int32))
+    finite = np.isfinite(want_d)
+    assert np.array_equal(got_c.numpy()[finite], want_c[finite])
+    if k == TOPK_KS[-1]:
+        assert not finite.all()
+    if integer:
+        # ties: equal distances in one row come in column order
+        gd, gc = got_d.numpy(), got_c.numpy()
+        same = (gd[:, 1:] == gd[:, :-1]) & np.isfinite(gd[:, 1:])
+        assert (gc[:, 1:][same] > gc[:, :-1][same]).all()
+        assert same.any() or k == 1 or name == "d784"
+
+
+@pytest.mark.parametrize("k", TOPK_KS)
+@pytest.mark.parametrize("name", ["skewed", "unprobed_and_empty", "d130",
+                                  "pad_inside"])
+def test_topk_columns_map_to_the_block_ids(name, k):
+    """The fused entry's columns map through ``_slot_ids`` to the ids the
+    candidate block holds at them, and ``hit_ids`` gives -1 exactly where
+    the distance is +inf; both entries (``list_candidates`` fused or not)
+    give the same distances and the same hits."""
+    q, probe, lists, corpus = _case(name, integer=True)
+    t = [torch.as_tensor(a) for a in (q, probe, lists, corpus)]
+    list_len = live_lengths(t[2])
+    nq = len(q)
+    kk = min(k, probe.shape[1] * lists.shape[1])
+    block = t[2][t[1].long()].reshape(nq, -1)
+    hits = {}
+    for fused in (True, False):
+        dk, cols = list_candidates(t[0], t[1], t[2], list_len, t[3], kk,
+                                   fused)
+        ids = _slot_ids(t[2], t[1], cols)
+        assert torch.equal(ids, block.gather(1, cols))
+        got = hit_ids(dk, ids)
+        assert torch.equal(got == -1, torch.isinf(dk))
+        assert bool((got[torch.isfinite(dk)] >= 0).all())
+        hits[fused] = (dk, got)
+    assert torch.equal(hits[True][0].view(torch.int32),
+                       hits[False][0].view(torch.int32))
+    assert torch.equal(hits[True][1], hits[False][1])
+
+
+def test_topk_cpu_takes_the_plain_version_and_refuses():
+    """On CPU tensors the fused entry takes its plain version (no launch);
+    the wrapper itself refuses k below 1 and a list's min(k, M) over
+    MAX_TOPK before it looks at the tensors, and takes CUDA tensors
+    only."""
+    q, probe, lists, corpus = _case("one_query")
+    t = [torch.as_tensor(a) for a in (q, probe, lists, corpus)]
+    ll = live_lengths(t[2])
+    before = bg_mod.topk_launches
+    got = ops.beam_gather_lists_topk(t[0], t[1], t[2], ll, t[3], 10)
+    assert bg_mod.topk_launches == before
+    want = ops.beam_gather_lists_topk(t[0], t[1], t[2], ll, t[3], 10,
+                                      force_ref=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        bg_mod.beam_gather_lists_topk(t[0], t[1], t[2], ll, t[3], 10)
+    # lists padded past MAX_TOPK slots: the same live slots, wider rows
+    wide = torch.nn.functional.pad(
+        t[2], (0, bg_mod.MAX_TOPK + 1 - t[2].shape[1]), value=PAD)
+    for lst, k in ((t[2], 0), (t[2], -1), (wide, bg_mod.MAX_TOPK + 1)):
+        with pytest.raises(ValueError, match="keys a list"):
+            bg_mod.beam_gather_lists_topk(t[0], t[1], lst, ll, t[3], k)
+    assert bg_mod.topk_launches == before
+
+
+@pytest.mark.parametrize("k,c,fused", [
+    (10, 32 * 1465, True),       # phase G: k = 10 over nprobe 32 x 1,465
+    (1, 46880, True),
+    (100, 46880, True),          # FUSED_MAX_K
+    (101, 46880, False),         # past it: the matrix entry + topk_smallest
+    (1000, 46880, False),        # E's k = 1,000 through an IVF collection
+    (150, 1582, False),
+    (500, 60, True),             # k past every candidate: kk = c = 60
+    (500, 101, False),
+    (0, 46880, False),
+])
+def test_ivf_card_dispatch_by_k(k, c, fused):
+    """On the card the IVF search takes the fused entry where its top-k,
+    min(k, C), is at most FUSED_MAX_K, else the matrix entry and
+    ``topk_smallest``; both give the same bits (tests/test_torch_cuda.py)."""
+    assert lists_take_fused(k, c) is fused
+    assert lists_take_fused(k, c) is (0 < min(k, c) <= flat_mod.FUSED_MAX_K)
