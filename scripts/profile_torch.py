@@ -25,19 +25,15 @@ under a ~5 % mask (the flat route) it prints, as one JSON line each:
              the port's kernels aside: the scans' selections, and behind
              ``l2_topk`` the merge of its per-block candidates);
   host_ms    wall_ms - device_ms;
-  top        the device events that take most of the span, by name;
-  step_*     search span only: the layer-0 step, read between consecutive
-             launches of the step's distance kernel (beam_gather in A,
-             beam_gather_adc in C, beam_gather_hamming in D).
-             events_per_step is the median count of device events from one
-             such launch up to the next (the step's kernels, copies and
-             sets), step_events the count of each name (templates cut) in
-             one step of that count, and
-             step_ms the median device ms of a step's events.  In D,
-             fresh_share is the share of the (Q, L) slots of every step
-             (the fused entry's mask, the entry-point calls aside) that
-             are fresh, i.e. the rows the step uses, and
-             launches_per_batch the fused entry's launches per batch.
+  top        the device events that take most of the span, by name.
+
+In A, C and D a "search_steps" row reads the search's layer-0 steps from the
+program's own spans (``repro_torch.tracing``, recorded under the profiler):
+steps_per_batch (``hnsw.step`` spans a batch), fresh_share (the steps'
+fresh slots over the slots their distance kernel is launched over),
+active_share (the queries still searching over the batch's), host_ms_per_step
+(a step less its sync) and wait_ms_per_batch (every wait span: the loops'
+syncs and the engine's copies to the host).
 
 ``--phase G`` builds and searches phase G's IVF engine instead (cosine,
 nlist 1,024, nprobe 32; the build spans are "kmeans" and "lists", the
@@ -146,7 +142,6 @@ import collections
 import functools
 import json
 import os
-import re
 import sys
 import time
 
@@ -187,39 +182,9 @@ def is_kernel(parts, name: str) -> bool:
 GEMM_PARTS = ("gemm", "nvjet", "xmma", "cutlass")
 
 
-# the search span's step kernel, by phase
-STEP_KERNEL = {"A": "beam_gather", "C": "beam_gather_adc",
-               "D": "beam_gather_hamming"}
-
-
-def step_stats(events, parts):
-    """events: one span's device events (start ns, duration ns, name) in
-    start order; parts: the step kernel's name parts (a KERNELS value).
-    The layer-0 steps, each from one launch of the step kernel up to the
-    next."""
-    at = [i for i, (_, _, n) in enumerate(events) if is_kernel(parts, n)]
-    if len(at) < 2:
-        return {}
-    steps = [events[a:b] for a, b in zip(at, at[1:])]
-    counts = sorted(len(st) for st in steps)
-    median = counts[len(counts) // 2]
-    one = next(st for st in steps if len(st) == median)
-    ms = sorted(sum(d for _, d, _ in st) / 1e6 for st in steps)
-    names = collections.Counter(
-        re.sub(r"^void |[<(].*$", "",
-               n.replace("(anonymous namespace)::", "")) for _, _, n in one)
-    return {"step_kernel_launches": len(at), "events_per_step": median,
-            "events_per_step_min": counts[0],
-            "events_per_step_max": counts[-1],
-            "step_ms": ms[len(ms) // 2],
-            "step_events": dict(names.most_common())}
-
-
-def span_rows(prof, labels, steps=None):
+def span_rows(prof, labels):
     """Assign the device events to the host spans by start time and print
-    one JSON row per span (with `step_stats` for the spans named in
-    ``steps``: span -> the step kernel's parts); returns (device events, summed
-    device ms)."""
+    one JSON row per span; returns (device events, summed device ms)."""
     from torch.autograd import DeviceType
 
     # the raw events (ns): building the profiler's event tree over ~10^6
@@ -235,17 +200,13 @@ def span_rows(prof, labels, steps=None):
         elif e.device_type() == DeviceType.CUDA:
             dev.append((e.start_ns(), e.duration_ns(), name))
     ranges.sort()
-    steps = steps or {}
     per_span = {name: collections.Counter() for _, _, name in ranges}
     n_span = {name: collections.Counter() for _, _, name in ranges}
-    in_span = {name: [] for name in steps}
     for start, dur, name in sorted(dev):
         for lo, hi, span in ranges:
             if lo <= start < hi:
                 per_span[span][name] += dur
                 n_span[span][name] += 1
-                if span in in_span:
-                    in_span[span].append((start, dur, name))
                 break
     total_dev = 0.0
     for lo, hi, name in ranges:
@@ -266,8 +227,6 @@ def span_rows(prof, labels, steps=None):
                                  is_kernel(parts, n)
                                  for parts in KERNELS.values())) / 1e6
         row["top"] = [[n[:80], v / 1e6] for n, v in c.most_common(6)]
-        if name in steps:
-            row.update(step_stats(in_span[name], steps[name]))
         print(json.dumps(row), flush=True)
     return dev, total_dev
 
@@ -861,6 +820,7 @@ def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from repro_torch import tracing
     from repro_torch.core import (BQConfig, EngineConfig, IVFConfig,
                                   PQConfig, QuantixarEngine)
     from repro_torch.data.synthetic import sift_like
@@ -915,15 +875,6 @@ def main() -> int:
 
     # one batch under a ~5 % mask: the flat route (pq_adc / hamming in C / D)
     mask5 = np.random.RandomState(7).random_sample(len(x)) < 0.05
-    # D: the fused entry's masks in the search span, kept by reference (no
-    # launch) and counted after the profile
-    from repro_torch.kernels import ops
-    masks = []
-    fused = getattr(ops, "beam_gather_hamming_masked", None)
-    if fused is not None:
-        def keep_mask(qc, ids, fresh, codes, **kw):
-            masks.append(fresh)
-            return fused(qc, ids, fresh, codes, **kw)
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card
                                      else [])
     t0 = time.perf_counter()
@@ -934,15 +885,13 @@ def main() -> int:
             torch.cuda.synchronize()
         close_span("repair+pack")
         with record_function("span::search"):
-            if fused is not None:
-                ops.beam_gather_hamming_masked = keep_mask
+            tracing.clear()
             for lo in range(0, len(q), QUERY_BATCH):
                 eng.search(q[lo: lo + QUERY_BATCH], K, ef=EF,
                            expansion_width=WIDTH)
             if on_card:
                 torch.cuda.synchronize()
-            if fused is not None:
-                ops.beam_gather_hamming_masked = fused
+            searched = tracing.summary()
         if args.phase == "G":
             with record_function("span::search_again"):
                 for lo in range(0, len(q), QUERY_BATCH):
@@ -957,18 +906,19 @@ def main() -> int:
     wall = time.perf_counter() - t0
     t1 = time.perf_counter()
 
-    steps = ({"search": KERNELS[STEP_KERNEL[args.phase]]}
-             if args.phase in STEP_KERNEL else None)
-    dev, total_dev = span_rows(prof, labels, steps)
-    if masks:
-        step_masks = [m for m in masks if m.shape[1] > 1]
+    dev, total_dev = span_rows(prof, labels)
+    step = searched["spans"].get("hnsw.step")
+    if step is not None:
+        c = step["counts"]
         batches = -(-len(q) // QUERY_BATCH)
         print(json.dumps({
-            "span": "search", "fused_entry_launches": len(masks),
-            "launches_per_batch": len(masks) / batches,
-            "steps": len(step_masks),
-            "fresh_share": sum(int(m.sum()) for m in step_masks)
-            / max(1, sum(m.numel() for m in step_masks))}), flush=True)
+            "span": "search_steps", "steps_per_batch": step["n"] / batches,
+            "fresh_share": c["fresh"] / c["slots"],
+            "active_share": c["active"] / c["queries"],
+            "host_ms_per_step": 1e3 * (step["s"] - step["wait_s"])
+            / step["n"],
+            "wait_ms_per_batch": 1e3 * searched["wait_s"] / batches,
+            "spans_dropped": searched["dropped"]}), flush=True)
     print(json.dumps({"phase": args.phase, "wall_s_profiled": wall, "device_events": len(dev),
                       "device_ms": total_dev,
                       "analysis_s": time.perf_counter() - t1,

@@ -26,6 +26,14 @@ host, as in the JAX package; the graph with its codes, the quantizers, the
 IVF centroids, lists and prepped sealed rows, the corpus and codes for the
 flat route and the rescore, and the delta's distance-space matrix live on
 the device.
+
+Spans (`repro_torch.tracing`, recorded while a profiler runs): each
+``search`` is one request, its root ``engine.search`` (counts ``queries``,
+``k``, and ``route_index`` or ``route_flat``: the MEVS route) holding
+``engine.filter`` (counts ``rows``, ``selected``), ``engine.index`` (the
+sealed index's pass, or the flat scan), ``engine.delta`` (the delta scan
+and merge), and an ``engine.to_host`` wait (count ``bytes``) around every
+copy of a pass's results to the host.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve_device
 from . import bq as bq_mod
 from . import pq as pq_mod
@@ -64,6 +73,14 @@ torch.backends.cudnn.allow_tf32 = False
 # corpus rows per block of every flat scan (exact, PQ, BQ): bounds the
 # (Q, rows) distance block on the device; results equal an unchunked scan's
 FLAT_CHUNK = 65536
+
+
+def _to_host(*tensors: torch.Tensor) -> Tuple[np.ndarray, ...]:
+    """The tensors as host arrays: one ``engine.to_host`` wait span (count
+    ``bytes``) around their copies, where the host waits for the card."""
+    with tracing.span("engine.to_host", wait=True, bytes=sum(
+            t.numel() * t.element_size() for t in tensors)):
+        return tuple(t.cpu().numpy() for t in tensors)
 
 
 @dataclasses.dataclass
@@ -338,55 +355,72 @@ class QuantixarEngine:
 
         Returns (distances (Q,k) in the engine metric, ids (Q,k); -1 = none).
         """
-        if params is not None:
-            if (ef, rescore, expansion_width) != (None, None, None):
-                raise ValueError(
-                    "pass ef/rescore/expansion_width either as keywords or "
-                    "inside params=AnnParams(...), not both")
-            ef, rescore = params.ef, params.rescore
-            expansion_width = params.expansion_width
-        if k < 1:
-            raise ValueError(f"k must be >= 1, got {k}")
-        if self._dirty:
-            self.build()
-        cfg = self.config
-        queries = np.asarray(queries, dtype=np.float32)
-        if queries.ndim == 1:
-            queries = queries[None, :]
-        ef = ef if ef is not None else max(cfg.ef_search, k)
-        flt_mask = self.metadata.evaluate(flt) if flt is not None else None
-        if mask is not None:
-            mask = np.asarray(mask, dtype=bool)
-            mask = flt_mask & mask if flt_mask is not None else mask
-        else:
-            mask = flt_mask
-        do_rescore = cfg.rescore if rescore is None else rescore
-        do_rescore = do_rescore and cfg.quantization != "none"
-        fetch = k * cfg.rescore_multiplier if do_rescore else k
+        with tracing.span("engine.search", k=k) as root:
+            if params is not None:
+                if (ef, rescore, expansion_width) != (None, None, None):
+                    raise ValueError(
+                        "pass ef/rescore/expansion_width either as keywords "
+                        "or inside params=AnnParams(...), not both")
+                ef, rescore = params.ef, params.rescore
+                expansion_width = params.expansion_width
+            if k < 1:
+                raise ValueError(f"k must be >= 1, got {k}")
+            if self._dirty:
+                self.build()
+            cfg = self.config
+            queries = np.asarray(queries, dtype=np.float32)
+            if queries.ndim == 1:
+                queries = queries[None, :]
+            root.count(queries=queries.shape[0])
+            ef = ef if ef is not None else max(cfg.ef_search, k)
+            if flt is not None or mask is not None:
+                with tracing.span("engine.filter") as sp:
+                    flt_mask = self.metadata.evaluate(flt) \
+                        if flt is not None else None
+                    if mask is not None:
+                        mask = np.asarray(mask, dtype=bool)
+                        mask = flt_mask & mask if flt_mask is not None \
+                            else mask
+                    else:
+                        mask = flt_mask
+                    if sp:
+                        sp.count(rows=mask.size, selected=mask.sum())
+            do_rescore = cfg.rescore if rescore is None else rescore
+            do_rescore = do_rescore and cfg.quantization != "none"
+            fetch = k * cfg.rescore_multiplier if do_rescore else k
 
-        if cfg.index == "flat" or self._route_to_flat(mask):
-            # the flat scan covers the whole corpus (delta rows included:
-            # their codes were appended at insert time)
-            d, ids = self._flat_pass(queries, fetch, mask)
-        else:
-            if cfg.index == "ivf":
-                d, ids = self._ivf_pass(queries, fetch, mask)
+            if cfg.index == "flat" or self._route_to_flat(mask):
+                # the flat scan covers the whole corpus (delta rows
+                # included: their codes were appended at insert time)
+                root.count(route_flat=1)
+                with tracing.span("engine.index"):
+                    d, ids = self._flat_pass(queries, fetch, mask)
             else:
-                d, ids = self._hnsw_pass(queries, fetch, ef, mask,
-                                         expansion_width)
-            if self.delta_rows:
-                dd, dids = self._delta_pass(queries, fetch, mask)
-                d, ids = merge_candidates(d, ids, dd, dids, fetch)
-            if mask is not None and \
-                    (ids[:, : min(fetch, ids.shape[1])] == -1).any():
-                # beam under-delivered under the filter: exact masked scan
-                d, ids = self._flat_pass(queries, fetch, mask)
-        if do_rescore:
-            d, ids = self.exact_rescore(queries, ids, k, mask=mask)
-        else:
-            d, ids = d[:, :k], ids[:, :k]
-        # contract: +inf slots (masked-out / padded) never expose a row id
-        return d, np.where(np.isfinite(d), ids, -1)
+                root.count(route_index=1)
+                with tracing.span("engine.index"):
+                    if cfg.index == "ivf":
+                        d, ids = self._ivf_pass(queries, fetch, mask)
+                    else:
+                        d, ids = self._hnsw_pass(queries, fetch, ef, mask,
+                                                 expansion_width)
+                if self.delta_rows:
+                    with tracing.span("engine.delta"):
+                        dd, dids = self._delta_pass(queries, fetch, mask)
+                        d, ids = merge_candidates(d, ids, dd, dids, fetch)
+                if mask is not None and \
+                        (ids[:, : min(fetch, ids.shape[1])] == -1).any():
+                    # beam under-delivered under the filter: exact masked
+                    # scan
+                    root.count(route_flat=1)
+                    with tracing.span("engine.index"):
+                        d, ids = self._flat_pass(queries, fetch, mask)
+            if do_rescore:
+                d, ids = self.exact_rescore(queries, ids, k, mask=mask)
+            else:
+                d, ids = d[:, :k], ids[:, :k]
+            # contract: +inf slots (masked-out / padded) never expose a row
+            # id
+            return d, np.where(np.isfinite(d), ids, -1)
 
     def _route_to_flat(self, mask: Optional[np.ndarray]) -> bool:
         """MEVS routing (paper: filter first, then search the subset): at low
@@ -447,7 +481,7 @@ class QuantixarEngine:
             d, ids = flat_search(q, corpus, k, metric=cfg.metric,
                                  chunk=FLAT_CHUNK, mask=mask_t,
                                  unit_corpus=unit)
-        return d.cpu().numpy(), ids.cpu().numpy()
+        return _to_host(d, ids)
 
     def _hnsw_pass(self, queries, k, ef, mask, expansion_width=None):
         """Wide-beam-search the sealed graph only (delta rows merge
@@ -480,7 +514,7 @@ class QuantixarEngine:
                              ef=min(ef_eff, n_sealed), max_level=max_level,
                              metric=metric, expansion_width=width,
                              q_codes=q_codes)
-        d, ids = d.cpu().numpy(), ids.cpu().numpy()
+        d, ids = _to_host(d, ids)
         if metric == "hamming":
             # back to the -dot space the delta scan / merge uses:
             # dot(±1) = bits - 2·hamming, so -dot = 2·hamming - bits (exact)
@@ -502,8 +536,7 @@ class QuantixarEngine:
         """Probe the sealed IVF lists only (delta rows merge separately),
         over the prepped sealed rows cached on the device."""
         d, ids = self._ivf.search_prepped(self._ivf_corpus, queries, k)
-        d, ids = self._apply_mask(d.cpu().numpy(), ids.cpu().numpy(), mask,
-                                  self._sealed_n)
+        d, ids = self._apply_mask(*_to_host(d, ids), mask, self._sealed_n)
         return d[:, :k], ids[:, :k]
 
     @staticmethod
@@ -551,7 +584,7 @@ class QuantixarEngine:
         d, ids = flat_search(self._to_dev(q), eff_dev, min(k, padded),
                              metric=metric, mask=self._to_dev(live),
                              base_index=delta.start)
-        return d.cpu().numpy(), ids.cpu().numpy()
+        return _to_host(d, ids)
 
     def _delta_effective(self):
         """Device-resident distance-space matrix for the delta scan, padded
@@ -599,9 +632,8 @@ class QuantixarEngine:
             ok &= self._to_dev(mask)[safe]
         d = torch.where(ok, d, float("inf"))
         order = torch.sort(d, dim=1, stable=True).indices[:, :k]
-        d = d.gather(1, order).cpu().numpy()
-        ids = np.take_along_axis(np.asarray(cand_ids), order.cpu().numpy(),
-                                 axis=1)
+        d, order = _to_host(d.gather(1, order), order)
+        ids = np.take_along_axis(np.asarray(cand_ids), order, axis=1)
         return d, np.where(np.isfinite(d), ids, -1)
 
     # ----------------------------------------------------------- persistence

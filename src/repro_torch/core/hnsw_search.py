@@ -32,6 +32,18 @@ iteration counts are the JAX package's.
 The code-domain modes descend the upper layers on the float proxy vectors
 (PQ reconstructions under l2, BQ ±1 signs under dot) and evaluate every
 layer-0 distance on the codes, as in the JAX package.
+
+Spans (`repro_torch.tracing`, recorded while a profiler runs):
+``hnsw.descent`` (count ``iters``: upper-layer iterations) around the upper
+layers; ``hnsw.step`` for each layer-0 iteration (counts ``queries`` Q,
+``active``: queries still searching, ``slots``: the (Q, width·M0) slots B1
+is launched over, and ``fresh``: the batch's fresh slots, read once at the
+loop's last sync and counted on the last step), holding ``hnsw.pop``,
+``hnsw.visit``, ``hnsw.distance`` (B1), ``hnsw.merge`` and ``hnsw.wait``,
+the step's one sync, which reads the next step's active count.  Every
+sync is an ``hnsw.wait``: the descent's, the step's, and the one before the
+first step.  So each step launches B1 once, and the entry points' launch
+lies outside every step.
 """
 
 from __future__ import annotations
@@ -41,6 +53,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve_device
 from ..kernels import ops
 from ..kernels.ref import gathered_dists
@@ -89,12 +102,18 @@ def to_device(packed: PackedHNSW, device="cuda",
 
 
 def _descend(q: torch.Tensor, g: HNSWGraph, layer: int, cur: torch.Tensor,
-             metric: str) -> torch.Tensor:
-    """Greedy move-to-nearest at one upper layer; cur (Q,) upper slots."""
+             metric: str) -> Tuple[torch.Tensor, int]:
+    """Greedy move-to-nearest at one upper layer; cur (Q,) upper slots.
+    Returns (the slots it ends on, the loop's iterations)."""
     d_cur = gathered_dists(q, g.vectors[g.upper_ids[cur]][:, None, :],
                            metric)[:, 0]
     moved = torch.ones_like(cur, dtype=torch.bool)
-    while bool(moved.any()):
+    iters = 0
+    while True:
+        with tracing.span("hnsw.wait", wait=True):
+            if not bool(moved.any()):
+                return cur, iters
+        iters += 1
         nbrs = g.upper_adj[cur, layer]                  # (Q, M) upper slots
         valid = nbrs != PAD
         rows = g.vectors[g.upper_ids[nbrs.clamp_min(0)]]   # (Q, M, D)
@@ -104,7 +123,6 @@ def _descend(q: torch.Tensor, g: HNSWGraph, layer: int, cur: torch.Tensor,
         moved = moved & (dj < d_cur)                    # frozen stay frozen
         cur = torch.where(moved, nbrs.gather(1, j)[:, 0], cur)
         d_cur = torch.where(moved, dj, d_cur)
-    return cur
 
 
 def _beam_search_base(g: HNSWGraph, ep: torch.Tensor, ef: int, width: int,
@@ -130,51 +148,76 @@ def _beam_search_base(g: HNSWGraph, ep: torch.Tensor, ef: int, width: int,
     visited.scatter_(1, (ep // 32)[:, None], (1 << (ep % 32))[:, None])
     iters = torch.zeros((nq,), dtype=torch.int32, device=dev)
 
-    while True:
-        active = (~expanded & torch.isfinite(cand_d)).any(1) & (iters < max_iters)
-        if not bool(active.any()):
-            break
-        act = active[:, None]
-        # pop the top-B nearest unexpanded candidates of each active query
-        pop_d, sel = topk_smallest(torch.where(expanded, INF, cand_d), width)
-        pop_ok = torch.isfinite(pop_d) & act
-        # surplus sel slots (pop_ok False) are INF: empty or already
-        # expanded, so marking them is moot — as in the JAX package
-        expanded = torch.where(act, expanded.scatter(1, sel, True), expanded)
-        nodes = torch.where(pop_ok, cand_id.gather(1, sel), PAD)     # (Q, B)
+    slots = nq * length
+    # the batch's fresh slots, summed on the device while spans record and
+    # read once, at the loop's last sync (counted on the last step)
+    fresh_sum = None
+    active = (~expanded & torch.isfinite(cand_d)).any(1) & (iters < max_iters)
+    with tracing.span("hnsw.wait", wait=True):
+        n_active = int(active.sum())
+    while n_active:
+        with tracing.span("hnsw.step", queries=nq, active=n_active,
+                          slots=slots) as step:
+            act = active[:, None]
+            with tracing.span("hnsw.pop"):
+                # pop the top-B nearest unexpanded candidates of each active
+                # query
+                pop_d, sel = topk_smallest(torch.where(expanded, INF, cand_d),
+                                           width)
+                pop_ok = torch.isfinite(pop_d) & act
+                # surplus sel slots (pop_ok False) are INF: empty or already
+                # expanded, so marking them is moot — as in the JAX package
+                expanded = torch.where(act, expanded.scatter(1, sel, True),
+                                       expanded)
+                nodes = torch.where(pop_ok, cand_id.gather(1, sel), PAD)
 
-        adj_rows = g.adj0[nodes.clamp_min(0)].long()                 # (Q, B, M0)
-        adj_rows = torch.where(pop_ok[:, :, None], adj_rows, PAD)
-        # visited OR-update, one popped row after the other: each row's bits
-        # land before the next row's membership test, so a neighbour shared
-        # by several popped candidates is fresh exactly once.  Rows are
-        # duplicate-free (graph invariant) and the bits added were clear,
-        # so add == or.
-        fresh_rows = []
-        for b in range(width):
-            nbrs_b = adj_rows[:, b]
-            safe_b = nbrs_b.clamp_min(0)
-            word_b = safe_b // 32
-            bit_b = safe_b % 32
-            seen_b = (visited.gather(1, word_b) >> bit_b) & 1
-            fresh_b = (nbrs_b != PAD) & (seen_b == 0)
-            visited.scatter_add_(1, word_b,
-                                 torch.where(fresh_b, 1 << bit_b, 0))
-            fresh_rows.append(fresh_b)
-        nbrs = adj_rows.reshape(nq, length)
-        fresh = torch.stack(fresh_rows, 1).reshape(nq, length)
+            with tracing.span("hnsw.visit"):
+                adj_rows = g.adj0[nodes.clamp_min(0)].long()     # (Q, B, M0)
+                adj_rows = torch.where(pop_ok[:, :, None], adj_rows, PAD)
+                # visited OR-update, one popped row after the other: each
+                # row's bits land before the next row's membership test, so
+                # a neighbour shared by several popped candidates is fresh
+                # exactly once.  Rows are duplicate-free (graph invariant)
+                # and the bits added were clear, so add == or.
+                fresh_rows = []
+                for b in range(width):
+                    nbrs_b = adj_rows[:, b]
+                    safe_b = nbrs_b.clamp_min(0)
+                    word_b = safe_b // 32
+                    bit_b = safe_b % 32
+                    seen_b = (visited.gather(1, word_b) >> bit_b) & 1
+                    fresh_b = (nbrs_b != PAD) & (seen_b == 0)
+                    visited.scatter_add_(1, word_b,
+                                         torch.where(fresh_b, 1 << bit_b, 0))
+                    fresh_rows.append(fresh_b)
+                nbrs = adj_rows.reshape(nq, length)
+                fresh = torch.stack(fresh_rows, 1).reshape(nq, length)
 
-        d = block_dist(nbrs, fresh)                             # fused
-        new_id = torch.where(fresh, nbrs, -1)
+            with tracing.span("hnsw.distance"):
+                d = block_dist(nbrs, fresh)                     # fused
+            if step:
+                fresh_sum = fresh.sum() if fresh_sum is None \
+                    else fresh_sum.add_(fresh.sum())
 
-        merged_d = torch.cat([cand_d, d], 1)
-        merged_id = torch.cat([cand_id, new_id], 1)
-        merged_exp = torch.cat([expanded, ~fresh], 1)   # stale: never expand
-        top_d, keep = topk_smallest(merged_d, ef)
-        cand_d = torch.where(act, top_d, cand_d)
-        cand_id = torch.where(act, merged_id.gather(1, keep), cand_id)
-        expanded = torch.where(act, merged_exp.gather(1, keep), expanded)
-        iters += active.to(torch.int32)
+            with tracing.span("hnsw.merge"):
+                new_id = torch.where(fresh, nbrs, -1)
+                merged_d = torch.cat([cand_d, d], 1)
+                merged_id = torch.cat([cand_id, new_id], 1)
+                # stale: never expand
+                merged_exp = torch.cat([expanded, ~fresh], 1)
+                top_d, keep = topk_smallest(merged_d, ef)
+                cand_d = torch.where(act, top_d, cand_d)
+                cand_id = torch.where(act, merged_id.gather(1, keep), cand_id)
+                expanded = torch.where(act, merged_exp.gather(1, keep),
+                                       expanded)
+                iters += active.to(torch.int32)
+                active = (~expanded & torch.isfinite(cand_d)).any(1) \
+                    & (iters < max_iters)
+
+            with tracing.span("hnsw.wait", wait=True):
+                n_active = int(active.sum())
+                if not n_active and fresh_sum is not None:
+                    step.count(fresh=int(fresh_sum))
     return cand_d, cand_id, iters
 
 
@@ -226,8 +269,10 @@ def search(g: HNSWGraph, queries: torch.Tensor, *, k: int, ef: int,
     nq = queries.shape[0]
 
     slot = torch.full((nq,), g.entry_upper, dtype=torch.int64, device=dev)
-    for layer in range(max_level, 0, -1):
-        slot = _descend(queries, g, layer - 1, slot, descent_metric)
+    with tracing.span("hnsw.descent") as descent:
+        for layer in range(max_level, 0, -1):
+            slot, n = _descend(queries, g, layer - 1, slot, descent_metric)
+            descent.count(iters=n)
     if max_level > 0:
         ep = g.upper_ids[slot]
     else:
@@ -255,13 +300,15 @@ def search(g: HNSWGraph, queries: torch.Tensor, *, k: int, ef: int,
 def search_numpy_reference(packed: PackedHNSW, queries: np.ndarray, k: int,
                            ef: int,
                            expansion_width: int = DEFAULT_EXPANSION_WIDTH,
+                           block_sizes: Optional[list] = None,
                            ) -> Tuple[np.ndarray, np.ndarray]:
     """Host oracle mirroring the fixed-shape device algorithm (test parity),
     width-aware: pops ``expansion_width`` candidates per iteration, expands
     their neighbour rows as one first-occurrence-deduplicated block, and
     merges with a single stable top-ef selection — the same visit order and
     tie-breaking as the device wide-beam loop.  (numpy copy of the JAX
-    package's oracle.)"""
+    package's oracle.)  ``block_sizes``, where given, gets each iteration's
+    block length appended: the fresh slots the device loop gathers."""
     metric = packed.config.metric
     vecs = packed.vectors
     dist = make_dist_fn(vecs, metric)
@@ -312,6 +359,8 @@ def search_numpy_reference(packed: PackedHNSW, queries: np.ndarray, k: int,
                          if e != PAD and e not in visited]
                 visited.update(fresh)
                 block.extend(fresh)
+            if block_sizes is not None:
+                block_sizes.append(len(block))
             if not block:
                 continue
             ds = dist(q, np.asarray(block, np.int64))

@@ -35,6 +35,13 @@ entry ``beam_gather_lists`` writes them and ``topk_smallest`` selects; the
 two give the same bits.  A kept slot's id is read back from the probe and
 the lists.  So ids match the CPU's except at near-ties and distances
 within B1's tolerance.
+
+Spans (`repro_torch.tracing`, recorded while a profiler runs):
+``ivf.search`` (counts ``queries``, ``lists``: the (query, list) pairs
+probed, ``slots``: Q·nprobe·max_list, all from shapes) holds ``ivf.probe``,
+and for each query chunk ``ivf.lists`` (the schedule, B1′ᵏ and the merge of
+each query's nprobe·k keys) and ``ivf.ids`` (`_slot_ids`, `hit_ids`).  The
+search reads nothing back from the card: it has no wait.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve_device
 from ..kernels import ops
 from ..kernels.beam_gather import MAX_LIST_SLOTS
@@ -237,58 +245,67 @@ def _ivf_search(corpus: torch.Tensor, queries: torch.Tensor,
     q = queries
     nq = q.shape[0]
     card = corpus.device.type == "cuda"
-    # 1. nearest nprobe centroids per query, ties to the lower index: the
-    # card's exact scan, the CPU the reference's unclamped norm expansion
-    if card:
-        _, probe = flat_search(q, centroids, nprobe, metric="l2")
-    else:
-        dc = ((q * q).sum(1)[:, None] + (centroids * centroids).sum(1)[None, :]
-              - 2.0 * (q @ centroids.T))
-        _, probe = topk_smallest(dc, nprobe)
-    # 2. candidates: (Q, nprobe * max_list) slots, their ids built as a
-    # block on the CPU only
     c = nprobe * lists.shape[1]
-    kk = min(k, c)
-    if card:
-        if c > MAX_LIST_SLOTS:
-            raise ValueError(
-                f"IVF search: {c} candidates a query (nprobe {nprobe} x "
-                f"max_list {lists.shape[1]}) exceed beam_gather_lists's "
-                f"int32 offsets ({MAX_LIST_SLOTS}); lower nprobe or raise "
-                f"nlist")
-        if list_len is None:
-            list_len = live_lengths(lists)
-    else:
-        cand = lists[probe].reshape(nq, -1)
-    # 3. exact distances to the candidates, a chunk of queries at a time
-    # (on the card the fused entry holds nprobe lists of min(kk, max_list)
-    # keys a query, the matrix entry c distances)
-    fused = card and lists_take_fused(k, c)
-    if fused:
-        row_bytes = probe.shape[1] * min(kk, lists.shape[1]) * 8
-    else:
-        row_bytes = c * 4 * (1 if card else corpus.shape[1])
-    step = max(1, min(IVF_BLOCK_BYTES // max(row_bytes, 1),
-                      MAX_LIST_SLOTS // max(c, 1)))
-    out_d, out_i = [], []
-    for lo in range(0, nq, step):
-        qc = q[lo: lo + step]
+    with tracing.span("ivf.search", queries=nq, lists=nq * nprobe,
+                      slots=nq * c):
+        # 1. nearest nprobe centroids per query, ties to the lower index:
+        # the card's exact scan, the CPU the reference's unclamped norm
+        # expansion
+        with tracing.span("ivf.probe"):
+            if card:
+                _, probe = flat_search(q, centroids, nprobe, metric="l2")
+            else:
+                dc = ((q * q).sum(1)[:, None]
+                      + (centroids * centroids).sum(1)[None, :]
+                      - 2.0 * (q @ centroids.T))
+                _, probe = topk_smallest(dc, nprobe)
+        # 2. candidates: (Q, nprobe * max_list) slots, their ids built as a
+        # block on the CPU only
+        kk = min(k, c)
         if card:
-            pc = probe[lo: lo + step]
-            dk, idx = list_candidates(qc, pc, lists, list_len, corpus, kk,
-                                      fused)
-            ids = _slot_ids(lists, pc, idx)
+            if c > MAX_LIST_SLOTS:
+                raise ValueError(
+                    f"IVF search: {c} candidates a query (nprobe {nprobe} x "
+                    f"max_list {lists.shape[1]}) exceed beam_gather_lists's "
+                    f"int32 offsets ({MAX_LIST_SLOTS}); lower nprobe or "
+                    f"raise nlist")
+            if list_len is None:
+                list_len = live_lengths(lists)
         else:
-            cc = cand[lo: lo + step]
-            vecs = corpus[cc.clamp_min(0).long()]            # (q, C, D)
-            d = ((qc * qc).sum(1)[:, None] + (vecs * vecs).sum(-1)
-                 - 2.0 * torch.einsum("qd,qcd->qc", qc, vecs))
-            d = torch.where(cc != PAD, d, float("inf"))
-            dk, idx = topk_smallest(d, kk)
-            ids = cc.gather(1, idx)
-        out_d.append(dk)
-        out_i.append(hit_ids(dk, ids))
-    if not out_d:
-        return (q.new_zeros((0, kk)),
-                torch.zeros((0, kk), dtype=torch.int32, device=q.device))
-    return torch.cat(out_d), torch.cat(out_i)
+            cand = lists[probe].reshape(nq, -1)
+        # 3. exact distances to the candidates, a chunk of queries at a
+        # time (on the card the fused entry holds nprobe lists of min(kk,
+        # max_list) keys a query, the matrix entry c distances)
+        fused = card and lists_take_fused(k, c)
+        if fused:
+            row_bytes = probe.shape[1] * min(kk, lists.shape[1]) * 8
+        else:
+            row_bytes = c * 4 * (1 if card else corpus.shape[1])
+        step = max(1, min(IVF_BLOCK_BYTES // max(row_bytes, 1),
+                          MAX_LIST_SLOTS // max(c, 1)))
+        out_d, out_i = [], []
+        for lo in range(0, nq, step):
+            qc = q[lo: lo + step]
+            if card:
+                pc = probe[lo: lo + step]
+                with tracing.span("ivf.lists"):
+                    dk, idx = list_candidates(qc, pc, lists, list_len,
+                                              corpus, kk, fused)
+                with tracing.span("ivf.ids"):
+                    ids = hit_ids(dk, _slot_ids(lists, pc, idx))
+            else:
+                cc = cand[lo: lo + step]
+                with tracing.span("ivf.lists"):
+                    vecs = corpus[cc.clamp_min(0).long()]       # (q, C, D)
+                    d = ((qc * qc).sum(1)[:, None] + (vecs * vecs).sum(-1)
+                         - 2.0 * torch.einsum("qd,qcd->qc", qc, vecs))
+                    d = torch.where(cc != PAD, d, float("inf"))
+                    dk, idx = topk_smallest(d, kk)
+                with tracing.span("ivf.ids"):
+                    ids = hit_ids(dk, cc.gather(1, idx))
+            out_d.append(dk)
+            out_i.append(ids)
+        if not out_d:
+            return (q.new_zeros((0, kk)),
+                    torch.zeros((0, kk), dtype=torch.int32, device=q.device))
+        return torch.cat(out_d), torch.cat(out_i)
