@@ -20,7 +20,9 @@ them sharded, behind the HTTP server), the distributed search through
            corpus at SIFT's published size (1M x 128): build, 10,000 queries
            in batches of 1,024 (k=10, ef=64, width 4) held to recall@10
            against an exact top-k, delta inserts, masked searches at ~50 %
-           (HNSW) and ~5 % (flat route) selectivity;
+           (HNSW) and ~5 % (flat route) selectivity; then B1ˢ, the
+           layer-0 step in one launch, at the HNSW cell's shape (ef 256)
+           step by step against the plain step, bit for bit, and timed;
   phase B  the same checks in l2 over a Fashion-MNIST-like corpus at its
            published size (60k x 784);
   phase C  phase A's corpus, queries and ground truth with PQ codes
@@ -224,6 +226,8 @@ N_FMNIST = 60_000        # Fashion-MNIST-784's published size (phase B)
 K = 10
 EF = 64
 WIDTH = 4
+# B1ˢ's row (step_row): the HNSW cell's ef (perfbench/configs/sift1m-hnsw.json)
+STEP_EF = 256
 QUERY_BATCH = 1024
 # the repo's database config (src/repro/configs/quantixar_db.py): PQ m=16,
 # k=256 and BQ 256 bits over the 128-wide corpus
@@ -253,13 +257,14 @@ QUANT = {"A": "none", "B": "none", "C": "pq", "D": "bq"}
 # the partial distances of I's "dims" ranks; pq_adc and hamming in I, the
 # PQ and BQ scans of every rank)
 PHASE_KERNELS = {
-    "A": ("beam_gather", "pair_gather", "l2_topk"),
-    "B": ("beam_gather", "pair_gather", "l2_topk"),
+    "A": ("beam_gather", "beam_gather_step", "pair_gather", "l2_topk"),
+    "B": ("beam_gather", "beam_gather_step", "pair_gather", "l2_topk"),
     "C": ("beam_gather", "pair_gather", "beam_gather_adc", "pq_adc",
           "l2_distance"),
     "D": ("beam_gather", "pair_gather", "beam_gather_hamming_masked",
           "hamming", "l2_distance"),
-    "E": ("beam_gather", "pair_gather", "l2_topk", "l2_distance"),
+    "E": ("beam_gather", "beam_gather_step", "pair_gather", "l2_topk",
+          "l2_distance"),
     "F": ("slstm",),
     "G": ("beam_gather_lists_topk", "beam_gather_lists", "l2_distance",
           "l2_topk"),
@@ -271,7 +276,8 @@ PHASE_KERNELS = {
 SOURCES = {"l2_topk": "l2_distance",
            "beam_gather_hamming_masked": "beam_gather_hamming",
            "beam_gather_lists": "beam_gather",
-           "beam_gather_lists_topk": "beam_gather"}
+           "beam_gather_lists_topk": "beam_gather",
+           "beam_gather_step": "beam_gather"}
 # a kernel row's launches: the counters of every entry of its source that
 # ran it (B4's kernel runs in phase D through its fused entry only, B1's in
 # phase G through its list-major entries only)
@@ -1478,6 +1484,133 @@ def fused_step_row(torch, eng, queries, log):
     return r
 
 
+def step_row(torch, eng, queries, log):
+    """B1ˢ (``beam_gather_step``) where phase A runs it, at the HNSW cell's
+    shape: the first QUERY_BATCH queries over A's graph (1M x 128, M0 32,
+    dot), ef STEP_EF, width WIDTH.  From one ``beam_state`` after the
+    upper-layer descent, the wrapper and the plain step (``PlainStep``,
+    whose distances are B1's) step side by side until every query stops,
+    every state tensor and the active and fresh counts held equal after
+    each step, bit for bit.  Then each alone from the same state: B1ˢ under
+    ``torch.profiler`` (``ms``: its kernel's device time a step,
+    ``batch_ms`` their sum) and between CUDA events (``call_ms``: a step's
+    launch and wait, the median); the plain step between CUDA events
+    (``plain_ms`` a step, launches paced by the host, ``plain_batch_ms``
+    their sum; ``plain_call_ms`` with its wait).  ``bound_ms``: the bytes a
+    step must move over HBM_BYTES_PER_S, from the run's own counts: each
+    fresh row (D x 4 bytes) and a 32-byte sector of visited words for it,
+    and each active query's popped adjacency rows (width x M0 x 4) and its
+    candidate state read and written (ef x 13 bytes, twice)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import hnsw_search as hs
+    from repro_torch.core.hnsw_build import preprocess_vectors
+    from repro_torch.kernels import beam_gather as bg
+    from repro_torch.kernels import ops
+
+    g, max_level, metric = eng._device_graph
+    q = queries[:QUERY_BATCH]
+    if metric == "dot":
+        q = preprocess_vectors(q, eng.config.metric)
+    q = torch.as_tensor(q, dtype=torch.float32, device="cuda").contiguous()
+    nq, (n, d), m0 = q.shape[0], g.vectors.shape, g.adj0.shape[1]
+    width, ef, max_iters = WIDTH, STEP_EF, 4 * STEP_EF
+    # the search's upper-layer descent to its entry points
+    slot = torch.full((nq,), g.entry_upper, dtype=torch.int64, device="cuda")
+    for layer in range(max_level, 0, -1):
+        slot, _ = hs._descend(q, g, layer - 1, slot, metric)
+    ep = g.upper_ids[slot] if max_level > 0 else torch.full(
+        (nq,), g.entry_global, dtype=torch.int64, device="cuda")
+
+    def block_dist(ids, fresh):
+        return torch.where(fresh, ops.beam_gather_distances(
+            q, ids.clamp_min(0), g.vectors, mode=metric), float("inf"))
+
+    start = hs.beam_state(ep, ef, max_iters, (n + 31) // 32, block_dist)
+
+    def state():
+        return bg.BeamState(*(t.clone() for t in start))
+
+    def b1s():
+        step = ops.beam_gather_step(q, g.adj0, g.vectors, state(),
+                                    width=width, max_iters=max_iters,
+                                    mode=metric)
+        check(isinstance(step, bg.BeamGatherStep),
+              "A: the float search's step is not B1ˢ on the card")
+        return step
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    kern = b1s()
+    plain = bg.PlainStep(state(), g.adj0, width, max_iters, block_dist)
+    active = [int(start.active.sum())]
+    while active[-1]:
+        kern()
+        plain(count=True)
+        n_active = kern.n_active()
+        check(n_active == plain.n_active(),
+              f"A: B1ˢ's active count differs at step {len(active)}")
+        for name, a, b in zip(bg.BeamState._fields, kern.state,
+                              plain.state):
+            check(torch.equal(bits(a), bits(b)),
+                  f"A: B1ˢ's {name} differs from the plain step's at step "
+                  f"{len(active)}")
+        check(kern.fresh() == plain.fresh(),
+              f"A: B1ˢ's fresh count differs at step {len(active)}")
+        active.append(n_active)
+    steps, fresh = len(active) - 1, kern.fresh()
+
+    def timed(step, count=False):
+        """(CUDA events around each call, around each call and its wait)"""
+        spans, n_active = [], active[0]
+        while n_active:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            step(count=count)
+            ev[1].record()
+            n_active = step.n_active()
+            ev[2].record()
+            spans.append(ev)
+        torch.cuda.synchronize()
+        return ([a.elapsed_time(b) for a, b, _ in spans],
+                [a.elapsed_time(c) for a, _, c in spans])
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        timed(b1s())
+    kern_ms = [e.duration_ns() / 1e6
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA
+               and "beam_gather_step_kernel" in e.name()]
+    check(len(kern_ms) == steps,
+          f"A: {len(kern_ms)} B1ˢ kernels profiled over {steps} steps")
+    _, call = timed(b1s())
+    plain_ms, plain_call = timed(
+        bg.PlainStep(state(), g.adj0, width, max_iters, block_dist))
+    nbytes = fresh * (d * 4 + 32) \
+        + sum(active[:-1]) * (width * m0 * 4 + 2 * ef * 13)
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3 / steps
+    r = {"name": "beam_gather_step", "inputs": "A search, the cell's shape",
+         "mode": metric, "Q": nq, "ef": ef, "width": width, "M0": m0,
+         "L": width * m0, "D": d, "N": n, "steps": steps,
+         "max_abs_err": 0.0,                  # held bit for bit above
+         "ms": sum(kern_ms) / steps, "batch_ms": sum(kern_ms),
+         "call_ms": statistics.median(call),
+         "plain_ms": sum(plain_ms) / steps, "plain_batch_ms": sum(plain_ms),
+         "plain_call_ms": statistics.median(plain_call),
+         "plain_timer": "events",
+         "bound_ms": b_ms, "bound_us": b_ms * 1e3,
+         "bound_batch_ms": b_ms * steps, "bound_by": "bytes",
+         "library_ms": None,
+         "fresh_share": fresh / (steps * nq * width * m0),
+         "active_share": sum(active[:-1]) / (steps * nq)}
+    r["share"] = b_ms / r["ms"]
+    log(r)
+    return r
+
+
 def run_collection(torch, name, corpus, queries, gt, new_rows, metric,
                    counters, log):
     """One phase: build, search sweep against ``gt``, delta rows, masked
@@ -1589,9 +1722,11 @@ def run_collection(torch, name, corpus, queries, gt, new_rows, metric,
     for kname in PHASE_KERNELS[name]:
         check(res["launches"][kname] > 0,
               f"{name}: kernel {kname} never launched")
+    # after the launch count: these launches are measurements
     if quant == "bq":
-        # after the launch count: these launches are measurements
         res["fused_step"] = fused_step_row(torch, eng, queries, log)
+    if name == "A":
+        res["step_row"] = step_row(torch, eng, queries, log)
     log({"phase_result": res})
     del eng
     torch.cuda.empty_cache()
@@ -3979,6 +4114,7 @@ class Counters:
                      "beam_gather_lists": (beam_gather, "lists_launches"),
                      "beam_gather_lists_topk": (beam_gather,
                                                 "topk_launches"),
+                     "beam_gather_step": (beam_gather, "step_launches"),
                      "slstm": (slstm, "launches"),
                      "slstm_backward": (slstm, "backward_launches")}
 
@@ -4210,12 +4346,19 @@ def main(argv) -> int:
     # I's "dims" ranks run them (at_dims_split: Q=1024 x a 65,536-row chunk
     # of a rank's half, m=8 / W=4 / D=64 in dot mode, the last over the
     # cosine rows and over l2's raw rows).
+    # beam_gather_step, B1ˢ: phase A's step_row at the HNSW cell's shape
+    # (Q=1024, ef=256, width 4, M0 32, D=128 over A's graph, dot): ms its
+    # kernel's device time a step, batch_ms a batch's, plain_ms and
+    # plain_batch_ms the plain step's (host-paced), bound_ms and
+    # bound_batch_ms from the run's own fresh and active counts.
     main_rows = {
         "beam_gather": (pick("beam_gather", mode="dot", D=128, L=256), "A",
                         "beam_gather.py:98",
                         {"at_ivf": phase["G"]["b1_row"],
                          "at_ivf_lists": phase["G"]["lists_row"],
                          "at_ivf_topk": phase["G"]["topk_row"]}),
+        "beam_gather_step": (phase["A"]["step_row"], "A",
+                             "beam_gather.py:98"),
         "beam_gather_lists": (phase["G"]["lists_row"], "G",
                               "beam_gather.py:98"),
         "beam_gather_lists_topk": (phase["G"]["topk_row"], "G",
@@ -4254,7 +4397,11 @@ def main(argv) -> int:
     # its cell; it is the backward of B8's
     notes = {"slstm_backward": "no TPU kernel: the backward of B8 "
                                "(slstm.py:90); the JAX package trains "
-                               "through autodiff of a lax.scan"}
+                               "through autodiff of a lax.scan",
+             "beam_gather_step": "no TPU kernel: the JAX search's layer-0 "
+                                 "loop body (src/repro/core/hnsw_search.py) "
+                                 "around beam_gather_kernel "
+                                 "(beam_gather.py:98)"}
     kernels = []
     for name, (r, home, tpu, *extra) in main_rows.items():
         entries = ENTRIES.get(name, (name,))
@@ -4286,10 +4433,13 @@ def main(argv) -> int:
                                  "path", "floor_ms", "digest",
                                  "in_path_ms", "in_path_launches",
                                  "fresh_share", "share", "rel_l2",
-                                 "bound_bytes_ms", "forward_path")
+                                 "bound_bytes_ms", "forward_path",
+                                 "steps", "batch_ms", "plain_batch_ms",
+                                 "bound_batch_ms", "active_share")
                if k in r},
             "at": {k: r[k] for k in ("mode", "dtype", "Q", "L", "B", "C",
-                                     "D", "N", "m", "k", "W", "S", "d", "H")
+                                     "D", "N", "m", "k", "W", "S", "d", "H",
+                                     "ef", "width", "M0")
                    if k in r},
             # the kernel again where G and H run it
             **{key: strip_row(v) for key, v in

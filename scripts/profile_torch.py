@@ -17,7 +17,8 @@ under a ~5 % mask (the flat route) it prints, as one JSON line each:
   <kernel>_ms  each of the port's CUDA kernels' share (beam_gather,
              beam_gather_lists and beam_gather_lists_topk: B1's gather
              entry and its list-major entries, the matrix one and the fused
-             top-k one,
+             top-k one; beam_gather_step: B1ˢ, the HNSW search's
+             layer-0 step in one launch;
              pair_gather, beam_gather_adc, beam_gather_hamming (both of
              B4's entries), pq_adc, hamming, l2_distance, l2_topk: B5's
              matrix and fused entries), and <kernel>_launches its count;
@@ -157,6 +158,7 @@ IVF_NLIST, IVF_NPROBE = 1024, 32
 # each kernel's device functions, as the profiler names them (demangled), by
 # parts no other kernel's name contains
 KERNELS = {"beam_gather": ("beam_gather_f32_kernel",),
+           "beam_gather_step": ("beam_gather_step_kernel",),
            "beam_gather_lists": ("beam_gather_lists_kernel",),
            "beam_gather_lists_topk": ("beam_gather_lists_topk_kernel",),
            "pair_gather": ("pair_gather_f32_kernel",),

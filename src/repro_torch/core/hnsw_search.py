@@ -19,8 +19,16 @@ iteration counts are the JAX package's.
                                   ``scatter_add_`` one popped row after the
                                   other (exact: the bits added are distinct
                                   and were clear)
-  layer-0 distances            -> one fused (Q, B·M0) gather-distance call
-                                  per iteration (kernels/ops.py: the
+  layer-0 step                 -> on a card, in the float modes (l2 /
+                                  dot), one launch of B1ˢ a step
+                                  (``beam_gather_step``: pop, visited
+                                  test-and-set, B1's distance on the fresh
+                                  slots and the ef merge in one kernel),
+                                  at every shape; else the plain step
+                                  (``kernels/beam_gather.py``
+                                  ``PlainStep``): the ops above and one
+                                  fused (Q, B·M0) gather-distance call per
+                                  iteration (kernels/ops.py: the
                                   ``beam_gather`` CUDA kernel on a card,
                                   or in code domain ``beam_gather_adc`` /
                                   ``beam_gather_hamming_masked`` over the
@@ -36,19 +44,19 @@ layer-0 distance on the codes, as in the JAX package.
 Spans (`repro_torch.tracing`, recorded while a profiler runs):
 ``hnsw.descent`` (count ``iters``: upper-layer iterations) around the upper
 layers; ``hnsw.step`` for each layer-0 iteration (counts ``queries`` Q,
-``active``: queries still searching, ``slots``: the (Q, width·M0) slots B1
-is launched over, and ``fresh``: the batch's fresh slots, read once at the
-loop's last sync and counted on the last step), holding ``hnsw.pop``,
-``hnsw.visit``, ``hnsw.distance`` (B1), ``hnsw.merge`` and ``hnsw.wait``,
-the step's one sync, which reads the next step's active count.  Every
-sync is an ``hnsw.wait``: the descent's, the step's, and the one before the
-first step.  So each step launches B1 once, and the entry points' launch
-lies outside every step.
+``active``: queries still searching, ``slots``: the (Q, width·M0) slots of
+the step's block, and ``fresh``: the batch's fresh slots, read once at the
+loop's last sync and counted on the last step), holding B1ˢ's launch or
+the plain step's ``hnsw.pop``, ``hnsw.visit``, ``hnsw.distance`` (B1) and
+``hnsw.merge``, and ``hnsw.wait``, the step's one sync, which reads the
+next step's active count.  Every sync is an ``hnsw.wait``: the descent's,
+the step's, and the one before the first step.  So each step launches B1ˢ
+or B1 once, and the entry points' B1 launch lies outside every step.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,8 +64,8 @@ import torch
 from .. import tracing
 from ..device import resolve_device
 from ..kernels import ops
+from ..kernels.beam_gather import BeamState, PlainStep
 from ..kernels.ref import gathered_dists
-from .flat import topk_smallest
 from .hnsw_build import PAD, PackedHNSW, make_dist_fn, preprocess_vectors
 
 INF = float("inf")
@@ -125,19 +133,13 @@ def _descend(q: torch.Tensor, g: HNSWGraph, layer: int, cur: torch.Tensor,
         d_cur = torch.where(moved, dj, d_cur)
 
 
-def _beam_search_base(g: HNSWGraph, ep: torch.Tensor, ef: int, width: int,
-                      max_iters: int, n_words: int, block_dist
-                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Fixed-ef wide-beam search on layer 0 for the batch of entry points
-    ep (Q,).  ``block_dist(ids, fresh)`` maps int64 ids (Q, L) (PAD = -1
-    allowed) and a bool mask (Q, L) to float32 distances, +inf where the
-    mask is False.  Returns (dists (Q, ef), ids (Q, ef) int64, iterations
-    (Q,))."""
+def beam_state(ep: torch.Tensor, ef: int, max_iters: int, n_words: int,
+               block_dist) -> BeamState:
+    """The layer-0 loop's state before its first step, from the entry
+    points ep (Q,): each query's buffer holds its entry point alone, whose
+    visited bit is set; ``block_dist`` as `_beam_search_base`'s."""
     nq = ep.shape[0]
     dev = ep.device
-    m0 = g.adj0.shape[1]
-    length = width * m0
-
     cand_d = torch.full((nq, ef), INF, device=dev)
     cand_d[:, 0] = block_dist(
         ep[:, None], torch.ones((nq, 1), dtype=torch.bool, device=dev))[:, 0]
@@ -147,78 +149,44 @@ def _beam_search_base(g: HNSWGraph, ep: torch.Tensor, ef: int, width: int,
     visited = torch.zeros((nq, n_words), dtype=torch.int64, device=dev)
     visited.scatter_(1, (ep // 32)[:, None], (1 << (ep % 32))[:, None])
     iters = torch.zeros((nq,), dtype=torch.int32, device=dev)
+    active = (~expanded & torch.isfinite(cand_d)).any(1) & (iters < max_iters)
+    return BeamState(cand_d, cand_id, expanded, visited, iters, active)
+
+
+def _beam_search_base(g: HNSWGraph, ep: torch.Tensor, ef: int, width: int,
+                      max_iters: int, n_words: int, block_dist,
+                      fused: Optional[Callable] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fixed-ef wide-beam search on layer 0 for the batch of entry points
+    ep (Q,).  ``block_dist(ids, fresh)`` maps int64 ids (Q, L) (PAD = -1
+    allowed) and a bool mask (Q, L) to float32 distances, +inf where the
+    mask is False: the entry points' distances, and the plain step's.
+    ``fused(state)``, where given, returns B1ˢ's step for the state, or
+    None where the loop takes the plain step.  Returns (dists (Q, ef), ids
+    (Q, ef) int64, iterations (Q,))."""
+    nq = ep.shape[0]
+    length = width * g.adj0.shape[1]
+    state = beam_state(ep, ef, max_iters, n_words, block_dist)
+    step = fused(state) if fused is not None else None
+    if step is None:
+        step = PlainStep(state, g.adj0, width, max_iters, block_dist)
 
     slots = nq * length
-    # the batch's fresh slots, summed on the device while spans record and
-    # read once, at the loop's last sync (counted on the last step)
-    fresh_sum = None
-    active = (~expanded & torch.isfinite(cand_d)).any(1) & (iters < max_iters)
     with tracing.span("hnsw.wait", wait=True):
-        n_active = int(active.sum())
+        n_active = int(state.active.sum())
     while n_active:
         with tracing.span("hnsw.step", queries=nq, active=n_active,
-                          slots=slots) as step:
-            act = active[:, None]
-            with tracing.span("hnsw.pop"):
-                # pop the top-B nearest unexpanded candidates of each active
-                # query
-                pop_d, sel = topk_smallest(torch.where(expanded, INF, cand_d),
-                                           width)
-                pop_ok = torch.isfinite(pop_d) & act
-                # surplus sel slots (pop_ok False) are INF: empty or already
-                # expanded, so marking them is moot — as in the JAX package
-                expanded = torch.where(act, expanded.scatter(1, sel, True),
-                                       expanded)
-                nodes = torch.where(pop_ok, cand_id.gather(1, sel), PAD)
-
-            with tracing.span("hnsw.visit"):
-                adj_rows = g.adj0[nodes.clamp_min(0)].long()     # (Q, B, M0)
-                adj_rows = torch.where(pop_ok[:, :, None], adj_rows, PAD)
-                # visited OR-update, one popped row after the other: each
-                # row's bits land before the next row's membership test, so
-                # a neighbour shared by several popped candidates is fresh
-                # exactly once.  Rows are duplicate-free (graph invariant)
-                # and the bits added were clear, so add == or.
-                fresh_rows = []
-                for b in range(width):
-                    nbrs_b = adj_rows[:, b]
-                    safe_b = nbrs_b.clamp_min(0)
-                    word_b = safe_b // 32
-                    bit_b = safe_b % 32
-                    seen_b = (visited.gather(1, word_b) >> bit_b) & 1
-                    fresh_b = (nbrs_b != PAD) & (seen_b == 0)
-                    visited.scatter_add_(1, word_b,
-                                         torch.where(fresh_b, 1 << bit_b, 0))
-                    fresh_rows.append(fresh_b)
-                nbrs = adj_rows.reshape(nq, length)
-                fresh = torch.stack(fresh_rows, 1).reshape(nq, length)
-
-            with tracing.span("hnsw.distance"):
-                d = block_dist(nbrs, fresh)                     # fused
-            if step:
-                fresh_sum = fresh.sum() if fresh_sum is None \
-                    else fresh_sum.add_(fresh.sum())
-
-            with tracing.span("hnsw.merge"):
-                new_id = torch.where(fresh, nbrs, -1)
-                merged_d = torch.cat([cand_d, d], 1)
-                merged_id = torch.cat([cand_id, new_id], 1)
-                # stale: never expand
-                merged_exp = torch.cat([expanded, ~fresh], 1)
-                top_d, keep = topk_smallest(merged_d, ef)
-                cand_d = torch.where(act, top_d, cand_d)
-                cand_id = torch.where(act, merged_id.gather(1, keep), cand_id)
-                expanded = torch.where(act, merged_exp.gather(1, keep),
-                                       expanded)
-                iters += active.to(torch.int32)
-                active = (~expanded & torch.isfinite(cand_d)).any(1) \
-                    & (iters < max_iters)
-
+                          slots=slots) as sp:
+            # the fresh slots are counted while spans record, and read
+            # once, at the loop's last sync (counted on the last step)
+            step(count=bool(sp))
             with tracing.span("hnsw.wait", wait=True):
-                n_active = int(active.sum())
-                if not n_active and fresh_sum is not None:
-                    step.count(fresh=int(fresh_sum))
-    return cand_d, cand_id, iters
+                n_active = step.n_active()
+                if not n_active and sp:
+                    fresh = step.fresh()
+                    if fresh is not None:
+                        sp.count(fresh=fresh)
+    return step.state.cand_d, step.state.cand_id, step.state.iters
 
 
 def search(g: HNSWGraph, queries: torch.Tensor, *, k: int, ef: int,
@@ -226,7 +194,7 @@ def search(g: HNSWGraph, queries: torch.Tensor, *, k: int, ef: int,
            expansion_width: int = DEFAULT_EXPANSION_WIDTH,
            max_iters: Optional[int] = None,
            q_codes: Optional[torch.Tensor] = None,
-           with_iters: bool = False):
+           with_iters: bool = False, force_ref: bool = False):
     """Batched HNSW search.
 
     Args:
@@ -247,6 +215,9 @@ def search(g: HNSWGraph, queries: torch.Tensor, *, k: int, ef: int,
         "adc", (Q, W) int32 packed query words for "hamming".
       with_iters: additionally return the (Q,) int32 layer-0 loop-trip
         counters.
+      force_ref: the float modes' layer-0 loop takes the plain step
+        (PyTorch ops; on a card its distances are still B1's) where it
+        would take B1ˢ.
 
     Returns:
       (distances (Q, k) ascending raw scores, ids (Q, k) int32; -1 =
@@ -291,8 +262,16 @@ def search(g: HNSWGraph, queries: torch.Tensor, *, k: int, ef: int,
             return torch.where(fresh, ops.beam_gather_distances(
                 queries, ids.clamp_min(0), g.vectors, mode=metric), INF)
 
+    fused = None
+    if metric in ("l2", "dot"):
+        # the float modes' steps: B1ˢ on a card
+        def fused(state):
+            return ops.beam_gather_step(queries, g.adj0, g.vectors, state,
+                                        width=width, max_iters=max_iters,
+                                        mode=metric, force_ref=force_ref)
+
     d, ids, iters = _beam_search_base(g, ep, ef, width, max_iters, n_words,
-                                      block_dist)
+                                      block_dist, fused)
     d, ids = d[:, :k], ids[:, :k].to(torch.int32)
     return (d, ids, iters) if with_iters else (d, ids)
 

@@ -139,6 +139,54 @@
 // distance tiles through shared memory (the selection then ran serially),
 // a radix-selected first bound, merging a ballot's survivors at once, and
 // the warp's queries' insertions interleaved round by round.
+//
+// ---------------------------------------------------------------------------
+// Fourth entry, beam_gather_step_f32: B1ˢ, B1's gather-distance with the
+// HNSW layer-0 step around it, one launch a step.
+//
+// Computes: one iteration of the lockstep wide-beam loop of
+// core/hnsw_search.py (the plain step, kernels/beam_gather.py
+// beam_gather_step_ref) for every active query, in place on the search's
+// state: pop the width smallest unexpanded candidates (topk_smallest's
+// key, lowest index on ties) and mark them expanded, the +inf surplus too;
+// test-and-set the visited bits of their adj0 rows; B1's distance on the
+// fresh slots; keep the ef smallest of [buffer, block] by topk_smallest's
+// key; count the iteration and write the query's active flag.  The
+// results, iteration counts and fresh slots are the plain step's, bit for
+// bit, with B1 as its distance.
+//
+// What bounds it on an H100: bytes, and the latency of one query's chain.
+// At the HNSW cell's shape (Q 1,024, ef 256, width 4, M0 32, D 128) a step
+// reads ~77 fresh rows of 512 B a query, 4 adjacency rows of 128 B, ~77
+// visited words and the candidate state (ef x 13 B, read and written): ~45
+// KB a query, 46 MB a step, ~14 us at 3.35 TB/s.  The plain step took
+// ~125 launches of PyTorch's small kernels a step.
+//
+// Design: one block of 256 threads a query, the step's state in shared
+// memory (or, where that plan passes 47 KB, in a global workspace of the
+// same layout, a plan a block: so every ef, width * M0 and D); a block
+// whose query is inactive only counts itself.
+//  - pop: width rounds of a block-wide minimum over the masked keys, each
+//    thread scanning its ef / 256 of them, the popped ones flagged;
+//  - visit: the slots 256 at a time; the first occurrence of an id in
+//    row-major order is found by a hash (each id's lowest slot by
+//    atomicMin), and only it takes one 64-bit atomicOr on the query's
+//    visited word: fresh where the bit was clear.  On duplicate-free rows
+//    (the graph's invariant) that is the plain step's row-by-row update;
+//  - distance: the fresh slots compacted, each warp B1's arithmetic on 4
+//    rows at once (b1_partials and b1_finish, shared with B1's entry);
+//  - merge: the block's keys sorted by a bitonic network (a key a thread
+//    in registers and shuffles up to 256 keys, in the plan's memory past
+//    that), then each entry's place in the merged order is its place in
+//    its own list plus the other list's keys below it, by a binary search
+//    (the buffer is sorted: every merge leaves it so, and beam_state's
+//    first buffer is);
+//  - counts: each block adds its query's new active flag and fresh slots
+//    to device counters; the last block to finish writes the step's
+//    active count and the search's fresh total to a pinned host buffer,
+//    so that the host's one wait a step reads them without a copy.
+// It takes every shape with 1 <= width <= ef; beam_gather_step_work gives
+// the workspace a shape needs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -149,6 +197,71 @@ namespace {
 
 constexpr int kWarps = 8;                 // ids per block, one warp each
 constexpr int kThreads = kWarps * 32;
+
+// B1's arithmetic, shared by its gather entry and B1ˢ (the step entry at
+// the end of this file), so that the two cannot drift apart: lane `lane`'s
+// partial of each of R rows against the query row in shared memory, the
+// fmaf chain from 0 over the float4s (kVec; floats otherwise) lane,
+// lane + 32, ...  The R rows' loads of one depth are issued together.
+template <bool kL2, bool kVec, int R>
+__device__ __forceinline__ void b1_partials(const float* const (&x)[R],
+                                            const float* q_smem, int D,
+                                            int lane, float (&acc)[R]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = 0.f;
+  if (kVec) {
+    const float4* q4 = reinterpret_cast<const float4*>(q_smem);
+    const int d4 = D >> 2;
+    for (int i = lane; i < d4; i += 32) {
+      float4 a[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        a[r] = __ldg(reinterpret_cast<const float4*>(x[r]) + i);
+      const float4 b = q4[i];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (kL2) {
+          float t;
+          t = a[r].x - b.x; acc[r] = fmaf(t, t, acc[r]);
+          t = a[r].y - b.y; acc[r] = fmaf(t, t, acc[r]);
+          t = a[r].z - b.z; acc[r] = fmaf(t, t, acc[r]);
+          t = a[r].w - b.w; acc[r] = fmaf(t, t, acc[r]);
+        } else {
+          acc[r] = fmaf(a[r].x, b.x, acc[r]);
+          acc[r] = fmaf(a[r].y, b.y, acc[r]);
+          acc[r] = fmaf(a[r].z, b.z, acc[r]);
+          acc[r] = fmaf(a[r].w, b.w, acc[r]);
+        }
+      }
+    }
+  } else {
+    for (int i = lane; i < D; i += 32) {
+      float a[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) a[r] = __ldg(x[r] + i);
+      const float b = q_smem[i];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (kL2) {
+          const float t = a[r] - b;
+          acc[r] = fmaf(t, t, acc[r]);
+        } else {
+          acc[r] = fmaf(a[r], b, acc[r]);
+        }
+      }
+    }
+  }
+}
+
+// B1's butterfly (offsets 16 .. 1) over a warp's partials, and its sign:
+// the distance, in every lane
+template <bool kL2>
+__device__ __forceinline__ float b1_finish(float acc) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  return kL2 ? acc : -acc;
+}
 
 template <bool kL2>
 __global__ void __launch_bounds__(kThreads)
@@ -169,43 +282,15 @@ beam_gather_f32_kernel(const float* __restrict__ q,
   if (l >= L) return;
   int row = ids[static_cast<size_t>(qi) * L + l];
   row = min(max(row, 0), N - 1);
-  const float* x = corpus + static_cast<size_t>(row) * D;
+  const float* x[1] = {corpus + static_cast<size_t>(row) * D};
 
-  float acc = 0.f;
-  if ((D & 3) == 0 && (reinterpret_cast<uintptr_t>(corpus) & 15) == 0) {
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-    const int d4 = D >> 2;
-    for (int i = lane; i < d4; i += 32) {
-      const float4 a = __ldg(x4 + i);
-      const float4 b = q_smem4[i];
-      if (kL2) {
-        float t;
-        t = a.x - b.x; acc = fmaf(t, t, acc);
-        t = a.y - b.y; acc = fmaf(t, t, acc);
-        t = a.z - b.z; acc = fmaf(t, t, acc);
-        t = a.w - b.w; acc = fmaf(t, t, acc);
-      } else {
-        acc = fmaf(a.x, b.x, acc);
-        acc = fmaf(a.y, b.y, acc);
-        acc = fmaf(a.z, b.z, acc);
-        acc = fmaf(a.w, b.w, acc);
-      }
-    }
-  } else {
-    for (int i = lane; i < D; i += 32) {
-      const float a = __ldg(x + i);
-      if (kL2) {
-        const float t = a - q_smem[i];
-        acc = fmaf(t, t, acc);
-      } else {
-        acc = fmaf(a, q_smem[i], acc);
-      }
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) out[static_cast<size_t>(qi) * L + l] = kL2 ? acc : -acc;
+  float acc[1];
+  if ((D & 3) == 0 && (reinterpret_cast<uintptr_t>(corpus) & 15) == 0)
+    b1_partials<kL2, true, 1>(x, q_smem, D, lane, acc);
+  else
+    b1_partials<kL2, false, 1>(x, q_smem, D, lane, acc);
+  const float v = b1_finish<kL2>(acc[0]);
+  if (lane == 0) out[static_cast<size_t>(qi) * L + l] = v;
 }
 
 }  // namespace
@@ -1078,4 +1163,435 @@ extern "C" int beam_gather_lists_topk_f32(
   return dispatch_topk<kTopkChunks>(q, entries, starts, tile_end, order,
                                      lists, list_len, corpus, cand, P, M, D,
                                      N, nlist, kl, nb, vec, s);
+}
+
+// ---------------------------------------------------------------------------
+// beam_gather_step_f32: B1ˢ, one layer-0 step of the HNSW wide-beam search
+// (see the note at the top)
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int kStepThreads = 256;
+constexpr int kStepWarps = kStepThreads / 32;
+constexpr int kStepRows = 4;         // fresh rows a warp loads at once
+// dynamic shared memory a block may take: 48 KB less the static arrays, so
+// that no launch needs the opt-in attribute; a larger plan lives in the
+// global workspace
+constexpr size_t kStepSmemMax = 48 * 1024 - 1024;
+// bexp's flags: expanded before the step, and popped in it
+constexpr uint8_t kExpanded = 1, kPopped = 2;
+
+// B1ˢ's per-query memory: the byte offset of each array, P (the block's
+// keys sorted: a power of two >= width * M0, at least a warp) and TH (the
+// first-occurrence hash's slots, 2P)
+struct StepPlan {
+  int P, TH;
+  size_t q, bkey, bid, skey, hkey, hmin, nbr, dist, flist, node, bexp, fresh,
+      bytes;
+};
+
+__host__ __device__ inline StepPlan step_plan(int ef, int L, int width,
+                                              int D) {
+  StepPlan s;
+  s.P = 32;
+  while (s.P < L) s.P <<= 1;
+  s.TH = 2 * s.P;
+  size_t o = 0;
+  s.q = o;     o += static_cast<size_t>((D + 3) / 4) * 16;
+  s.bkey = o;  o += static_cast<size_t>(ef) * 8;
+  s.bid = o;   o += static_cast<size_t>(ef) * 8;
+  s.skey = o;  o += static_cast<size_t>(s.P) * 8;
+  s.hkey = o;  o += static_cast<size_t>(s.TH) * 4;
+  s.hmin = o;  o += static_cast<size_t>(s.TH) * 4;
+  s.nbr = o;   o += static_cast<size_t>(L) * 4;
+  s.dist = o;  o += static_cast<size_t>(L) * 4;
+  s.flist = o; o += static_cast<size_t>(L) * 4;
+  s.node = o;  o += static_cast<size_t>(width) * 4;
+  s.bexp = o;  o += static_cast<size_t>(ef);
+  s.fresh = o; o += static_cast<size_t>(L);
+  s.bytes = (o + 15) / 16 * 16;
+  return s;
+}
+
+// order_key's float back: ordered() is its own inverse
+__device__ __forceinline__ float key_value(long long key) {
+  const int hi = static_cast<int>(key >> 32);
+  return __int_as_float(hi ^ ((hi >> 31) & 0x7FFFFFFF));
+}
+
+// the entries of sorted a[0, n) below key
+__device__ __forceinline__ int lower_bound(const long long* a, int n,
+                                           long long key) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] < key) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+__device__ __forceinline__ long long min_key(long long a, long long b) {
+  return b < a ? b : a;
+}
+
+// the hash slot of id v among TH (a power of two)
+__device__ __forceinline__ int hash_slot(int v, int TH) {
+  return static_cast<int>((static_cast<unsigned>(v) * 0x9E3779B1u) >>
+                          (33 - __ffs(TH)));
+}
+
+// one block a query; a block whose query is not active only counts itself.
+// kSmem: the plan in shared memory, else at work + blockIdx.x * its bytes
+template <bool kL2, bool kVec, bool kSmem>
+__global__ void __launch_bounds__(kStepThreads, 4)
+beam_gather_step_kernel(const float* __restrict__ q,
+                        const int32_t* __restrict__ adj0,
+                        const float* __restrict__ corpus,
+                        float* __restrict__ cand_d,
+                        long long* __restrict__ cand_id,
+                        uint8_t* __restrict__ expanded,
+                        unsigned long long* __restrict__ visited,
+                        int32_t* __restrict__ iters,
+                        uint8_t* __restrict__ active,
+                        unsigned long long* __restrict__ counts,
+                        long long* __restrict__ host_counts,
+                        char* __restrict__ work, int ef, int M0, int width,
+                        int D, int N, int n_adj, int n_words, int max_iters) {
+  extern __shared__ float4 step_smem4[];
+  __shared__ long long red[2][kStepWarps];
+  __shared__ int wcnt[kStepWarps];
+  const int qi = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int L = width * M0;
+  const StepPlan pl = step_plan(ef, L, width, D);
+  char* sm = kSmem ? reinterpret_cast<char*>(step_smem4)
+                   : work + static_cast<size_t>(qi) * pl.bytes;
+  float* q_s = reinterpret_cast<float*>(sm + pl.q);
+  long long* bkey = reinterpret_cast<long long*>(sm + pl.bkey);
+  long long* bid = reinterpret_cast<long long*>(sm + pl.bid);
+  long long* skey = reinterpret_cast<long long*>(sm + pl.skey);
+  int* hkey = reinterpret_cast<int*>(sm + pl.hkey);
+  int* hmin = reinterpret_cast<int*>(sm + pl.hmin);
+  int* nbr = reinterpret_cast<int*>(sm + pl.nbr);
+  float* dist = reinterpret_cast<float*>(sm + pl.dist);
+  int* flist = reinterpret_cast<int*>(sm + pl.flist);
+  int* node = reinterpret_cast<int*>(sm + pl.node);
+  uint8_t* bexp = reinterpret_cast<uint8_t*>(sm + pl.bexp);
+  uint8_t* sfresh = reinterpret_cast<uint8_t*>(sm + pl.fresh);
+
+  int n_fresh = 0;
+  bool act_new = false;
+  if (active[qi]) {
+    const size_t row = static_cast<size_t>(qi) * ef;
+    const int it = iters[qi] + 1;
+    // ---- the query, the buffer's keys (topk_smallest's: ordered float
+    // bits above the column), ids and flags; the hash emptied
+    const float* q_row = q + static_cast<size_t>(qi) * D;
+    for (int d = tid; d < D; d += kStepThreads) q_s[d] = q_row[d];
+    for (int i = tid; i < ef; i += kStepThreads) {
+      bkey[i] = order_key(cand_d[row + i], i);
+      bid[i] = cand_id[row + i];
+      bexp[i] = expanded[row + i] ? kExpanded : 0;
+    }
+    for (int h = tid; h < pl.TH; h += kStepThreads) {
+      hkey[h] = kPad;
+      hmin[h] = 0x7FFFFFFF;
+    }
+    __syncthreads();
+
+    // ---- pop: the width smallest keys, expanded ones at +inf, one a
+    // round; each is flagged popped (by the thread that scans its entry,
+    // so the next round skips it), the +inf surplus too; its node where
+    // its value is finite
+    for (int w = 0; w < width; ++w) {
+      long long m = kEmptyKey;
+      for (int i = tid; i < ef; i += kStepThreads) {
+        const uint8_t e = bexp[i];
+        if (e != kPopped)
+          m = min_key(m, e ? order_key(plus_inf(), i) : bkey[i]);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        m = min_key(m, __shfl_xor_sync(0xffffffffu, m, off));
+      if (lane == 0) red[w & 1][warp] = m;
+      __syncthreads();
+      long long best = red[w & 1][0];
+#pragma unroll
+      for (int k = 1; k < kStepWarps; ++k) best = min_key(best, red[w & 1][k]);
+      const int col = static_cast<int>(best & 0xFFFFFFFF);
+      if (col % kStepThreads == tid) bexp[col] = kPopped;
+      if (tid == 0)
+        node[w] = isfinite(key_value(best)) ? static_cast<int>(bid[col])
+                                            : kPad;
+    }
+    __syncthreads();
+
+    // ---- visit: slot l = b * M0 + j of the popped rows; a neighbour is
+    // fresh at its first occurrence in that order (the hash keeps each
+    // id's lowest slot) if its visited bit was clear, which is the plain
+    // step's row-by-row update on duplicate-free rows
+    for (int l = tid; l < L; l += kStepThreads) {
+      const int nd = node[l / M0];
+      int nb = kPad;
+      if (nd != kPad)
+        nb = adj0[static_cast<size_t>(min(max(nd, 0), n_adj - 1)) * M0 +
+                  l % M0];
+      nbr[l] = nb;
+      if (nb != kPad) {
+        int hs = hash_slot(nb, pl.TH);
+        for (;;) {
+          const int prev = atomicCAS(&hkey[hs], kPad, nb);
+          if (prev == kPad || prev == nb) break;
+          hs = (hs + 1) & (pl.TH - 1);
+        }
+        atomicMin(&hmin[hs], l);
+      }
+    }
+    __syncthreads();
+    unsigned long long* vis = visited + static_cast<size_t>(qi) * n_words;
+    for (int l0 = 0; l0 < L; l0 += kStepThreads) {
+      const int l = l0 + tid;
+      bool fresh = false;
+      if (l < L) {
+        const int nb = nbr[l];
+        if (nb != kPad) {
+          int hs = hash_slot(nb, pl.TH);
+          while (hkey[hs] != nb) hs = (hs + 1) & (pl.TH - 1);
+          if (hmin[hs] == l) {
+            const int id = min(max(nb, 0), N - 1);
+            const unsigned long long bit = 1ull << (id & 31);
+            fresh = (atomicOr(vis + (id >> 5), bit) & bit) == 0;
+          }
+        }
+        sfresh[l] = fresh;
+      }
+      const unsigned bal = __ballot_sync(0xffffffffu, fresh);
+      if (lane == 0) wcnt[warp] = __popc(bal);
+      __syncthreads();
+      int base = n_fresh;
+#pragma unroll
+      for (int k = 0; k < kStepWarps; ++k) {
+        base += k < warp ? wcnt[k] : 0;
+        n_fresh += wcnt[k];
+      }
+      if (fresh) flist[base + __popc(bal & ((1u << lane) - 1))] = l;
+      __syncthreads();
+    }
+
+    // ---- distance: B1's arithmetic on the fresh rows alone, a warp
+    // kStepRows rows at once
+    for (int k0 = warp * kStepRows; k0 < n_fresh;
+         k0 += kStepWarps * kStepRows) {
+      const float* x[kStepRows];
+#pragma unroll
+      for (int r = 0; r < kStepRows; ++r) {
+        const int l = flist[min(k0 + r, n_fresh - 1)];
+        x[r] = corpus + static_cast<size_t>(min(max(nbr[l], 0), N - 1)) * D;
+      }
+      float acc[kStepRows];
+      b1_partials<kL2, kVec, kStepRows>(x, q_s, D, lane, acc);
+#pragma unroll
+      for (int r = 0; r < kStepRows; ++r) {
+        const float v = b1_finish<kL2>(acc[r]);
+        if (lane == 0 && k0 + r < n_fresh) dist[flist[k0 + r]] = v;
+      }
+    }
+    __syncthreads();
+
+    // ---- merge: the block's keys (column ef + l, +inf where stale)
+    // sorted by a bitonic network, then each entry's rank in [buffer,
+    // block] is its rank in its own list plus the other list's keys below
+    // it.  The buffer is sorted by its keys: every merge leaves it so, and
+    // a query is active only with a finite candidate, so its first buffer
+    // is [finite, +inf, ...]
+    if (pl.P <= kStepThreads) {
+      // a key a thread: shuffles below a warp's width, memory above
+      long long x = kEmptyKey;
+      if (tid < L)
+        x = order_key(sfresh[tid] ? dist[tid] : plus_inf(), ef + tid);
+      for (int k = 2; k <= pl.P; k <<= 1)
+        for (int j = k >> 1; j > 0; j >>= 1) {
+          long long y;
+          if (j >= 32) {
+            if (tid < pl.P) skey[tid] = x;
+            __syncthreads();
+            y = tid < pl.P ? skey[tid ^ j] : x;
+            __syncthreads();
+          } else {
+            y = __shfl_xor_sync(0xffffffffu, x, j);
+          }
+          const bool keep_min = ((tid & j) == 0) == ((tid & k) == 0);
+          x = keep_min ? min_key(x, y) : (y > x ? y : x);
+        }
+      if (tid < pl.P) skey[tid] = x;
+    } else {
+      // P / 256 keys a thread, each exchange in memory
+      for (int i = tid; i < pl.P; i += kStepThreads)
+        skey[i] = i < L ? order_key(sfresh[i] ? dist[i] : plus_inf(), ef + i)
+                        : kEmptyKey;
+      __syncthreads();
+      for (int k = 2; k <= pl.P; k <<= 1)
+        for (int j = k >> 1; j > 0; j >>= 1) {
+          for (int i = tid; i < pl.P; i += kStepThreads) {
+            const int p = i ^ j;
+            if (p > i) {
+              const long long a = skey[i], b = skey[p];
+              if ((a > b) == ((i & k) == 0)) {
+                skey[i] = b;
+                skey[p] = a;
+              }
+            }
+          }
+          __syncthreads();
+        }
+    }
+    __syncthreads();
+    float* od = cand_d + row;
+    long long* oi = cand_id + row;
+    uint8_t* oe = expanded + row;
+    bool live = false;        // an unexpanded finite candidate survives
+    for (int i = tid; i < ef; i += kStepThreads) {
+      const long long key = bkey[i];
+      const int r = i + lower_bound(skey, L, key);
+      if (r < ef) {
+        const float v = key_value(key);
+        const bool e = bexp[i] != 0;
+        od[r] = v;
+        oi[r] = bid[i];
+        oe[r] = e;
+        live |= !e && isfinite(v);
+      }
+    }
+    for (int j = tid; j < L; j += kStepThreads) {
+      const long long key = skey[j];
+      const int r = j + lower_bound(bkey, ef, key);
+      if (r < ef) {
+        const int l = static_cast<int>(key & 0xFFFFFFFF) - ef;
+        const float v = key_value(key);
+        const bool f = sfresh[l] != 0;
+        od[r] = v;
+        oi[r] = f ? nbr[l] : -1;
+        oe[r] = !f;
+        live |= f && isfinite(v);
+      }
+    }
+    live = __syncthreads_or(live);
+    act_new = live && it < max_iters;
+    if (tid == 0) {
+      iters[qi] = it;
+      active[qi] = act_new;
+    }
+  }
+
+  // ---- counts: the block's, then the last block to finish writes the
+  // step's active queries and the search's fresh slots to the host buffer
+  // and clears the step's accumulators
+  if (tid == 0) {
+    if (act_new) atomicAdd(&counts[0], 1ull);
+    if (n_fresh)
+      atomicAdd(&counts[2], static_cast<unsigned long long>(n_fresh));
+    __threadfence();
+    if (atomicAdd(&counts[1], 1ull) == gridDim.x - 1) {
+      __threadfence();
+      host_counts[0] = static_cast<long long>(atomicAdd(&counts[0], 0ull));
+      host_counts[1] = static_cast<long long>(atomicAdd(&counts[2], 0ull));
+      counts[0] = 0;
+      counts[1] = 0;
+      __threadfence_system();
+    }
+  }
+}
+
+struct StepArgs {
+  const float* q;
+  const int32_t* adj0;
+  const float* corpus;
+  float* cand_d;
+  long long* cand_id;
+  uint8_t* expanded;
+  unsigned long long* visited;
+  int32_t* iters;
+  uint8_t* active;
+  unsigned long long* counts;
+  long long* host_counts;
+  char* work;
+  int ef, M0, width, D, N, n_adj, n_words, max_iters;
+};
+
+template <bool kL2, bool kVec, bool kSmem>
+int launch_step_in(const StepArgs& a, const StepPlan& pl, int Q,
+                cudaStream_t s) {
+  beam_gather_step_kernel<kL2, kVec, kSmem>
+      <<<Q, kStepThreads, kSmem ? pl.bytes : 0, s>>>(
+          a.q, a.adj0, a.corpus, a.cand_d, a.cand_id, a.expanded, a.visited,
+          a.iters, a.active, a.counts, a.host_counts, a.work, a.ef, a.M0,
+          a.width, a.D, a.N, a.n_adj, a.n_words, a.max_iters);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kL2, bool kVec>
+int launch_step(const StepArgs& a, const StepPlan& pl, int Q,
+                cudaStream_t s) {
+  return pl.bytes <= kStepSmemMax
+             ? launch_step_in<kL2, kVec, true>(a, pl, Q, s)
+             : launch_step_in<kL2, kVec, false>(a, pl, Q, s);
+}
+
+}  // namespace
+
+// the global workspace B1ˢ needs a query at (ef, width, M0, D), in bytes:
+// 0 where its plan fits in shared memory
+extern "C" long long beam_gather_step_work(int ef, int width, int M0,
+                                           int D) {
+  const StepPlan pl = step_plan(ef, width * M0, width, D);
+  return pl.bytes <= kStepSmemMax ? 0 : static_cast<long long>(pl.bytes);
+}
+
+// the device's address of a pinned host buffer (the step's counts land
+// there); an error where the buffer is not mapped
+extern "C" int beam_gather_step_host_ptr(void* host, void** dev) {
+  return static_cast<int>(cudaHostGetDevicePointer(dev, host, 0));
+}
+
+// the host's one wait a step: the stream's work done, the counts landed
+extern "C" int beam_gather_step_wait(void* stream) {
+  return static_cast<int>(
+      cudaStreamSynchronize(static_cast<cudaStream_t>(stream)));
+}
+
+// one layer-0 step of every query of the batch, in place on the search's
+// state: cand_d (Q, ef) f32, cand_id (Q, ef) i64, expanded (Q, ef) u8,
+// visited (Q, n_words) 64-bit words holding 32 bits each, iters (Q,) i32,
+// active (Q,) u8; counts (4,) u64 on the device (zero at the search's
+// start), host_counts (2,) i64 the device's address of pinned host memory:
+// [active queries after the step, fresh slots of the search so far]; work
+// Q x beam_gather_step_work(...) bytes where that is not 0 (else unread)
+extern "C" int beam_gather_step_f32(
+    const float* q, const int32_t* adj0, const float* corpus, float* cand_d,
+    long long* cand_id, uint8_t* expanded, unsigned long long* visited,
+    int32_t* iters, uint8_t* active, unsigned long long* counts,
+    long long* host_counts, void* work, int Q, int ef, int M0, int width,
+    int D, int N, int n_adj, int n_words, int max_iters, int mode,
+    void* stream) {
+  if (Q <= 0) return static_cast<int>(cudaSuccess);
+  if (ef < 1 || width < 1 || width > ef || M0 < 1 ||
+      static_cast<long long>(width) * M0 > (1 << 30) || D <= 0 || N <= 0 ||
+      n_adj <= 0 || n_words != (N + 31) / 32 || (mode != 0 && mode != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const StepPlan pl = step_plan(ef, width * M0, width, D);
+  if (pl.bytes > kStepSmemMax && work == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const StepArgs a{q, adj0, corpus, cand_d, cand_id, expanded, visited,
+                   iters, active, counts, host_counts,
+                   static_cast<char*>(work), ef, M0, width, D, N, n_adj,
+                   n_words, max_iters};
+  const bool vec =
+      (D & 3) == 0 && (reinterpret_cast<uintptr_t>(corpus) & 15) == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode == 0)
+    return vec ? launch_step<true, true>(a, pl, Q, s)
+               : launch_step<true, false>(a, pl, Q, s);
+  return vec ? launch_step<false, true>(a, pl, Q, s)
+             : launch_step<false, false>(a, pl, Q, s);
 }

@@ -2,29 +2,34 @@
 wrappers (``csrc/beam_gather.cu``, replacing the JAX package's Pallas
 ``beam_gather_kernel``).
 
-Three entries: `beam_gather`, the TPU kernel's function over a (Q, L)
+Four entries: `beam_gather`, the TPU kernel's function over a (Q, L)
 block of ids; `beam_gather_lists`, its l2 mode where the IVF index runs it,
 list-major: the probe's (query, rank) entries grouped by list
 (`list_tiles`), one block a list and a tile of its queries, each probed
-list's rows read once a tile, the (Q, P * M) distances written; and
+list's rows read once a tile, the (Q, P * M) distances written;
 `beam_gather_lists_topk`, the same blocks keeping each (query, list)'s k
 smallest ``topk_smallest`` keys instead, merged here: the IVF search's
-candidates and their top-k without the matrix.  ``launches``,
-``lists_launches`` and ``topk_launches`` count each entry's launches in
-this process; each is bumped at its launch and nowhere else, so a run can
-show it went through the kernel.
+candidates and their top-k without the matrix; and B1ˢ, `BeamGatherStep`,
+the HNSW search's whole layer-0 step (pop, visited test-and-set, B1's
+distance on the fresh slots, the ef merge) in one launch, whose plain
+version is `beam_gather_step_ref` (`PlainStep`).  ``launches``,
+``lists_launches``, ``topk_launches`` and ``step_launches`` count each
+entry's launches in this process; each is bumped at its launch and nowhere
+else, so a run can show it went through the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import tracing
 from . import _build, _launch
 from .l2 import decode_keys
+from .ref import PAD, topk_smallest
 
 MODES = {"l2": 0, "dot": 1}
 #: the list-major entry writes its (Q, P * M) output at int32 offsets
@@ -34,9 +39,12 @@ MAX_LIST_SLOTS = 2 ** 31 - 1
 #: core/ivf.py sends it k up to core/flat.py's FUSED_MAX_K
 MAX_TOPK = 128
 
+INF = float("inf")
+
 launches = 0
 lists_launches = 0
 topk_launches = 0
+step_launches = 0
 
 
 @functools.cache
@@ -244,3 +252,249 @@ def beam_gather_lists_topk(q: torch.Tensor, probe: torch.Tensor,
     keys = torch.topk(cand.view(nq, p * kl), kk, dim=1, largest=False,
                       sorted=True).values
     return decode_keys(keys)
+
+
+# ---------------------------------------------------------------- B1ˢ
+
+class BeamState(NamedTuple):
+    """One search's layer-0 state, which either step updates: the plain one
+    into new tensors, B1ˢ in place."""
+
+    cand_d: torch.Tensor      # (Q, ef) float32, ascending by topk_smallest
+    cand_id: torch.Tensor     # (Q, ef) int64, -1 = empty
+    expanded: torch.Tensor    # (Q, ef) bool
+    visited: torch.Tensor     # (Q, ceil(N / 32)) int64 words, 32 bits each
+    iters: torch.Tensor       # (Q,) int32 steps taken
+    active: torch.Tensor      # (Q,) bool: still searching
+
+
+def beam_gather_step_ref(state: BeamState, adj0: torch.Tensor, width: int,
+                         max_iters: int, block_dist: Callable,
+                         count: bool = False
+                         ) -> Tuple[BeamState, Optional[torch.Tensor]]:
+    """B1ˢ's plain version: one layer-0 step of every active query as
+    PyTorch ops, under the spans ``hnsw.pop``, ``hnsw.visit``,
+    ``hnsw.distance`` and ``hnsw.merge``.  ``block_dist(ids, fresh)`` maps
+    int64 ids (Q, L) (PAD allowed) and a bool mask (Q, L) to float32
+    distances, +inf where the mask is False.  Returns (the new state, the
+    step's fresh slots summed on the device where ``count``, else None)."""
+    cand_d, cand_id, expanded, visited, iters, active = state
+    nq, ef = cand_d.shape
+    length = width * adj0.shape[1]
+    act = active[:, None]
+    with tracing.span("hnsw.pop"):
+        # pop the top-B nearest unexpanded candidates of each active query
+        pop_d, sel = topk_smallest(torch.where(expanded, INF, cand_d), width)
+        pop_ok = torch.isfinite(pop_d) & act
+        # surplus sel slots (pop_ok False) are INF: empty or already
+        # expanded, so marking them is moot — as in the JAX package
+        expanded = torch.where(act, expanded.scatter(1, sel, True), expanded)
+        nodes = torch.where(pop_ok, cand_id.gather(1, sel), PAD)
+
+    with tracing.span("hnsw.visit"):
+        adj_rows = adj0[nodes.clamp_min(0)].long()           # (Q, B, M0)
+        adj_rows = torch.where(pop_ok[:, :, None], adj_rows, PAD)
+        # visited OR-update, one popped row after the other: each row's
+        # bits land before the next row's membership test, so a neighbour
+        # shared by several popped candidates is fresh exactly once.  Rows
+        # are duplicate-free (graph invariant) and the bits added were
+        # clear, so add == or.
+        fresh_rows = []
+        for b in range(width):
+            nbrs_b = adj_rows[:, b]
+            safe_b = nbrs_b.clamp_min(0)
+            word_b = safe_b // 32
+            bit_b = safe_b % 32
+            seen_b = (visited.gather(1, word_b) >> bit_b) & 1
+            fresh_b = (nbrs_b != PAD) & (seen_b == 0)
+            visited.scatter_add_(1, word_b,
+                                 torch.where(fresh_b, 1 << bit_b, 0))
+            fresh_rows.append(fresh_b)
+        nbrs = adj_rows.reshape(nq, length)
+        fresh = torch.stack(fresh_rows, 1).reshape(nq, length)
+
+    with tracing.span("hnsw.distance"):
+        d = block_dist(nbrs, fresh)                          # fused
+    fresh_sum = fresh.sum() if count else None
+
+    with tracing.span("hnsw.merge"):
+        new_id = torch.where(fresh, nbrs, -1)
+        merged_d = torch.cat([cand_d, d], 1)
+        merged_id = torch.cat([cand_id, new_id], 1)
+        # stale: never expand
+        merged_exp = torch.cat([expanded, ~fresh], 1)
+        top_d, keep = topk_smallest(merged_d, ef)
+        cand_d = torch.where(act, top_d, cand_d)
+        cand_id = torch.where(act, merged_id.gather(1, keep), cand_id)
+        expanded = torch.where(act, merged_exp.gather(1, keep), expanded)
+        iters += active.to(torch.int32)
+        active = (~expanded & torch.isfinite(cand_d)).any(1) \
+            & (iters < max_iters)
+    return BeamState(cand_d, cand_id, expanded, visited, iters,
+                     active), fresh_sum
+
+
+class PlainStep:
+    """The layer-0 loop's step as `beam_gather_step_ref`: on the CPU, under
+    ``force_ref``, and in the code-domain modes (whose ``block_dist`` is
+    B3's or B4's).  The loop's interface, as
+    `BeamGatherStep`'s: call it for a step, then `n_active` (a sync) and,
+    where the steps counted, `fresh`."""
+
+    def __init__(self, state: BeamState, adj0: torch.Tensor, width: int,
+                 max_iters: int, block_dist: Callable):
+        self.state = state
+        self._adj0, self._width, self._max_iters = adj0, width, max_iters
+        self._block_dist = block_dist
+        self._fresh = None
+
+    def __call__(self, count: bool = False) -> None:
+        self.state, fresh = beam_gather_step_ref(
+            self.state, self._adj0, self._width, self._max_iters,
+            self._block_dist, count)
+        if fresh is not None:
+            self._fresh = fresh if self._fresh is None \
+                else self._fresh.add_(fresh)
+
+    def n_active(self) -> int:
+        """The queries still active: one read of a device value."""
+        return int(self.state.active.sum())
+
+    def fresh(self) -> Optional[int]:
+        """The fresh slots of the counted steps; None if none counted."""
+        return None if self._fresh is None else int(self._fresh)
+
+
+@functools.cache
+def _step_fn():
+    return _launch.c_fn(_build.load("beam_gather"), "beam_gather_step_f32",
+                        n_ptrs=12, n_ints=10)
+
+
+@functools.cache
+def _step_lib():
+    """The step entry's helpers, typed: (work(ef, width, M0, D): the
+    workspace a query in bytes, 0 where the step's plan fits in shared
+    memory; host_ptr; wait)."""
+    lib = _build.load("beam_gather")
+    work = lib.beam_gather_step_work
+    work.argtypes = [ctypes.c_int] * 4
+    work.restype = ctypes.c_longlong
+    host_ptr = lib.beam_gather_step_host_ptr
+    host_ptr.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)]
+    host_ptr.restype = ctypes.c_int
+    wait = lib.beam_gather_step_wait
+    wait.argtypes, wait.restype = [ctypes.c_void_p], ctypes.c_int
+    return work, host_ptr, wait
+
+
+class BeamGatherStep:
+    """B1ˢ for one search's layer-0 loop: the checks run, the pointers and
+    the stream are resolved and the counters are allocated once, here; each
+    call is one launch and nothing else.
+
+    q (Q, D) f32 × adj0 (N_adj, M0) i32 (PAD -1) × corpus (N, D) f32 and
+    the search's `BeamState` (contiguous, on the card; each buffer sorted
+    by topk_smallest's key, as `beam_state` and every step leave it), mode
+    "l2" | "dot", 1 <= width <= ef: each call advances every active query
+    one step in place, bit for bit `beam_gather_step_ref` with B1 as its
+    distance, at any ef, width · M0 and D (a plan past shared memory gets
+    a workspace on the card, allocated here).  `n_active` waits for the
+    step and reads the active queries from a pinned host buffer the kernel
+    writes; `fresh` reads the search's fresh slots from it."""
+
+    def __init__(self, q: torch.Tensor, adj0: torch.Tensor,
+                 corpus: torch.Tensor, state: BeamState, *, width: int,
+                 max_iters: int, mode: str):
+        name = "beam_gather_step"
+        if mode not in MODES:
+            raise ValueError(f"{name}: mode {mode!r}")
+        _launch.check_tensors(name, q=q, adj0=adj0, corpus=corpus,
+                              **state._asdict())
+        _launch.check_dtypes(
+            name, q=(q, torch.float32), adj0=(adj0, torch.int32),
+            corpus=(corpus, torch.float32),
+            cand_d=(state.cand_d, torch.float32),
+            cand_id=(state.cand_id, torch.int64),
+            expanded=(state.expanded, torch.bool),
+            visited=(state.visited, torch.int64),
+            iters=(state.iters, torch.int32),
+            active=(state.active, torch.bool))
+        if q.dim() != 2 or adj0.dim() != 2 or corpus.dim() != 2 \
+                or state.cand_d.dim() != 2:
+            raise ValueError(f"{name}: shapes q {tuple(q.shape)}, adj0 "
+                             f"{tuple(adj0.shape)}, corpus "
+                             f"{tuple(corpus.shape)}, cand_d "
+                             f"{tuple(state.cand_d.shape)}")
+        (nq, d), (n, m0) = q.shape, adj0.shape
+        ef = state.cand_d.shape[1]
+        n_words = (corpus.shape[0] + 31) // 32
+        if corpus.shape[1] != d \
+                or state.cand_d.shape != (nq, ef) \
+                or state.cand_id.shape != (nq, ef) \
+                or state.expanded.shape != (nq, ef) \
+                or state.visited.shape != (nq, n_words) \
+                or state.iters.shape != (nq,) or state.active.shape != (nq,):
+            raise ValueError(
+                f"{name}: shapes q {tuple(q.shape)}, adj0 "
+                f"{tuple(adj0.shape)}, corpus {tuple(corpus.shape)}, "
+                + ", ".join(f"{k} {tuple(v.shape)}"
+                            for k, v in state._asdict().items()))
+        if not 1 <= width <= ef:
+            raise ValueError(f"{name}: width {width} outside [1, ef {ef}]")
+        dev = corpus.device
+        self.state = state
+        self._inputs = (q, adj0, corpus)   # the kernel reads them by pointer
+        self._counts = torch.zeros(4, dtype=torch.int64, device=dev)
+        self._host = torch.zeros(2, dtype=torch.int64, pin_memory=True)
+        self._host_np = self._host.numpy()
+        work_fn, host_ptr, self._wait = _step_lib()
+        self._work = torch.empty(nq * work_fn(ef, width, m0, d),
+                                 dtype=torch.uint8, device=dev)
+        dev_ptr = ctypes.c_void_p()
+        err = host_ptr(self._host.data_ptr(), ctypes.byref(dev_ptr))
+        if err:
+            raise RuntimeError(f"{name}: the pinned counts buffer is not "
+                               f"mapped: CUDA error {err}")
+        self._index = torch.cuda.current_device() if dev.index is None \
+            else dev.index
+        self._stream = torch._C._cuda_getCurrentRawStream(self._index)
+        self._fn = _step_fn()
+        self._args = (q.data_ptr(), adj0.data_ptr(), corpus.data_ptr(),
+                      *(t.data_ptr() for t in state), self._counts.data_ptr(),
+                      dev_ptr.value, self._work.data_ptr() or None,
+                      nq, ef, m0, width, d, corpus.shape[0],
+                      n, n_words, max_iters, MODES[mode], self._stream)
+        # every active query takes a step a launch and stops at max_iters:
+        # a loop past that has misread its counts
+        self._left = max_iters if nq else 0
+
+    def _call(self, fn, *args) -> int:
+        if torch.cuda.current_device() == self._index:
+            return fn(*args)
+        with torch.cuda.device(self._index):
+            return fn(*args)
+
+    def __call__(self, count: bool = False) -> None:
+        """One step of every active query (the counts are always kept)."""
+        global step_launches
+        if self._left <= 0:
+            raise RuntimeError("beam_gather_step: a step past max_iters")
+        err = self._call(self._fn, *self._args)
+        if err:
+            raise RuntimeError(f"beam_gather_step launch failed: CUDA error "
+                               f"{err}")
+        self._left -= 1
+        with _launch.count_lock:
+            step_launches += 1
+
+    def n_active(self) -> int:
+        """Wait for the step; the queries still active after it."""
+        err = self._call(self._wait, self._stream)
+        if err:
+            raise RuntimeError(f"beam_gather_step: CUDA error {err}")
+        return int(self._host_np[0])
+
+    def fresh(self) -> int:
+        """The search's fresh slots so far (read after `n_active`)."""
+        return int(self._host_np[1])

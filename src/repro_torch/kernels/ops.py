@@ -20,7 +20,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import ref
-from .beam_gather import beam_gather
+from .beam_gather import BeamGatherStep, BeamState, beam_gather
 from .beam_gather import beam_gather_lists as _beam_gather_lists
 from .beam_gather import beam_gather_lists_topk as _beam_gather_lists_topk
 from .beam_gather_adc import beam_gather_adc as _beam_gather_adc
@@ -83,6 +83,20 @@ def beam_gather_distances(q: torch.Tensor, ids: torch.Tensor,
         return ref.beam_gather_dot_ref(q, ids, corpus)
     return beam_gather(q.float().contiguous(),
                        ids.to(torch.int32).contiguous(), corpus, mode=mode)
+
+
+def beam_gather_step(q: torch.Tensor, adj0: torch.Tensor,
+                     corpus: torch.Tensor, state: BeamState, *, width: int,
+                     max_iters: int, mode: str = "l2",
+                     force_ref: bool = False) -> Optional[BeamGatherStep]:
+    """B1ˢ, one launch a layer-0 step, for a float-mode (l2 | dot) search
+    over q (Q, D), adj0 (N, M0) and corpus (N, D) from ``state``, at any
+    shape; None where the loop takes the plain step
+    (``beam_gather.PlainStep``): on the CPU and under ``force_ref``."""
+    if _plain(corpus, force_ref):
+        return None
+    return BeamGatherStep(q.float().contiguous(), adj0, corpus, state,
+                          width=width, max_iters=max_iters, mode=mode)
 
 
 def beam_gather_lists_distances(q: torch.Tensor, probe: torch.Tensor,

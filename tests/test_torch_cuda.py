@@ -12,7 +12,9 @@ import pytest
 import torch
 
 from repro_torch.core import (EngineConfig, HNSWConfig, IVFConfig, IVFIndex,
-                              QuantixarEngine)
+                              QuantixarEngine, bulk_build_device)
+from repro_torch.core.hnsw_build import preprocess_vectors
+from repro_torch.core.hnsw_search import to_device
 from repro_torch.core.flat import FUSED_MAX_K, flat_search, topk_smallest
 from repro_torch.data.synthetic import gaussian_mixture
 from repro_torch.kernels import beam_gather as bg_mod
@@ -328,6 +330,328 @@ def test_bq_search_one_fused_launch_per_step(cuda):
     assert g_tpu == 0 and g_masked == 1 + int(git.max())
     assert torch.equal(gi, ci) and torch.equal(git, cit)
     assert torch.equal(gd, cd)
+
+
+def test_float_search_one_b1s_launch_per_step(cuda):
+    """A float-mode search on the card launches B1ˢ once a layer-0 step and
+    B1 once, for the entry points; the PQ and BQ searches launch no B1ˢ;
+    the wrapper refuses what it cannot take."""
+    from repro_torch.core import BQConfig, PQConfig
+    from repro_torch.core.hnsw_search import search
+    x = gaussian_mixture(3000, 32, n_clusters=15, scale=0.3, seed=1)
+    q = gaussian_mixture(64, 32, n_clusters=15, scale=0.3, seed=2)
+    cfg = EngineConfig(dim=32, metric="cosine", builder="bulk",
+                       hnsw=HNSWConfig(seed=0))
+    eng = QuantixarEngine(cfg, device="cuda")
+    eng.add(x)
+    eng.build()
+    g, ml, metric = eng._device_graph
+    qd = torch.as_tensor(q / np.linalg.norm(q, axis=1, keepdims=True),
+                         device=cuda)
+    before = (bg_mod.launches, bg_mod.step_launches)
+    _, _, it = search(g, qd, k=10, ef=64, max_level=ml, metric=metric,
+                      with_iters=True)
+    assert bg_mod.launches - before[0] == 1
+    assert bg_mod.step_launches - before[1] == int(it.max()) > 0
+    for quant in ("pq", "bq"):
+        qcfg = EngineConfig(dim=32, metric="cosine", builder="bulk",
+                            quantization=quant, pq=PQConfig(m=8, k=64),
+                            bq=BQConfig(bits=64), hnsw=HNSWConfig(seed=0))
+        cpu = QuantixarEngine(qcfg, device="cpu")
+        cpu.add(x)
+        cpu.build()
+        card = QuantixarEngine.from_state_dict(qcfg, cpu.state_dict(),
+                                               device="cuda")
+        mods = (bga_mod, "launches") if quant == "pq" \
+            else (bgh_mod, "masked_launches")
+        s0, c0 = bg_mod.step_launches, getattr(*mods)
+        card.search(q, 10)
+        assert bg_mod.step_launches == s0 and getattr(*mods) > c0
+
+    # the wrapper's refusals
+    n, d, m0, nq, ef = 300, 32, 16, 4, 64
+    vecs = torch.randn(n, d, device=cuda)
+    adj0 = torch.randint(0, n, (n, m0), dtype=torch.int32, device=cuda)
+    qs = torch.randn(nq, d, device=cuda)
+
+    def state(**kw):
+        s = dict(cand_d=torch.full((nq, ef), float("inf"), device=cuda),
+                 cand_id=torch.full((nq, ef), -1, dtype=torch.int64,
+                                    device=cuda),
+                 expanded=torch.zeros((nq, ef), dtype=torch.bool,
+                                      device=cuda),
+                 visited=torch.zeros((nq, (n + 31) // 32),
+                                     dtype=torch.int64, device=cuda),
+                 iters=torch.zeros(nq, dtype=torch.int32, device=cuda),
+                 active=torch.zeros(nq, dtype=torch.bool, device=cuda))
+        s.update(kw)
+        return bg_mod.BeamState(**s)
+
+    def make(*args, width=4, mode="l2"):
+        return bg_mod.BeamGatherStep(*args, width=width, max_iters=8,
+                                     mode=mode)
+
+    make(qs, adj0, vecs, state())                    # takes these
+    wide = torch.zeros((nq, 2 * ef), device=cuda)
+    for args, kw, match in (
+            ((qs.cpu(), adj0, vecs, state()), {}, "CUDA tensor"),
+            ((qs, adj0.long(), vecs, state()), {}, "int32"),
+            ((qs, adj0, vecs, state(cand_id=torch.zeros(
+                (nq, ef), dtype=torch.int32, device=cuda))), {}, "int64"),
+            ((qs, adj0, vecs, state(cand_d=wide[:, ::2])), {},
+             "contiguous"),
+            ((qs, adj0, vecs, state(visited=torch.zeros(
+                (nq, 3), dtype=torch.int64, device=cuda))), {}, "shapes"),
+            ((qs[:, :8].contiguous(), adj0, vecs, state()), {}, "shapes"),
+            ((qs, adj0, vecs, state()), {"width": ef + 1}, "width"),
+            ((qs, adj0, vecs, state()), {"mode": "cosine"}, "mode")):
+        with pytest.raises(ValueError, match=match):
+            make(*args, **kw)
+
+
+# ---------------------------------------------------------------- B1ˢ
+#
+# B1ˢ (the HNSW layer-0 step in one launch) against the plain step it
+# replaces, on the card, where the plain step's distances are B1's: every
+# state tensor, the active and fresh counts, step by step, bit for bit.
+
+def _step_graph(seed, n, d, m0, pad_share, pool, metric, device,
+                aligned=True):
+    """A layer-0 graph for B1ˢ's checks: each row m0 distinct neighbours
+    within ``pool`` ids of the node (so that popped rows share many), a
+    share of the slots PAD; rows of d floats, unit rows under dot."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, d).astype(np.float32)
+    if metric == "dot":
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+    off = np.argsort(rng.rand(n, 2 * pool), axis=1)[:, :m0]
+    off = off - pool + (off >= pool)                  # [-pool, pool] \ {0}
+    adj = ((np.arange(n)[:, None] + off) % n).astype(np.int32)
+    adj[rng.rand(n, m0) < pad_share] = -1
+    vecs = torch.as_tensor(x, device=device) if aligned \
+        else _unaligned(x, device)
+    return vecs, torch.as_tensor(adj, device=device)
+
+
+def _block_dist(q, vecs, metric):
+    def block_dist(ids, fresh):
+        return torch.where(fresh, ops.beam_gather_distances(
+            q, ids.clamp_min(0), vecs, mode=metric), float("inf"))
+    return block_dist
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _step_pair(vecs, adj0, q, ep, ef, width, max_iters, metric):
+    """B1ˢ and the plain step side by side from one state until every
+    query stops, held equal after each step; returns (steps, the final
+    state)."""
+    from repro_torch.core.hnsw_search import beam_state
+    block_dist = _block_dist(q, vecs, metric)
+    state = beam_state(ep, ef, max_iters, (vecs.shape[0] + 31) // 32,
+                       block_dist)
+    twin = bg_mod.BeamState(*(t.clone() for t in state))
+    kern = ops.beam_gather_step(q, adj0, vecs, state, width=width,
+                                max_iters=max_iters, mode=metric)
+    assert isinstance(kern, bg_mod.BeamGatherStep)
+    plain = bg_mod.PlainStep(twin, adj0, width, max_iters, block_dist)
+    before, steps = bg_mod.step_launches, 0
+    n_active = int(state.active.sum())
+    while n_active:
+        kern()
+        plain(count=True)
+        steps += 1
+        n_active = kern.n_active()
+        assert n_active == plain.n_active(), steps
+        for name, a, b in zip(bg_mod.BeamState._fields, kern.state,
+                              plain.state):
+            assert torch.equal(_bits(a), _bits(b)), (steps, name)
+        assert kern.fresh() == plain.fresh(), steps
+    assert bg_mod.step_launches - before == steps
+    return steps, plain.state, plain.fresh()
+
+
+# (metric, width, ef, D, Q, PAD share, max_iters, aligned): every width
+# and ef at D 128; then D 784 and 130 (unaligned: the scalar path), a
+# PAD-heavy graph, Q 1 and 1,024, max_iters reached, ef 1,024 (wider
+# shapes: WIDE_CASES)
+STEP_CASES = [(m, w, ef, 128, 7, 0.0, None, True)
+              for m in ("l2", "dot") for w in (1, 4, 8)
+              for ef in (32, 64, 100, 256, 512)] + [
+    ("l2", 4, 256, 784, 7, 0.5, None, True),
+    ("dot", 8, 100, 784, 1, 0.0, None, True),
+    ("l2", 8, 64, 130, 7, 0.25, None, True),
+    ("dot", 4, 256, 130, 1024, 0.0, None, False),
+    ("l2", 4, 256, 128, 1024, 0.0, None, True),
+    ("dot", 4, 512, 128, 1024, 0.5, None, True),
+    ("l2", 1, 32, 130, 1, 0.5, None, False),
+    ("l2", 4, 256, 128, 1024, 0.0, 6, True),
+    ("dot", 8, 64, 784, 7, 0.25, 3, True),
+    ("l2", 8, 1024, 128, 7, 0.0, None, True)]
+
+
+@pytest.mark.parametrize("metric,width,ef,d,nq,pad,max_iters,aligned",
+                         STEP_CASES)
+def test_b1s_steps_equal_the_plain_step(cuda, metric, width, ef, d, nq, pad,
+                                        max_iters, aligned):
+    n = 4000
+    vecs, adj0 = _step_graph(ef + d, n, d, 32, pad, 200, metric, cuda,
+                             aligned)
+    rng = np.random.RandomState(nq + width)
+    q = torch.as_tensor(rng.randn(nq, d).astype(np.float32), device=cuda)
+    ep = torch.as_tensor(rng.randint(0, n, nq), device=cuda)
+    steps, st, fresh = _step_pair(vecs, adj0, q, ep, ef, width,
+                                  max_iters or 4 * ef, metric)
+    assert steps > 1 and int(st.iters.max()) == steps
+    if max_iters:
+        assert steps == max_iters
+    elif nq > 1:                       # queries finish at different steps
+        assert len(set(st.iters.tolist())) > 1
+    assert fresh > 0
+
+
+@pytest.mark.parametrize("metric", ["l2", "cosine"])
+@pytest.mark.parametrize("width", [1, 4, 8])
+def test_search_through_b1s_equals_the_plain_step(cuda, metric, width):
+    """Whole searches (upper-layer descent, then the layer-0 loop) through
+    B1ˢ and through the plain step (``force_ref``) at Q 1, 7 and 1,024:
+    the same distances (bits), ids and iteration counts."""
+    from repro_torch.core.hnsw_search import search
+    x = gaussian_mixture(3000, 32, n_clusters=15, scale=0.3, seed=1)
+    packed = bulk_build_device(x, HNSWConfig(M=16, metric=metric, seed=0),
+                               device="cpu")
+    g, ml, m = to_device(packed, "cuda")
+    for nq in (1, 7, 1024):
+        qn = preprocess_vectors(
+            gaussian_mixture(nq, 32, n_clusters=15, scale=0.3, seed=nq),
+            metric)
+        qd = torch.as_tensor(qn, device=cuda)
+        out = []
+        for force_ref in (False, True):
+            b0, s0 = bg_mod.launches, bg_mod.step_launches
+            d, i, it = search(g, qd, k=10, ef=64, max_level=ml, metric=m,
+                              expansion_width=width, with_iters=True,
+                              force_ref=force_ref)
+            steps = int(it.max())
+            assert (bg_mod.launches - b0, bg_mod.step_launches - s0) == \
+                ((1 + steps, 0) if force_ref else (1, steps))
+            out.append((_bits(d), i, it))
+        for a, b in zip(*out):
+            assert torch.equal(a, b), nq
+
+
+@pytest.mark.parametrize("k", [10, 300])
+def test_filtered_search_through_b1s_equals_the_plain_step(cuda,
+                                                           monkeypatch, k):
+    """The engine's filtered HNSW pass widens ef to max(2 ef, 4 k): 512 at
+    k 10, 1,200 at k 300.  B1ˢ takes both, and its hits are the plain
+    step's."""
+    x = gaussian_mixture(3000, 32, n_clusters=15, scale=0.3, seed=1)
+    q = gaussian_mixture(64, 32, n_clusters=15, scale=0.3, seed=2)
+    eng = QuantixarEngine(EngineConfig(dim=32, metric="cosine",
+                                       builder="bulk",
+                                       hnsw=HNSWConfig(seed=0)),
+                          device="cuda")
+    eng.add(x)
+    eng.build()
+    mask = np.random.RandomState(0).rand(3000) < 0.3
+    s0 = bg_mod.step_launches
+    got = eng.search(q, k, ef=256, mask=mask)
+    assert bg_mod.step_launches > s0
+    fused = ops.beam_gather_step
+    monkeypatch.setattr(ops, "beam_gather_step", lambda *a, **kw: fused(
+        *a, **dict(kw, force_ref=True)))
+    s1 = bg_mod.step_launches
+    want = eng.search(q, k, ef=256, mask=mask)
+    assert bg_mod.step_launches == s1
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0].view(np.int32),
+                                  want[0].view(np.int32))
+
+
+def _flat_graph(vecs, adj0):
+    """A graph of layer 0 alone (entry point node 0)."""
+    from repro_torch.core.hnsw_search import HNSWGraph
+    dev = vecs.device
+    return HNSWGraph(vectors=vecs, adj0=adj0,
+                     upper_ids=torch.zeros(0, dtype=torch.int64, device=dev),
+                     upper_adj=torch.zeros((0, 0, 1), dtype=torch.int64,
+                                           device=dev),
+                     entry_global=0, entry_upper=0)
+
+
+# (metric, width, ef, M0, D, N, Q, max_iters, on the workspace): the
+# largest ef and the widest width, width · M0 and D in the tests, past
+# where the step's plan leaves shared memory (47 KB: ef ~2,700 at width 4,
+# M0 32, D 128; D ~11,000 at ef 64) and past the bitonic network's 256 keys
+# a thread each: B1ˢ takes every one
+WIDE_CASES = [("l2", 8, 1024, 32, 128, 4000, 7, None, False),
+              ("dot", 4, 3000, 32, 128, 4000, 7, 40, True),
+              ("l2", 33, 64, 8, 128, 4000, 7, None, False),
+              ("dot", 8, 256, 48, 128, 4000, 7, None, False),
+              ("l2", 8, 128, 64, 128, 4000, 1024, None, False),
+              ("l2", 4, 64, 16, 12100, 1000, 7, None, True)]
+
+
+@pytest.mark.parametrize("metric,width,ef,m0,d,n,nq,max_iters,work",
+                         WIDE_CASES)
+def test_b1s_takes_every_shape(cuda, metric, width, ef, m0, d, n, nq,
+                               max_iters, work):
+    """B1ˢ at shapes past shared memory and past a key a thread, step by
+    step against the plain step (every state tensor and count, bit for
+    bit), then a whole search through it against ``force_ref``."""
+    from repro_torch.core.hnsw_search import search
+    work_fn = bg_mod._step_lib()[0]
+    assert (work_fn(ef, width, m0, d) > 0) == work
+    vecs, adj0 = _step_graph(ef + m0, n, d, m0, 0.1, min(200, n // 3),
+                             metric, cuda)
+    rng = np.random.RandomState(width)
+    q = torch.as_tensor(rng.randn(nq, d).astype(np.float32), device=cuda)
+    ep = torch.as_tensor(rng.randint(0, n, nq), device=cuda)
+    steps, st, fresh = _step_pair(vecs, adj0, q, ep, ef, width,
+                                  max_iters or 4 * ef, metric)
+    assert steps > 1 and fresh > 0 and int(st.iters.max()) == steps
+    g = _flat_graph(vecs, adj0)
+    out, took = [], []
+    for force_ref in (False, True):
+        s0 = bg_mod.step_launches
+        d_, i, it = search(g, q, k=10, ef=ef, max_level=0, metric=metric,
+                           expansion_width=width, max_iters=max_iters,
+                           with_iters=True, force_ref=force_ref)
+        took.append(bg_mod.step_launches - s0)
+        out.append((_bits(d_), i, it))
+    assert took == [int(out[0][2].max()), 0] and took[0] > 0
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode,n", [("coarse", 20000), ("level", 6000)])
+def test_bulk_build_through_b1s_equals_the_plain_step(cuda, monkeypatch,
+                                                      mode, n):
+    """The bulk builder's beam searches (the coarse mode's stitch, the
+    level mode's inserts) through B1ˢ build the graph the plain step
+    builds: the same layer-0 rows, upper layers and entry point."""
+    import functools
+    from repro_torch.core import hnsw_bulk
+    from repro_torch.core.hnsw_search import search
+    x = gaussian_mixture(n, 32, n_clusters=15, scale=0.3, seed=5)
+    cfg = HNSWConfig(M=16, metric="cosine", seed=0, bulk_mode=mode,
+                     coarse_cluster=4096)
+    s0 = bg_mod.step_launches
+    got = bulk_build_device(x, cfg, device="cuda")
+    assert bg_mod.step_launches > s0
+    monkeypatch.setattr(hnsw_bulk, "beam_search",
+                        functools.partial(search, force_ref=True))
+    s1 = bg_mod.step_launches
+    want = bulk_build_device(x, cfg, device="cuda")
+    assert bg_mod.step_launches == s1
+    for field in ("adj0", "upper_ids", "upper_adj", "levels"):
+        np.testing.assert_array_equal(getattr(got, field),
+                                      getattr(want, field), field)
+    assert (got.entry_global, got.entry_upper) == \
+        (want.entry_global, want.entry_upper)
 
 
 # Both B6 paths add the same floats in the same order (acc = 0, then

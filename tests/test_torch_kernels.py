@@ -190,6 +190,44 @@ class TestDispatch:
         with pytest.raises(ValueError, match="CUDA tensor"):
             pg_mod.pair_gather(torch.as_tensor(ids), torch.as_tensor(corpus))
 
+    @pytest.mark.parametrize("force_ref", [False, True])
+    def test_cpu_search_takes_the_plain_step(self, monkeypatch, force_ref):
+        """On the CPU the float search's layer-0 loop takes B1ˢ's plain
+        version: ``ops.beam_gather_step`` returns None without building or
+        launching anything, and ``force_ref`` leaves the results as they
+        are."""
+        from repro_torch.core.hnsw_search import HNSWGraph, beam_state, search
+
+        def no_build(name):
+            raise AssertionError(f"{name} built on the CPU")
+
+        monkeypatch.setattr(_build, "load", no_build)
+        rng = np.random.RandomState(0)
+        n, d, m0, ef = 300, 8, 6, 16
+        vecs = torch.as_tensor(rng.randn(n, d).astype(np.float32))
+        adj0 = torch.as_tensor(np.stack(
+            [rng.choice(np.delete(np.arange(n), i), m0, replace=False)
+             for i in range(n)]).astype(np.int32))
+        g = HNSWGraph(vecs, adj0, torch.zeros(0, dtype=torch.int64),
+                      torch.zeros((0, 0, 1), dtype=torch.int64), 0, 0)
+        q = torch.as_tensor(rng.randn(5, d).astype(np.float32))
+        state = beam_state(torch.zeros(5, dtype=torch.int64), ef, 4 * ef,
+                           (n + 31) // 32, lambda ids, fresh: torch.where(
+                               fresh, ops.beam_gather_distances(
+                                   q, ids, vecs), float("inf")))
+        assert ops.beam_gather_step(q, adj0, vecs, state, width=4,
+                                    max_iters=4 * ef,
+                                    force_ref=force_ref) is None
+        before = bg_mod.step_launches
+        got = search(g, q, k=5, ef=ef, max_level=0, metric="l2",
+                     with_iters=True, force_ref=force_ref)
+        want = search(g, q, k=5, ef=ef, max_level=0, metric="l2",
+                      with_iters=True)
+        assert bg_mod.step_launches == before
+        assert int(got[2].max()) > 1
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
     def test_no_environment_switch(self):
         src = open(os.path.join(ROOT, "src", "repro_torch", "kernels",
                                 "ops.py")).read()

@@ -295,13 +295,15 @@ def test_spans_meet_their_twins_on_the_card(cuda, index):
     q = gaussian_mixture(1024, 128, n_clusters=15, scale=0.25, seed=11)
     eng.search(q, 10)                               # first use
     torch.cuda.synchronize()
-    b1 = bg_mod.launches
+    b1, b1s = bg_mod.launches, bg_mod.step_launches
     _, spans, prof = _traced(lambda: eng.search(q, 10),
                              (ProfilerActivity.CPU, ProfilerActivity.CUDA))
     torch.cuda.synchronize()
     if index == "hnsw":
+        # B1ˢ a step, B1 once for the entry points
         steps = sum(s.name == "hnsw.step" for s in spans)
-        assert steps == bg_mod.launches - b1 - 1 > 0
+        assert steps == bg_mod.step_launches - b1s > 0
+        assert bg_mod.launches - b1 == 1
     names = {s.name for s in spans}
     host = collections.defaultdict(list)
     device = []
@@ -324,3 +326,46 @@ def test_spans_meet_their_twins_on_the_card(cuda, index):
             ends.append(abs(b - tb))
     assert statistics.median(starts) < 50_000
     assert statistics.median(ends) < 50_000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "cosine"])
+@pytest.mark.parametrize("width", [1, 4])
+def test_counts_repeat_the_search_and_the_oracle_on_the_card(cuda, queries,
+                                                             metric, width):
+    """On the card the layer-0 loop runs B1ˢ: the ``hnsw.step`` spans'
+    counts are the host oracle's, as on the CPU, each step is one B1ˢ
+    launch, and a step holds its one wait and none of the plain step's
+    phases."""
+    from repro_torch.kernels import beam_gather as bg_mod
+
+    x = gaussian_mixture(N, DIM, n_clusters=15, scale=0.25, seed=3)
+    packed = bulk_build_device(x, HNSWConfig(M=8, metric=metric, seed=0),
+                               device="cpu")
+    g, max_level, m = to_device(packed, "cuda")
+    q = torch.as_tensor(preprocess_vectors(queries, metric), device=cuda)
+    s0 = bg_mod.step_launches
+    (d, ids, iters), spans, _ = _traced(
+        lambda: search(g, q, k=10, ef=32, max_level=max_level, metric=m,
+                       expansion_width=width, with_iters=True),
+        (ProfilerActivity.CPU, ProfilerActivity.CUDA))
+    torch.cuda.synchronize()
+    blocks = []
+    _, ids_ref = search_numpy_reference(packed, queries, 10, 32,
+                                        expansion_width=width,
+                                        block_sizes=blocks)
+    np.testing.assert_array_equal(ids.cpu().numpy(), ids_ref)
+    steps = [s for s in spans if s.name == "hnsw.step"]
+    assert len(steps) == int(iters.max()) == bg_mod.step_launches - s0
+    total = collections.Counter()
+    for s in steps:
+        total.update(s.counts)
+    nq, m0 = q.shape[0], g.adj0.shape[1]
+    assert total["active"] == int(iters.sum())
+    assert total["queries"] == nq * len(steps)
+    assert total["slots"] == nq * width * m0 * len(steps)
+    assert total["fresh"] == sum(blocks)
+    children = collections.defaultdict(list)
+    for s in spans:
+        children[s.parent].append(s.name)
+    assert all(children[s.span_id] == ["hnsw.wait"] for s in steps)
